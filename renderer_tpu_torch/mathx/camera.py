@@ -1,0 +1,119 @@
+"""Camera, projection and frustum math (``renderer_tpu.mathx.camera``).
+
+Depth convention: after the perspective divide z lies in [0, 1], near -> 0,
+far -> 1 (Vulkan style). Every matrix is float32 on the camera's device.
+The small products are written out term by term (no library matmul), so
+the CPU and the card sum in the same order.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from renderer_tpu_torch.mathx.transforms import quat_to_mat3
+
+
+class Camera(NamedTuple):
+    """Pinhole camera. ``rotation`` is a (w,x,y,z) unit quaternion taking
+    view-space axes into world space (camera forward is -Z)."""
+
+    position: torch.Tensor  # (3,)
+    rotation: torch.Tensor  # (4,)
+    fov_y: torch.Tensor  # radians, scalar
+    aspect: torch.Tensor  # width / height, scalar
+    near: torch.Tensor
+    far: torch.Tensor
+
+    @staticmethod
+    def create(position, rotation=None, fov_y=1.1, aspect=1.0, near=0.1,
+               far=100.0, device=None) -> "Camera":
+        if rotation is None:
+            rotation = (1.0, 0.0, 0.0, 0.0)
+
+        def f32(v):
+            return torch.as_tensor(v, dtype=torch.float32).to(device)
+
+        return Camera(
+            position=f32(position), rotation=f32(rotation), fov_y=f32(fov_y),
+            aspect=f32(aspect), near=f32(near), far=f32(far),
+        )
+
+
+def matmul4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(4, k) @ (k, m) with the sum over k taken left to right."""
+    out = a[:, 0:1] * b[0:1, :]
+    for k in range(1, a.shape[1]):
+        out = out + a[:, k : k + 1] * b[k : k + 1, :]
+    return out
+
+
+def view_matrix(cam: Camera) -> torch.Tensor:
+    """World -> view: the inverse of the camera's rigid transform."""
+    rt = quat_to_mat3(cam.rotation).T  # world -> view
+    t = -matmul4(rt, cam.position[:, None])[:, 0]
+    top = torch.cat([rt, t[:, None]], dim=1)
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=rt.device)
+    return torch.cat([top, bottom], dim=0)
+
+
+def perspective(fov_y, aspect, near, far) -> torch.Tensor:
+    """View -> clip, depth range [0, 1], right-handed view space."""
+    f = 1.0 / torch.tan(fov_y / 2.0)
+    m = torch.zeros((4, 4), dtype=torch.float32, device=f.device)
+    m[0, 0] = f / aspect
+    m[1, 1] = f
+    m[2, 2] = far / (near - far)
+    m[2, 3] = near * far / (near - far)
+    m[3, 2] = -1.0
+    return m
+
+
+def camera_matrices(cam: Camera):
+    """(view, proj, viewproj) for a Camera."""
+    v = view_matrix(cam)
+    p = perspective(cam.fov_y, cam.aspect, cam.near, cam.far)
+    return v, p, matmul4(p, v)
+
+
+def frustum_planes(viewproj: torch.Tensor) -> torch.Tensor:
+    """(6, 4) normalized planes a*x+b*y+c*z+d >= 0 inside (Gribb-Hartmann).
+    Order: left, right, bottom, top, near, far."""
+    r = viewproj
+    planes = torch.stack(
+        [r[3] + r[0], r[3] - r[0], r[3] + r[1], r[3] - r[1], r[2], r[3] - r[2]]
+    )
+    n = torch.linalg.norm(planes[:, :3], dim=-1, keepdim=True)
+    return planes / n
+
+
+def orbit_camera(angle: float, aspect: float, device=None) -> Camera:
+    """The bench orbit: radius 18, height 6, yaw ``angle``, pitch -0.3,
+    fov 0.9, near 0.1, far 200 (the float32 host formula of
+    ``bench.make_camera``)."""
+    r = 18.0
+    pos = np.array([r * math.sin(angle), 6.0, r * math.cos(angle)], np.float32)
+
+    def axis_angle(ax, a):
+        s = math.sin(a / 2.0)
+        return np.array(
+            [math.cos(a / 2.0), ax[0] * s, ax[1] * s, ax[2] * s], np.float32
+        )
+
+    w1, x1, y1, z1 = axis_angle((0.0, 1.0, 0.0), angle)
+    w2, x2, y2, z2 = axis_angle((1.0, 0.0, 0.0), -0.3)
+    rot = np.array(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        np.float32,
+    )
+    return Camera.create(pos, rot, fov_y=np.float32(0.9),
+                         aspect=np.float32(aspect), near=np.float32(0.1),
+                         far=np.float32(200.0), device=device)

@@ -1,0 +1,36 @@
+"""Quaternions (``renderer_tpu.mathx.transforms``), float32 torch.
+
+Quaternions are ``(w, x, y, z)``. All functions accept leading batch dims.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def quat_from_axis_angle(axis, angle, device=None) -> torch.Tensor:
+    """Unit quaternion rotating ``angle`` radians about ``axis``."""
+    axis = torch.as_tensor(axis, dtype=torch.float32, device=device)
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+    half = float(angle) / 2.0
+    w = torch.full(axis.shape[:-1] + (1,), math.cos(half), device=axis.device)
+    return torch.cat([w, axis * math.sin(half)], dim=-1)
+
+
+def quat_to_mat3(q: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix from a unit quaternion: (..., 4) -> (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack(
+        [
+            1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+            2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+            2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(m.shape[:-1] + (3, 3))

@@ -1,0 +1,6 @@
+"""Scene families (``renderer_tpu.models``)."""
+
+from renderer_tpu_torch.models.scenes import (  # noqa: F401
+    sponza_like_scene,
+    textured_scene,
+)

@@ -1,0 +1,121 @@
+"""Procedural scene families (``renderer_tpu.models.scenes``). Same
+arguments and the same tables as the JAX builders, plus the device."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from renderer_tpu_torch.scene import Scene, SceneBuilder, SceneLimits, primitives
+
+
+def textured_scene(limits: SceneLimits = None, atlas_size: int = 256,
+                   device=None) -> Scene:
+    """Textured PBR spheres, a box and a checkered floor."""
+    b = SceneBuilder(limits or SceneLimits(), atlas_size=atlas_size)
+    plane = b.add_mesh(primitives.plane(size=16.0))
+    sph = b.add_mesh(primitives.uv_sphere(rings=24, sectors=48))
+    box = b.add_mesh(primitives.box())
+    checker = b.add_texture(primitives.checkerboard_texture(atlas_size, squares=16))
+    warm = b.add_texture(
+        primitives.checkerboard_texture(atlas_size, squares=6, c0=(230, 120, 60), c1=(250, 235, 220))
+    )
+    floor = b.add_material(roughness=0.6, base_color_tex=checker)
+    shiny = b.add_material(roughness=0.25, metallic=0.1, base_color_tex=warm)
+    metal = b.add_material(base_color=(0.95, 0.64, 0.54, 1), roughness=0.3, metallic=1.0)
+    b.add_instance(plane, floor, translation=(0, -0.6, 0))
+    b.add_instance(sph, shiny, translation=(-0.9, 0, 0), scale=1.1)
+    b.add_instance(sph, metal, translation=(0.9, 0, 0), scale=1.1)
+    b.add_instance(box, shiny, translation=(0, -0.1, -1.6))
+    b.add_light(position=(3.0, 5.0, 4.0), intensity=30.0)
+    b.add_light(position=(-0.5, -1.0, -0.3), directional=True, intensity=0.35, shadow_slot=0)
+    return b.build(device=device)
+
+
+def sponza_like_scene(
+    n_instances: int = 10000,
+    seed: int = 0,
+    limits: SceneLimits = None,
+    with_lods: bool = True,
+    area: float = 120.0,
+    n_textures: int = 2,
+    tex_size: int = 256,
+    texture_slots: int = 0,
+    device=None,
+) -> Scene:
+    """The bench scene: a ground plane plus ``n_instances`` boxes, spheres
+    and tori (with LOD chains) scattered over ``area``, 2*n_textures atlas
+    layers (base colours and normal maps) and two lights. Host data comes
+    from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    n_mats = max(32, n_textures)
+    limits = limits or SceneLimits(
+        max_instances=max(16384, 1 << int(np.ceil(np.log2(n_instances + 16)))),
+        max_vertices=1 << 16,
+        max_triangles=1 << 16,
+        max_materials=max(64, n_mats + 1),
+        max_lights=4,
+        max_textures=max(64, 2 * n_textures),
+    )
+    b = SceneBuilder(limits, atlas_size=tex_size)
+    plane = b.add_mesh(primitives.plane(size=area * 1.2))
+    texs = [
+        b.add_texture(primitives.checkerboard_texture(256, squares=8)),
+        b.add_texture(
+            primitives.checkerboard_texture(256, squares=16, c0=(220, 160, 90), c1=(120, 80, 50))
+        ),
+    ]
+    nmaps = [
+        b.add_texture(primitives.bump_normal_texture(256, bumps=6, strength=0.8)),
+        b.add_texture(
+            primitives.bump_normal_texture(256, bumps=12, strength=0.6, kind="grooves")
+        ),
+    ]
+    for i in range(2, n_textures):
+        texs.append(b.add_texture(primitives.checkerboard_texture(
+            256, squares=int(rng.integers(4, 24)),
+            c0=tuple(int(c) for c in rng.integers(40, 255, 3)),
+            c1=tuple(int(c) for c in rng.integers(40, 255, 3)),
+        )))
+        nmaps.append(b.add_texture(primitives.bump_normal_texture(
+            256, bumps=int(rng.integers(3, 16)),
+            strength=float(rng.uniform(0.3, 0.9)),
+            kind="grooves" if i % 2 else "bumps",
+        )))
+
+    meshes = [
+        b.add_mesh(primitives.box()),
+        b.add_mesh(primitives.uv_sphere(rings=16, sectors=24), auto_lods=with_lods),
+        b.add_mesh(primitives.torus(rings=16, sides=10), auto_lods=with_lods),
+    ]
+    n_t = len(texs)
+    mats = [
+        b.add_material(
+            base_color=tuple(rng.uniform(0.2, 0.95, 3)) + (1.0,),
+            roughness=float(rng.uniform(0.2, 0.9)),
+            metallic=float(rng.choice([0.0, 0.0, 1.0])),
+            base_color_tex=texs[i % n_t] if (n_t > 2 or i % 3 == 0) else -1,
+            normal_tex=nmaps[i % n_t],
+        )
+        for i in range(n_mats)
+    ]
+    floor = b.add_material(
+        base_color=(0.45, 0.45, 0.48, 1.0), roughness=0.9, normal_tex=nmaps[1]
+    )
+    b.add_instance(plane, floor, translation=(0, -1.0, 0))
+
+    pos = rng.uniform(-area / 2, area / 2, size=(n_instances, 2))
+    height = rng.uniform(-0.5, 2.0, size=n_instances)
+    scale = rng.uniform(0.3, 1.2, size=n_instances)
+    angles = rng.uniform(0, 2 * np.pi, size=n_instances)
+    for i in range(n_instances):
+        c, s = np.cos(angles[i] / 2), np.sin(angles[i] / 2)
+        b.add_instance(
+            meshes[i % len(meshes)],
+            mats[i % len(mats)],
+            translation=(pos[i, 0], height[i], pos[i, 1]),
+            rotation=(c, 0.0, s, 0.0),
+            scale=float(scale[i]),
+        )
+    b.add_light(position=(0.4, -1.0, 0.2), directional=True, intensity=2.5, shadow_slot=0)
+    b.add_light(position=(0.0, 20.0, 0.0), intensity=300.0)
+    return b.build(texture_slots=texture_slots, device=device)

@@ -1,0 +1,112 @@
+"""The Renderer: per-frame driver around the forward plan
+(``renderer_tpu.runtime.frame``).
+
+- ``execute_plan`` runs the plan's passes in order, each inside a
+  ``torch.profiler`` range named ``forward.<pass>``.
+- Light-slot specialization: shading loops over the scene's live light
+  count, read once at construction.
+- Nothing persists between frames yet: the resources the JAX package keeps
+  (frozen draw list, last viewproj, last depth) are read only by passes that
+  are not ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Optional
+
+import torch
+
+from renderer_tpu_torch.mathx.camera import Camera
+from renderer_tpu_torch.passes.pipeline import PipelineConfig, build_forward_plan
+from renderer_tpu_torch.scene.types import Scene
+
+
+def _record_pass(name: str):
+    return torch.profiler.record_function(f"forward.{name}")
+
+
+def execute_plan(passes, outputs, wrap=_record_pass, **external) -> dict:
+    """Run the passes in order and return the named outputs. ``wrap(name)``
+    gives the context each pass runs in (a profiler range by default)."""
+    env = dict(external)
+    for p in passes:
+        with wrap(p.name):
+            result = p.fn(**{r: env[r] for r in p.reads})
+        if set(result) != set(p.writes):
+            raise RuntimeError(f"pass {p.name!r} returned {sorted(result)}, claims {sorted(p.writes)}")
+        env.update(result)
+    return {o: env[o] for o in outputs}
+
+
+class Renderer:
+    def __init__(self, scene: Scene, cfg: Optional[PipelineConfig] = None,
+                 outputs=("image", "vis"), device=None):
+        scene_device = scene.lights.count.device
+        # normalized ("cuda" -> "cuda:0") so it compares with tensor devices
+        self.device = scene_device if device is None else torch.empty(0, device=device).device
+        if scene_device != self.device:
+            raise ValueError(f"scene lives on {scene_device}, renderer on {self.device}")
+        self.cfg = cfg or PipelineConfig()
+        self._auto_light_slots = self.cfg.shade_light_slots is None
+        if self._auto_light_slots:
+            self.cfg = dataclasses.replace(
+                self.cfg, shade_light_slots=int(scene.lights.count)
+            )
+        self.outputs = tuple(outputs)
+        self.passes = build_forward_plan(self.cfg, self.outputs)
+        self.scene = scene
+        self.stats = {"frames": 0, "last_ms": 0.0}
+
+    def _external(self, camera: Camera) -> dict:
+        camera = Camera(*(t.to(self.device) for t in camera))
+        return {"scene": self.scene, "camera": camera}
+
+    def render(self, camera: Camera, scene: Optional[Scene] = None) -> dict:
+        """Render one frame; returns the outputs dict (device tensors). The
+        work is queued on the current stream, not waited for."""
+        if scene is not None:
+            if scene.lights is not self.scene.lights:
+                self._check_light_contract(scene)
+            self.scene = scene
+        t0 = time.perf_counter()
+        outputs = execute_plan(self.passes, self.outputs, **self._external(camera))
+        self.stats["last_ms"] = (time.perf_counter() - t0) * 1e3
+        self.stats["frames"] += 1
+        return outputs
+
+    def _check_light_contract(self, scene: Scene) -> None:
+        """Shading loops over the construction scene's live light count; a
+        scene override with more live lights would shade some of them not
+        at all."""
+        count = int(scene.lights.count)
+        if self._auto_light_slots and count > self.cfg.shade_light_slots:
+            raise ValueError(
+                f"scene has {count} live lights but the Renderer shades "
+                f"{self.cfg.shade_light_slots} (shade_light_slots); construct a "
+                "new Renderer or pass shade_light_slots explicitly"
+            )
+
+    def pass_timings(self, camera: Camera, iters: int = 5) -> dict:
+        """Mean device milliseconds of each pass, from CUDA events around
+        the pass over ``iters`` runs (not counted as frames)."""
+        if self.device.type != "cuda":
+            raise RuntimeError("pass timings need a CUDA device")
+        pairs: dict[str, list] = {}
+
+        @contextlib.contextmanager
+        def timed(name):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with _record_pass(name):
+                yield
+            end.record()
+            pairs.setdefault(name, []).append((start, end))
+
+        for _ in range(iters):
+            execute_plan(self.passes, self.outputs, wrap=timed, **self._external(camera))
+        torch.cuda.synchronize(self.device)
+        return {n: sum(s.elapsed_time(e) for s, e in v) / len(v) for n, v in pairs.items()}

@@ -1,0 +1,42 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. Free of jax (the reference gate uses the JAX package's numpy
+rasterizer only), so it also runs on a machine without jax:
+
+    python -m pytest tests/test_torch_kernels.py -m gpu -q
+
+Without a CUDA device every test here skips. Gate: the raster kernel
+equals the plain version bit for bit (tri_id, depth, barycentrics), and
+both pass the float64-reference gate of torch_raster_gate.
+"""
+
+import pytest
+import torch
+
+from renderer_tpu_torch.ops.raster_cuda import raster_inputs, raster_kernel, raster_tiles_plain
+from torch_raster_cases import CASES
+from torch_raster_gate import reference_gate
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_bary", [True, False])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_raster_kernel_matches_plain(case, with_bary, cuda_device):
+    build, w, h, cull = CASES[case]
+    clip, valid = build()
+    args = raster_inputs(torch.from_numpy(clip).to(cuda_device),
+                         torch.from_numpy(valid).to(cuda_device), w, h, cull)
+    got = raster_kernel(*args, with_bary)
+    want = raster_tiles_plain(*args, with_bary)
+    torch.cuda.synchronize()
+    for name, g, p in zip(("depth", "tri_id", "b0", "b1"), got, want):
+        assert torch.equal(g, p), name
+    depth, tri_id, b0, b1 = (t.cpu().numpy() for t in got)
+    bary = torch.stack([got[2], got[3], 1.0 - got[2] - got[3]]).cpu().numpy() * (tri_id >= 0)
+    reference_gate(tri_id, depth, bary if with_bary else None, clip, valid, w, h, cull)
