@@ -9,24 +9,43 @@ code is non-zero:
 
 1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
    TF32 off for matmuls and cuDNN;
-2. build the raster kernel from renderer_tpu_torch/csrc/raster.cu;
+2. build every kernel from renderer_tpu_torch/csrc/ (raster.cu,
+   occlusion.cu, probe.cu; one nvcc each, started together), with ptxas's
+   registers and spills;
 3. raster kernel against its plain PyTorch version on the test cases of
    tests/torch_raster_cases.py (bit-identical; the CPU tests hold the plain
    version to the float64 numpy reference rasterizer);
-4. the bench frame's own soup (sponza_like_scene(10000), orbit angle 0.3,
-   1920x1088, 131072 triangles): kernel against plain version, timed;
-5. the main path: Renderer over the bench orbit, 1 warm-up frame and 30
+4. occlusion kernel against its plain version on the cases of
+   tests/torch_occlusion_cases.py (identical planes; the CPU tests hold the
+   plain version to JAX and a float64 brute force);
+5. the two kernels on no path (add_one, transpose) against x + 1 and
+   x.T.contiguous(), timed at (8, 128) and (262144, 36);
+6. the bench frame's own soup (sponza_like_scene(10000), orbit angle 0.3,
+   1920x1088, 131072 triangles): raster kernel against plain version, timed;
+7. the main path: Renderer over the bench orbit, 1 warm-up frame and 30
    timed frames; per-pass times, the raster kernel's launch count, image
    checks, the last frame written to renderer_tpu_torch/_build/;
-6. one frame of the main path with the kernel against the same frame with
-   the plain raster version swapped in;
-7. torch.profiler over the main path: the device's busy and idle share of
+8. one frame of the main path with the raster kernel against the same
+   frame with the plain raster version swapped in;
+9. torch.profiler over the main path: the device's busy and idle share of
    one traced window (device activity only), then device and host time per
-   pass in a second window that also traces the host.
+   pass in a second window that also traces the host (the kernels launched
+   through ctypes are added to the pass that launches them);
+10. the rt path's occlusion inputs at the bench camera (slot 0, the sun)
+    for rt_scale 2 and 1: kernel against plain version, bin lists, caster
+    total against capacity, kernel / setup+binning+kernel / plain times;
+11. the rt main path (the rt switch, rt_scale 2, 4 shadow slots): 1
+    warm-up and 30 timed frames, occlusion launches = frames x traced
+    slots, image checks, darker than the rt-off frame; PNG to _build/;
+12. one rt frame with the occlusion kernel against the same frame with its
+    plain version swapped in: identical planes and images;
+13. the profile of phase 9 over the rt main path.
 
-Then one JSON line per kernel and, last, the JSON result line.
+Then one JSON line listing every kernel, the card's name and power limit,
+and, last, the JSON result line.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -42,11 +61,13 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 from renderer_tpu_torch.mathx import orbit_camera  # noqa: E402
 from renderer_tpu_torch.models import sponza_like_scene  # noqa: E402
-from renderer_tpu_torch.ops import geometry  # noqa: E402
-from renderer_tpu_torch.ops import raster_cuda as rc  # noqa: E402
+from renderer_tpu_torch.ops import cuda_build, geometry, occlusion_cuda as oc  # noqa: E402
+from renderer_tpu_torch.ops import probe_cuda, raster_cuda as rc, rt_grid as trt  # noqa: E402
+from renderer_tpu_torch.ops.shadow import directional_light_matrices  # noqa: E402
 from renderer_tpu_torch.passes.pipeline import PipelineConfig  # noqa: E402
 from renderer_tpu_torch.runtime import Renderer  # noqa: E402
 from renderer_tpu_torch.utils.image import psnr, write_png  # noqa: E402
+from torch_occlusion_cases import CASES as OCCLUSION_CASES  # noqa: E402
 from torch_raster_cases import CASES  # noqa: E402
 
 WIDTH, HEIGHT = 1920, 1088
@@ -54,8 +75,14 @@ N_INSTANCES = 10000
 TRI_CAPACITY = 1 << 17
 FRAMES = 30
 PROFILE_FRAMES = 10
-PSNR_GATE_DB = 60.0  # main path, kernel vs plain raster (display-clamped)
-DEPTH_TOL = 1e-6  # kernel vs plain version (they should agree bit for bit)
+PSNR_GATE_DB = 60.0  # main path, kernel vs plain version (display-clamped)
+DEPTH_TOL = 1e-6  # raster kernel vs plain version (they should agree bit for bit)
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS_PER_PAIR = 25  # FP32 operations per (pixel or receiver, triangle) pair tested
+# the pass that launches each ctypes kernel of the main path
+PASS_KERNELS = {"raster_tiles_kernel": "raster", "occlusion_tiles_kernel": "shade_rt"}
 
 
 def phase(name: str, msg: str) -> None:
@@ -74,15 +101,65 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn) -> float:
+    """Host-clock ms of one call, synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(least ms the card could take, what bounds it) for the work."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def compare(got, want) -> float:
-    """Kernel vs plain outputs (depth, tri_id, b0, b1): tri_id identical,
-    the rest within DEPTH_TOL. Returns the max abs float difference."""
+    """Raster kernel vs plain outputs (depth, tri_id, b0, b1): tri_id
+    identical, the rest within DEPTH_TOL. Returns the max abs float
+    difference."""
     if not torch.equal(got[1], want[1]):
         raise AssertionError(f"tri_id differs on {(got[1] != want[1]).sum().item()} pixels")
     err = max((got[i] - want[i]).abs().max().item() for i in (0, 2, 3))
     if err > DEPTH_TOL:
         raise AssertionError(f"kernel vs plain float error {err}")
     return err
+
+
+def raster_bound(args):
+    """Bytes: the records, the listed mask words and list entries, the
+    counts and flags, four output planes. Operations: every (pixel,
+    triangle) pair of the tiles' mask bits."""
+    rec, masks, block_list, block_count, block_simple, width, height, _ = args
+    n_tiles, n_blocks = masks.shape
+    pos = torch.arange(n_blocks, device=masks.device)[None] < block_count[:, None].long()
+    words = torch.where(pos, masks.gather(1, block_list.long()), 0)
+    bits = sum(((words >> k) & 1).sum().item() for k in range(64))
+    n_listed = int(block_count.sum())
+    n_bytes = (rec.numel() * 4 + n_listed * 12 + n_tiles * 4 + n_blocks * 4
+               + 4 * width * height * 4)
+    return bound(n_bytes, bits * rc.TILE_H * rc.TILE_W * OPS_PER_PAIR)
+
+
+def occlusion_bound(args):
+    """Bytes: 16 per receiver (lx, ly, ld in, occ out), the records, the
+    list entries, counts and tile bboxes. Operations: (live receiver, live
+    caster overlapping the tile's receiver bbox) pairs of the listed
+    blocks, ~25 FP32 operations each, no early exit counted. Returns
+    (bound, pairs)."""
+    rec, block_list, block_count, tile_bbox, lx, ly, ld = args
+    n_tiles = block_list.shape[0]
+    live = oc._tile_rows(torch.isfinite(ld)).sum(dim=1)
+    recb = rec.reshape(-1, rc.BLOCK, oc.REC)
+    hits = torch.zeros(n_tiles, dtype=torch.int64, device=rec.device)
+    for i in range(int(block_count.max()) if n_tiles else 0):
+        hit = oc.caster_hits(recb[block_list[:, i].long()], tile_bbox)
+        hits += torch.where(block_count > i, hit.sum(dim=1), 0)
+    pairs = int((hits * live).sum())
+    n_bytes = 16 * lx.numel() + rec.numel() * 4 + int(block_count.sum()) * 4 + n_tiles * 20
+    return bound(n_bytes, pairs * OPS_PER_PAIR), pairs
 
 
 def traced_window(renderer, dev, activities):
@@ -100,9 +177,12 @@ def traced_window(renderer, dev, activities):
     return prof, wall_ms
 
 
-def profile_main_path(renderer, dev, card: str) -> None:
+def profile_main_path(name, renderer, dev, card: str) -> None:
     """Device busy time against wall time in one traced window, and per-pass
-    device and host time in a second window."""
+    device and host time in a second window. The kernels launched through
+    ctypes fall under no pass's range in the profile, so each one's device
+    time is added to the pass that launches it (PASS_KERNELS), shown as
+    range+kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
@@ -111,19 +191,78 @@ def profile_main_path(renderer, dev, card: str) -> None:
                   if e.device_type == DeviceType.CUDA and not e.key.startswith("forward.")]
     busy_ms = sum(e.self_device_time_total for e in device_ops) / 1e3 / PROFILE_FRAMES
     ops = sum(e.count for e in device_ops) / PROFILE_FRAMES
+    top = sorted(device_ops, key=lambda e: -e.self_device_time_total)[:4]
     if busy_ms > 0:
         share = (f"device busy {busy_ms:.3f} ms/frame in a {wall_ms:.3f} ms/frame traced window "
-                 f"= idle {100.0 * (1.0 - busy_ms / wall_ms):.1f}%, {ops:.0f} device ops/frame")
+                 f"= idle {100.0 * (1.0 - busy_ms / wall_ms):.1f}%, {ops:.0f} device ops/frame; "
+                 "longest: " + ", ".join(
+                     f"{e.key[:48]} {e.self_device_time_total / 1e3 / PROFILE_FRAMES:.3f} ms/frame"
+                     for e in top))
     else:
         share = "device time not measured (the profiler saw no device activity)"
     prof, wall_ms = traced_window(renderer, dev, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    events = prof.key_averages()
     passes = {e.key[len("forward."):]: (e.device_time_total / 1e3 / PROFILE_FRAMES,
                                         e.cpu_time_total / 1e3 / PROFILE_FRAMES)
-              for e in prof.key_averages()
-              if e.key.startswith("forward.") and e.device_type == DeviceType.CPU}
-    per_pass = ", ".join(f"{k} {d:.3f}/{h:.3f}" for k, (d, h) in passes.items())
-    phase("profile", f"{PROFILE_FRAMES} frames ({card}): {share}; host+device traced window "
-                     f"{wall_ms:.3f} ms/frame, per pass device/host ms/frame: {per_pass}")
+              for e in events if e.key.startswith("forward.") and e.device_type == DeviceType.CPU}
+    owned = dict.fromkeys(passes, 0.0)
+    for e in events:
+        for kernel, owner in PASS_KERNELS.items():
+            if e.device_type == DeviceType.CUDA and f"{kernel}(" in e.key and owner in owned:
+                owned[owner] += e.self_device_time_total / 1e3 / PROFILE_FRAMES
+    per_pass = ", ".join(f"{k} {d:.3f}" + (f"+{owned[k]:.3f}" if owned[k] else "") + f"/{h:.3f}"
+                         for k, (d, h) in passes.items())
+    total = sum(d for d, _ in passes.values()) + sum(owned.values())
+    phase(name, f"{PROFILE_FRAMES} frames ({card}): {share}; host+device traced window "
+                f"{wall_ms:.3f} ms/frame, per pass device(range+ctypes kernel)/host ms/frame: "
+                f"{per_pass}; passes sum to {total:.3f} ms/frame of device time")
+
+
+def run_orbit(renderer, dev):
+    """One warm-up and FRAMES timed orbit frames. Returns (ms per frame,
+    last outputs)."""
+    out = renderer.render(orbit_camera(0.3, WIDTH / HEIGHT, dev))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(FRAMES):
+        out = renderer.render(orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / FRAMES, out
+
+
+def check_image(out):
+    """Finite, the right shape, enough coverage and light. Returns
+    (image (H, W, 3) numpy, coverage, mean brightness)."""
+    img = out["image"].cpu().numpy()
+    coverage = float((out["vis"].tri_id >= 0).float().mean())
+    brightness = float(np.clip(img, 0.0, 1.0).mean())
+    if not np.isfinite(img).all() or img.shape != (HEIGHT, WIDTH, 3):
+        raise AssertionError(f"image not finite or wrong shape {img.shape}")
+    if coverage <= 0.30 or brightness <= 0.05:
+        raise AssertionError(f"coverage {coverage:.3f} or brightness {brightness:.3f} too low")
+    return img, coverage, brightness
+
+
+class Recorder:
+    """Wraps rt_grid.occlusion_grid while active: keeps each call's
+    arguments and result."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self._orig = trt.occlusion_grid
+
+        def record(*args):
+            out = self._orig(*args)
+            self.calls.append((args, out))
+            return out
+
+        trt.occlusion_grid = record
+        return self
+
+    def __exit__(self, *exc):
+        trt.occlusion_grid = self._orig
 
 
 def main() -> int:
@@ -131,6 +270,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    kernels = {}
 
     # 1. card identity -------------------------------------------------------
     card = subprocess.run(
@@ -144,11 +284,17 @@ def main() -> int:
 
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
+    libraries = {"raster.cu": rc.LIBRARY, "occlusion.cu": oc.LIBRARY, "probe.cu": probe_cuda.LIBRARY}
+    cuda_build.build_all(libraries.values())
     rc.raster_kernel.load()
-    ptxas = [ln.strip() for ln in rc.raster_kernel.build_log.splitlines() if "registers" in ln]
-    phase("build", f"raster.cu loaded in {time.perf_counter() - t0:.2f} s; {' '.join(ptxas)}")
+    oc.occlusion_kernel.load()
+    probe_cuda.probe_kernels.load()
+    phase("build", f"{len(libraries)} sources built in parallel and loaded in "
+                   f"{time.perf_counter() - t0:.2f} s; " + "; ".join(
+                       f"{name}: {lib.build_log.splitlines()[0] if lib.build_log else 'cached'}, "
+                       f"{cuda_build.ptxas_summary(lib)}" for name, lib in libraries.items()))
 
-    # 3. kernel vs plain on the test cases --------------------------------------
+    # 3. raster kernel vs plain on the test cases -------------------------------
     worst = 0.0
     for name, (build, w, h, cull) in sorted(CASES.items()):
         clip, valid = build()
@@ -157,9 +303,39 @@ def main() -> int:
         for with_bary in (True, False):
             worst = max(worst, compare(rc.raster_kernel(*args, with_bary),
                                        rc.raster_tiles_plain(*args, with_bary)))
-    phase("cases", f"{len(CASES)} cases x bary on/off: tri_id identical, max float err {worst:.1e}")
+    phase("raster_cases", f"{len(CASES)} cases x bary on/off: tri_id identical, max float err {worst:.1e}")
 
-    # 4. the bench frame's soup ---------------------------------------------
+    # 4. occlusion kernel vs plain on the test cases -----------------------------
+    for name, build in sorted(OCCLUSION_CASES.items()):
+        args = trt.occlusion_inputs(*(torch.from_numpy(a).to(dev) for a in build()))
+        if not torch.equal(oc.occlusion_kernel(*args), oc.occlusion_tiles_plain(*args)):
+            raise AssertionError(f"occlusion kernel differs from its plain version on {name}")
+    phase("occlusion_cases", f"{len(OCCLUSION_CASES)} cases: planes identical")
+
+    # 5. the kernels on no path ---------------------------------------------
+    probes = {}
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 128)).astype(np.float32)).to(dev)
+    e = torch.from_numpy(np.random.default_rng(1).normal(size=(262144, 36)).astype(np.float32)).to(dev)
+    for pname, replaces, kernel, plain, library, inp, iters in (
+            ("add_one", "tests/test_tpu_hw.py:87", probe_cuda.add_one, probe_cuda.add_one_plain,
+             lambda: x + 1, x, 100),
+            ("transpose", "scripts/prof_phasea.py:93", probe_cuda.transpose,
+             probe_cuda.transpose_plain, lambda: e.T.contiguous(), e, 50)):
+        got, want = kernel(inp), plain(inp)
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{pname} differs from its plain version")
+        p_bound, p_by = bound(2 * inp.numel() * 4, inp.numel() if pname == "add_one" else 0)
+        probes[pname] = kernels[pname] = dict(
+            name=pname, route="cuda", source="renderer_tpu_torch/csrc/probe.cu",
+            replaces=replaces, launches=None, max_abs_err=(got - want).abs().max().item(),
+            ms=cuda_ms(lambda: kernel(inp), iters), plain_ms=cuda_ms(lambda: plain(inp), iters),
+            bound_ms=p_bound, bound_by=p_by, library_ms=cuda_ms(library, iters))
+    phase("probe", "; ".join(
+        f"{k} {tuple(v.shape)}: kernel {p['ms']:.5f} ms, plain {p['plain_ms']:.5f} ms, library "
+        f"{p['library_ms']:.5f} ms, bound {p['bound_ms']:.6f} ms by {p['bound_by']}, max err "
+        f"{p['max_abs_err']}" for (k, p), v in zip(probes.items(), (x, e))) + f" ({card})")
+
+    # 6. the bench frame's soup ---------------------------------------------
     t0 = time.perf_counter()
     scene = sponza_like_scene(N_INSTANCES, device=dev)
     torch.cuda.synchronize()
@@ -173,50 +349,44 @@ def main() -> int:
     full_ms = cuda_ms(lambda: rc.rasterize_cuda(soup.clip, soup.valid, WIDTH, HEIGHT,
                                                 with_bary=False), 10)
     got = rc.raster_kernel(*args, False)
-    t0 = time.perf_counter()
-    want = rc.raster_tiles_plain(*args, False)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    bench_err = compare(got, want)
+    want = [None]
+    plain_ms = host_ms(lambda: want.__setitem__(0, rc.raster_tiles_plain(*args, False)))
+    bench_err = compare(got, want[0])
+    r_bound, r_by = raster_bound(args)
+    kernels["raster_tiles"] = dict(
+        name="raster_tiles", route="cuda", source="renderer_tpu_torch/csrc/raster.cu",
+        replaces="renderer_tpu/ops/raster_pallas.py:373", launches=None, max_abs_err=bench_err,
+        ms=kernel_ms, plain_ms=plain_ms, bound_ms=r_bound, bound_by=r_by, library_ms=None)
     phase("bench_soup", f"scene built in {t_scene:.1f} s; {int(soup.count)} triangles; bins "
                         f"mean {counts.float().mean().item():.1f} max {int(counts.max())} blocks/tile; "
-                        f"kernel {kernel_ms:.3f} ms, setup+binning+kernel {full_ms:.3f} ms, "
-                        f"plain {plain_ms:.1f} ms; tri_id identical, max float err {bench_err:.1e} "
-                        f"({card})")
+                        f"kernel {kernel_ms:.3f} ms (bound {r_bound:.4f} ms by {r_by}), "
+                        f"setup+binning+kernel {full_ms:.3f} ms, plain {plain_ms:.1f} ms; tri_id "
+                        f"identical, max float err {bench_err:.1e} ({card})")
 
-    # 5. main path ------------------------------------------------------------
+    # 7. main path ------------------------------------------------------------
     cfg = PipelineConfig(width=WIDTH, height=HEIGHT, tri_capacity=TRI_CAPACITY,
                          enable_normal_maps=True, aa="edge", trilinear=False)
     renderer = Renderer(scene, cfg, outputs=("image", "vis", "soup"), device=dev)
     rc.raster_kernel.launches = 0
-    out = renderer.render(orbit_camera(0.3, WIDTH / HEIGHT, dev))  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for k in range(FRAMES):
-        out = renderer.render(orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev))
-    torch.cuda.synchronize()
-    frame_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
+    probe_cuda.probe_kernels.launches = dict.fromkeys(probe_cuda.probe_kernels.launches, 0)
+    frame_ms, out = run_orbit(renderer, dev)
     launches = rc.raster_kernel.launches
+    probe_launches = dict(probe_cuda.probe_kernels.launches)
     frames = FRAMES + 1
     if launches != frames:
         raise AssertionError(f"raster kernel launched {launches} times for {frames} frames")
-    visible = int(out["soup"].count)
-    img = out["image"].cpu().numpy()
-    coverage = float((out["vis"].tri_id >= 0).float().mean())
-    brightness = float(np.clip(img, 0.0, 1.0).mean())
-    if not np.isfinite(img).all() or img.shape != (HEIGHT, WIDTH, 3):
-        raise AssertionError(f"image not finite or wrong shape {img.shape}")
-    if coverage <= 0.30 or brightness <= 0.05:
-        raise AssertionError(f"coverage {coverage:.3f} or brightness {brightness:.3f} too low")
-    os.makedirs(rc.BUILD_DIR, exist_ok=True)
-    write_png(os.path.join(rc.BUILD_DIR, "chip_smoke_frame.png"), np.clip(img, 0.0, 1.0))
+    kernels["raster_tiles"]["launches"] = launches
+    img_base, coverage, brightness = check_image(out)
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    write_png(os.path.join(cuda_build.BUILD_DIR, "chip_smoke_frame.png"), np.clip(img_base, 0.0, 1.0))
     passes = renderer.pass_timings(orbit_camera(0.3 + 0.01 * (FRAMES - 1), WIDTH / HEIGHT, dev))
     phase("main_path", f"{frame_ms:.2f} ms/frame = {1e3 / frame_ms:.2f} FPS over {FRAMES} frames "
-                       f"({card}); {visible} visible triangles; raster launches {launches} = "
-                       f"frames {frames}; coverage {coverage:.3f}, mean {brightness:.3f}; pass ms "
+                       f"({card}); {int(out['soup'].count)} visible triangles; raster launches "
+                       f"{launches} = frames {frames}; coverage {coverage:.3f}, mean "
+                       f"{brightness:.3f}; pass ms "
                        + json.dumps({k: round(v, 3) for k, v in passes.items()}))
 
-    # 6. main path, kernel vs plain raster ------------------------------------
+    # 8. main path, kernel vs plain raster ------------------------------------
     cam = orbit_camera(0.3, WIDTH / HEIGHT, dev)
     ref_out = Renderer(scene, cfg, device=dev).render(cam)
     kernel = rc.raster_kernel
@@ -234,16 +404,127 @@ def main() -> int:
     phase("main_vs_plain", f"tri_id identical; display-clamped PSNR "
                            f"{'inf' if math.isinf(frame_psnr) else f'{frame_psnr:.1f}'} dB")
 
-    # 7. profile ----------------------------------------------------------------
-    profile_main_path(renderer, dev, card)
+    # 9. profile ----------------------------------------------------------------
+    profile_main_path("profile", renderer, dev, card)
 
-    print(json.dumps({"kernels": [{
-        "name": "raster_tiles", "route": "cuda",
-        "source": "renderer_tpu_torch/csrc/raster.cu",
-        "replaces": "renderer_tpu/ops/raster_pallas.py:373",
-        "launches": launches, "max_abs_err": bench_err,
-        "ms": kernel_ms, "plain_ms": plain_ms,
-    }]}))
+    # 10. rt: slot 0's occlusion inputs at the bench camera --------------------
+    rt_cfgs = {s: dataclasses.replace(cfg, rt_scale=s) for s in (2, 1)}
+    rt_inputs = {}
+    for s, c in rt_cfgs.items():
+        r = Renderer(scene, c, device=dev)
+        r.set_config(rt=True)
+        r.apply_config_now()
+        with Recorder() as rec:
+            r.render(cam)
+        rt_inputs[s] = rec.calls[0][0]  # the first slot traced: slot 0
+    mats = directional_light_matrices(scene.lights, prepared.scene_min, prepared.scene_max)
+    visible = geometry.coarse_cull(scene, prepared.model, mats[0])
+    mesh_id = scene.instances.mesh_id.long()
+    demand = int(torch.where(visible, scene.meshes.lod_tri_count[mesh_id, prepared.lod], 0).sum())
+    cap = cfg.caster_capacity
+    grid = []
+    for s in (2, 1):
+        clip, valid, lx, ly, ld = rt_inputs[s]
+        args = trt.occlusion_inputs(clip, valid, lx, ly, ld)
+        got = oc.occlusion_kernel(*args)
+        want = [None]
+        p_ms = host_ms(lambda: want.__setitem__(0, oc.occlusion_tiles_plain(*args)))
+        if not torch.equal(got, want[0]):
+            raise AssertionError(f"occlusion kernel differs from plain at rt_scale {s}: "
+                                 f"{int((got != want[0]).sum())} receivers")
+        occ_err = (got - want[0]).abs().max().item()
+        k_ms = cuda_ms(lambda: oc.occlusion_kernel(*args), 20)
+        f_ms = cuda_ms(lambda: trt.occlusion_grid(clip, valid, lx, ly, ld), 10)
+        (o_bound, o_by), pairs = occlusion_bound(args)
+        bc = args[2]
+        live = torch.isfinite(ld)
+        shadowed = float(((got[: ld.shape[0], : ld.shape[1]] == 0) & live).sum()) / max(1, int(live.sum()))
+        grid.append(f"rt_scale {s}: grid {lx.shape[0]}x{lx.shape[1]}, {bc.numel()} tiles, bins mean "
+                    f"{bc.float().mean().item():.1f} max {int(bc.max())} blocks/tile, {pairs} "
+                    f"receiver-caster pairs, {100 * shadowed:.1f}% of live receivers shadowed; "
+                    f"kernel {k_ms:.3f} ms (bound {o_bound:.4f} ms by {o_by}), setup+binning+kernel "
+                    f"{f_ms:.3f} ms, plain {p_ms:.1f} ms; planes identical")
+        if s == 2:
+            kernels["occlusion_tiles"] = dict(
+                name="occlusion_tiles", route="cuda", source="renderer_tpu_torch/csrc/occlusion.cu",
+                replaces="renderer_tpu/ops/rt_grid.py:98", launches=None, max_abs_err=occ_err,
+                ms=k_ms, plain_ms=p_ms, bound_ms=o_bound, bound_by=o_by, library_ms=None)
+    n_live = int(rt_inputs[2][1].sum())
+    phase("rt_grid", f"casters: {demand} wanted by the sun's coarse cull at the camera LOD, "
+                     f"capacity {cap}, {n_live} expanded "
+                     f"({'truncated' if demand > cap else 'not truncated'}); " + "; ".join(grid)
+          + f" ({card})")
+
+    # 11. rt main path ----------------------------------------------------------
+    rt_renderer = Renderer(scene, rt_cfgs[2], outputs=("image", "vis", "soup"), device=dev)
+    rt_renderer.set_config(rt=True)
+    rt_renderer.apply_config_now()
+    slots = trt.slot_lights(rt_renderer.light_casts, rt_renderer.cfg.shadow_slots)
+    per_frame = sum(0 if sl is None else (1 if sl[1] else 6) for sl in slots)
+    rc.raster_kernel.launches = 0
+    oc.occlusion_kernel.launches = 0
+    probe_cuda.probe_kernels.launches = dict.fromkeys(probe_cuda.probe_kernels.launches, 0)
+    rt_ms, rt_out = run_orbit(rt_renderer, dev)
+    occ_launches, ras_launches = oc.occlusion_kernel.launches, rc.raster_kernel.launches
+    for k, n in probe_cuda.probe_kernels.launches.items():
+        probe_launches[k] += n
+        kernels[k]["launches"] = probe_launches[k]
+    if any(probe_launches.values()):
+        raise AssertionError(f"kernels of no path launched on the main paths: {probe_launches}")
+    if occ_launches != frames * per_frame or per_frame == 0:
+        raise AssertionError(f"occlusion kernel launched {occ_launches} times for {frames} frames "
+                             f"x {per_frame} traced slot faces")
+    if ras_launches != frames:
+        raise AssertionError(f"raster kernel launched {ras_launches} times for {frames} rt frames")
+    kernels["occlusion_tiles"]["launches"] = occ_launches
+    img_rt, coverage, brightness = check_image(rt_out)
+    darker = (img_base - img_rt).mean(axis=-1) > 0.05
+    covered = (rt_out["vis"].tri_id >= 0).cpu().numpy()
+    dark_share = float(darker[covered].mean())
+    if dark_share < 0.005:
+        raise AssertionError(f"rt frame darker than the rt-off frame on only {100 * dark_share:.2f}% "
+                             "of covered pixels")
+    write_png(os.path.join(cuda_build.BUILD_DIR, "chip_smoke_rt_frame.png"), np.clip(img_rt, 0.0, 1.0))
+    rt_passes = rt_renderer.pass_timings(orbit_camera(0.3 + 0.01 * (FRAMES - 1), WIDTH / HEIGHT, dev))
+    phase("rt_main_path", f"{rt_ms:.2f} ms/frame = {1e3 / rt_ms:.2f} FPS over {FRAMES} frames vs "
+                          f"base {frame_ms:.2f} ms/frame ({card}); traced slots "
+                          f"{[sl for sl in slots if sl is not None]}; occlusion launches "
+                          f"{occ_launches} = frames {frames} x {per_frame}, raster launches "
+                          f"{ras_launches}, add_one/transpose launches on both main paths "
+                          f"{probe_launches}; coverage {coverage:.3f}, mean {brightness:.3f}, darker "
+                          f"than rt-off by > 0.05 on {100 * dark_share:.2f}% of covered pixels; pass ms "
+                          + json.dumps({k: round(v, 3) for k, v in rt_passes.items()}))
+
+    # 12. rt frame, kernel vs plain occlusion ------------------------------------
+    def rt_frame():
+        r = Renderer(scene, rt_cfgs[2], device=dev)
+        r.set_config(rt=True)
+        r.apply_config_now()
+        with Recorder() as rec:
+            img = r.render(cam)["image"]
+        return img, [out for _, out in rec.calls]
+
+    ref_img, ref_planes = rt_frame()
+    kernel = trt.occlusion_kernel
+    trt.occlusion_kernel = oc.occlusion_tiles_plain  # the plain version on CUDA tensors
+    try:
+        plain_img, plain_planes = rt_frame()
+    finally:
+        trt.occlusion_kernel = kernel
+    if len(ref_planes) != len(plain_planes) or not all(
+            torch.equal(a, b) for a, b in zip(ref_planes, plain_planes)):
+        raise AssertionError("rt frame occlusion planes differ between kernel and plain version")
+    rt_psnr = psnr(np.clip(ref_img.cpu().numpy(), 0, 1), np.clip(plain_img.cpu().numpy(), 0, 1))
+    if rt_psnr < PSNR_GATE_DB:
+        raise AssertionError(f"rt frame PSNR kernel vs plain {rt_psnr:.1f} dB")
+    phase("rt_vs_plain", f"{len(ref_planes)} occlusion planes identical; display-clamped PSNR "
+                         f"{'inf' if math.isinf(rt_psnr) else f'{rt_psnr:.1f}'} dB")
+
+    # 13. rt profile ------------------------------------------------------------
+    profile_main_path("rt_profile", rt_renderer, dev, card)
+
+    print(json.dumps({"kernels": [kernels[k] for k in
+                                  ("raster_tiles", "occlusion_tiles", "add_one", "transpose")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

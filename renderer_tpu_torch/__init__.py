@@ -9,7 +9,10 @@ anything of the JAX package.
 
 Ported so far (the base frame that ``bench.py`` times, exact shading path):
 scene build, prepare, cull, the tile rasterizer (``ops/raster_cuda.py``),
-PBR shading with textures and normal maps, edge AA, and the ``Renderer``.
+PBR shading with textures and normal maps, edge AA, and the ``Renderer``;
+and the ``rt`` switch's ray-traced shadows (``ops/rt_grid.py``, the
+occlusion walk in ``ops/occlusion_cuda.py``). Entry points put their
+tensors on the CUDA card unless given ``device=`` (``device.py``).
 """
 
 __version__ = "0.1.0"

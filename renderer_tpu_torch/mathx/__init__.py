@@ -9,7 +9,9 @@ from renderer_tpu_torch.mathx.camera import (  # noqa: F401
     Camera,
     camera_matrices,
     frustum_planes,
+    look_at,
     orbit_camera,
+    orthographic,
     perspective,
     view_matrix,
 )

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from renderer_tpu_torch.device import resolve_device
 from renderer_tpu_torch.mathx.transforms import quat_to_mat3
 
 
@@ -31,8 +32,10 @@ class Camera(NamedTuple):
     @staticmethod
     def create(position, rotation=None, fov_y=1.1, aspect=1.0, near=0.1,
                far=100.0, device=None) -> "Camera":
+        """The camera's tensors on ``device`` (the CUDA card when None)."""
         if rotation is None:
             rotation = (1.0, 0.0, 0.0, 0.0)
+        device = resolve_device(device)
 
         def f32(v):
             return torch.as_tensor(v, dtype=torch.float32).to(device)
@@ -44,11 +47,40 @@ class Camera(NamedTuple):
 
 
 def matmul4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(4, k) @ (k, m) with the sum over k taken left to right."""
-    out = a[:, 0:1] * b[0:1, :]
-    for k in range(1, a.shape[1]):
-        out = out + a[:, k : k + 1] * b[k : k + 1, :]
+    """(..., n, k) @ (..., k, m) with the sum over k taken left to right."""
+    out = a[..., :, 0:1] * b[..., 0:1, :]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k : k + 1] * b[..., k : k + 1, :]
     return out
+
+
+def _device_of(*values) -> torch.device:
+    """The device of the first tensor among ``values`` (CPU if none)."""
+    return next((v.device for v in values if isinstance(v, torch.Tensor)), torch.device("cpu"))
+
+
+def _rows4(rows) -> torch.Tensor:
+    """4x4 matrices from 16 broadcastable entries given row by row."""
+    flat = [v for r in rows for v in r]
+    shape = torch.broadcast_shapes(*(torch.as_tensor(v).shape for v in flat))
+    device = _device_of(*flat)
+
+    def entry(v):  # numbers become fills on the device, not host copies
+        if isinstance(v, torch.Tensor):
+            return v.to(torch.float32).expand(shape)
+        return torch.full(shape, float(v), dtype=torch.float32, device=device)
+
+    return torch.stack([torch.stack([entry(v) for v in r], dim=-1) for r in rows], dim=-2)
+
+
+def _dot3(a, b):
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def _cross3(a, b):
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
 
 
 def view_matrix(cam: Camera) -> torch.Tensor:
@@ -60,16 +92,49 @@ def view_matrix(cam: Camera) -> torch.Tensor:
     return torch.cat([top, bottom], dim=0)
 
 
+def look_at(eye, target, up=(0.0, 1.0, 0.0)) -> torch.Tensor:
+    """World -> view matrix looking from eye at target; (..., 3) inputs
+    give (..., 4, 4)."""
+    eye = torch.as_tensor(eye, dtype=torch.float32)
+    target = torch.as_tensor(target, dtype=torch.float32, device=eye.device)
+    up = torch.as_tensor(up, dtype=torch.float32, device=eye.device)
+    f = target - eye
+    f = f / torch.sqrt(_dot3(f, f))[..., None]
+    s = _cross3(f, up)
+    s = s / torch.sqrt(_dot3(s, s))[..., None]
+    u = _cross3(s, f)
+    return _rows4([
+        [s[..., 0], s[..., 1], s[..., 2], -_dot3(s, eye)],
+        [u[..., 0], u[..., 1], u[..., 2], -_dot3(u, eye)],
+        [-f[..., 0], -f[..., 1], -f[..., 2], _dot3(f, eye)],
+        [0.0, 0.0, 0.0, 1.0],
+    ])
+
+
 def perspective(fov_y, aspect, near, far) -> torch.Tensor:
-    """View -> clip, depth range [0, 1], right-handed view space."""
+    """View -> clip, depth range [0, 1], right-handed view space. Tensor
+    arguments may carry a batch shape."""
+    if not isinstance(fov_y, torch.Tensor):
+        fov_y = torch.full((), float(fov_y), dtype=torch.float32,
+                           device=_device_of(aspect, near, far))
     f = 1.0 / torch.tan(fov_y / 2.0)
-    m = torch.zeros((4, 4), dtype=torch.float32, device=f.device)
-    m[0, 0] = f / aspect
-    m[1, 1] = f
-    m[2, 2] = far / (near - far)
-    m[2, 3] = near * far / (near - far)
-    m[3, 2] = -1.0
-    return m
+    return _rows4([
+        [f / aspect, 0.0, 0.0, 0.0],
+        [0.0, f, 0.0, 0.0],
+        [0.0, 0.0, far / (near - far), near * far / (near - far)],
+        [0.0, 0.0, -1.0, 0.0],
+    ])
+
+
+def orthographic(half_w, half_h, near, far) -> torch.Tensor:
+    """View -> clip orthographic box, depth range [0, 1], centred (the
+    directional shadow camera). Tensor arguments may carry a batch shape."""
+    return _rows4([
+        [1.0 / half_w, 0.0, 0.0, 0.0],
+        [0.0, 1.0 / half_h, 0.0, 0.0],
+        [0.0, 0.0, -1.0 / (far - near), -near / (far - near)],
+        [0.0, 0.0, 0.0, 1.0],
+    ])
 
 
 def camera_matrices(cam: Camera):
@@ -93,7 +158,7 @@ def frustum_planes(viewproj: torch.Tensor) -> torch.Tensor:
 def orbit_camera(angle: float, aspect: float, device=None) -> Camera:
     """The bench orbit: radius 18, height 6, yaw ``angle``, pitch -0.3,
     fov 0.9, near 0.1, far 200 (the float32 host formula of
-    ``bench.make_camera``)."""
+    ``bench.make_camera``), on ``device`` (the CUDA card when None)."""
     r = 18.0
     pos = np.array([r * math.sin(angle), 6.0, r * math.cos(angle)], np.float32)
 

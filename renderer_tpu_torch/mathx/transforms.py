@@ -9,10 +9,13 @@ import math
 
 import torch
 
+from renderer_tpu_torch.device import resolve_device
+
 
 def quat_from_axis_angle(axis, angle, device=None) -> torch.Tensor:
-    """Unit quaternion rotating ``angle`` radians about ``axis``."""
-    axis = torch.as_tensor(axis, dtype=torch.float32, device=device)
+    """Unit quaternion rotating ``angle`` radians about ``axis``, on
+    ``device`` (the CUDA card when None)."""
+    axis = torch.as_tensor(axis, dtype=torch.float32, device=resolve_device(device))
     axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
     half = float(angle) / 2.0
     w = torch.full(axis.shape[:-1] + (1,), math.cos(half), device=axis.device)

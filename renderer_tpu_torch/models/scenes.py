@@ -1,5 +1,6 @@
 """Procedural scene families (``renderer_tpu.models.scenes``). Same
-arguments and the same tables as the JAX builders, plus the device."""
+arguments and the same tables as the JAX builders, plus the device (the
+CUDA card when None)."""
 
 from __future__ import annotations
 

@@ -7,11 +7,15 @@ from __future__ import annotations
 
 import torch
 
-from renderer_tpu_torch.ops.pbr import _halo_rows
-
 _LW = (0.2126, 0.7152, 0.0722)  # rec.709 luma
 EDGE_TAU = 0.0312  # FXAA's low contrast floor
 SUBPIX_CAP = 0.75  # FXAA subpix quality
+
+
+def _halo_rows(a):
+    """(row above the first, row below the last) with clamp-to-edge rows:
+    the single-device form of the JAX package's row-sharded halo."""
+    return a[..., :1, :], a[..., -1:, :]
 
 
 def _up(a):

@@ -52,6 +52,8 @@ class Prepared(NamedTuple):
     visible: torch.Tensor    # (N,) bool coarse-cull survivors
     lod: torch.Tensor        # (N,) int64
     vp_inv: torch.Tensor     # (4, 4)
+    scene_min: torch.Tensor  # (3,) world AABB of the alive instances
+    scene_max: torch.Tensor  # (3,)
 
 
 # Shade-record columns: one 64-float row per surviving triangle holds all a
@@ -73,9 +75,56 @@ SR_EDGE = 40     # 40..48 (e0:a,b,c, e1:..., e2:...)
 SR_COLS = 64
 
 
+def mats44(m: torch.Tensor) -> torch.Tensor:
+    """(N, 4, 4) view of per-instance matrices; accepts flat (N, 16) rows."""
+    return m if m.dim() == 3 else m.reshape(m.shape[0], 4, 4)
+
+
+def _world_aabb_cols(scene: Scene, m: list):
+    """World AABB columns of every instance from its model matrix columns
+    ``m[i][j]`` (rows i < 3): (centre (3 x (N,)), half extent, local min
+    (3, N), local max (3, N)), with the |linear| bound of an affine map."""
+    lib = scene.meshes
+    mesh_id = scene.instances.mesh_id.long()
+    mn_t = lib.mesh_aabb_min[mesh_id].T
+    mx_t = lib.mesh_aabb_max[mesh_id].T
+    c_loc = [(mn_t[k] + mx_t[k]) * 0.5 for k in range(3)]
+    e_loc = [(mx_t[k] - mn_t[k]) * 0.5 for k in range(3)]
+    cw = [
+        m[i][0] * c_loc[0] + m[i][1] * c_loc[1] + m[i][2] * c_loc[2] + m[i][3]
+        for i in range(3)
+    ]
+    ew = [
+        m[i][0].abs() * e_loc[0] + m[i][1].abs() * e_loc[1] + m[i][2].abs() * e_loc[2]
+        for i in range(3)
+    ]
+    return cw, ew, mn_t, mx_t
+
+
+def _outside_frustum(viewproj: torch.Tensor, cw: list, ew: list) -> torch.Tensor:
+    """(N,) bool: the AABB lies wholly outside one of the six planes."""
+    planes = frustum_planes(viewproj)
+    outside = torch.zeros(cw[0].shape, dtype=torch.bool, device=cw[0].device)
+    for p in range(6):
+        d = planes[p, 0] * cw[0] + planes[p, 1] * cw[1] + planes[p, 2] * cw[2] + planes[p, 3]
+        rr = planes[p, 0].abs() * ew[0] + planes[p, 1].abs() * ew[1] + planes[p, 2].abs() * ew[2]
+        outside = outside | (d + rr < 0.0)
+    return outside
+
+
+def coarse_cull(scene: Scene, model: torch.Tensor, viewproj: torch.Tensor) -> torch.Tensor:
+    """Instance-level frustum cull of world AABBs -> (N,) bool visible, with
+    the camera cull's arithmetic (``prepare_frame_columns``). ``model`` is
+    (N, 16) rows or (N, 4, 4)."""
+    flat = mats44(model).reshape(-1, 16)
+    m = [[flat[:, 4 * i + j] for j in range(4)] for i in range(3)]
+    cw, ew, _, _ = _world_aabb_cols(scene, m)
+    return scene.instances.alive & ~_outside_frustum(viewproj, cw, ew)
+
+
 def prepare_frame_columns(scene: Scene, camera: Camera) -> Prepared:
-    """Model and clip matrices, coarse frustum cull of world AABBs and the
-    distance LOD pick, all as (N,) column math."""
+    """Model and clip matrices, coarse frustum cull of world AABBs, the
+    distance LOD pick and the scene bounds, all as (N,) column math."""
     inst = scene.instances
     lib = scene.meshes
     tt = inst.translation.T
@@ -98,26 +147,8 @@ def prepare_frame_columns(scene: Scene, camera: Camera) -> Prepared:
                 c = c + vp[i, 3]
             clip_cols.append(c)
 
-    mesh_id = inst.mesh_id.long()
-    mn_t = lib.mesh_aabb_min[mesh_id].T
-    mx_t = lib.mesh_aabb_max[mesh_id].T
-    c_loc = [(mn_t[k] + mx_t[k]) * 0.5 for k in range(3)]
-    e_loc = [(mx_t[k] - mn_t[k]) * 0.5 for k in range(3)]
-    cw = [
-        m[i][0] * c_loc[0] + m[i][1] * c_loc[1] + m[i][2] * c_loc[2] + m[i][3]
-        for i in range(3)
-    ]
-    ew = [
-        m[i][0].abs() * e_loc[0] + m[i][1].abs() * e_loc[1] + m[i][2].abs() * e_loc[2]
-        for i in range(3)
-    ]
-    planes = frustum_planes(vp)
-    outside = torch.zeros_like(inst.alive)
-    for p in range(6):
-        d = planes[p, 0] * cw[0] + planes[p, 1] * cw[1] + planes[p, 2] * cw[2] + planes[p, 3]
-        rr = planes[p, 0].abs() * ew[0] + planes[p, 1].abs() * ew[1] + planes[p, 2].abs() * ew[2]
-        outside = outside | (d + rr < 0.0)
-    visible = inst.alive & ~outside
+    cw, ew, mn_t, mx_t = _world_aabb_cols(scene, m)
+    visible = inst.alive & ~_outside_frustum(vp, cw, ew)
 
     cam_p = camera.position
     dx, dy, dz = cw[0] - cam_p[0], cw[1] - cam_p[1], cw[2] - cam_p[2]
@@ -129,11 +160,16 @@ def prepare_frame_columns(scene: Scene, camera: Camera) -> Prepared:
     lod = torch.floor(torch.log2(torch.clamp(0.25 / torch.clamp(ratio, min=1e-6), min=1.0)))
     lod = torch.clamp(lod, 0, lib.lod_tri_count.shape[1] - 1).long()
 
+    # scene bounds over the alive instances (the light cameras' fit)
+    big = 1e9
+    scene_min = torch.stack([torch.where(inst.alive, cw[k] - ew[k], big).min() for k in range(3)])
+    scene_max = torch.stack([torch.where(inst.alive, cw[k] + ew[k], -big).max() for k in range(3)])
+
     zero, one = torch.zeros_like(s), torch.ones_like(s)
     model = torch.stack(m[0] + m[1] + m[2] + [zero, zero, zero, one], dim=-1)
     clip_mats = torch.stack(clip_cols, dim=-1)
     vp_inv = torch.linalg.inv_ex(vp).inverse
-    return Prepared(model, vp, clip_mats, visible, lod, vp_inv)
+    return Prepared(model, vp, clip_mats, visible, lod, vp_inv, scene_min, scene_max)
 
 
 def _slot_map_starts(counts: torch.Tensor, capacity: int):
@@ -167,6 +203,30 @@ def _clip_cols(rt: torch.Tensor, mt: torch.Tensor) -> list:
         for j in range(4):
             cols.append(x * mt[4 * j] + y * mt[4 * j + 1] + z * mt[4 * j + 2] + mt[4 * j + 3])
     return cols
+
+
+def expand_clip_only(scene: Scene, visible: torch.Tensor, lod: torch.Tensor,
+                     clip_mats: torch.Tensor, capacity: int):
+    """Positions-only draw-stream expansion -> (clip (T, 3, 4), valid (T,),
+    count ()): every triangle of the visible instances at their LOD, through
+    each instance's clip matrix (``clip_mats`` (N, 16) rows or (N, 4, 4)),
+    with no cull, sort or attributes (a light's caster stream). Triangles
+    past ``capacity`` are cut off, as in the JAX package."""
+    lib = scene.meshes
+    if lib.tri_rec is None:
+        raise NotImplementedError(
+            "scene without a tri_rec table: the per-corner expansion is not ported"
+        )
+    mesh_id = scene.instances.mesh_id.long()
+    tc = torch.where(visible, lib.lod_tri_count[mesh_id, lod], 0)
+    base_i = lib.lod_index_offset[mesh_id, lod].long()
+    owner, start, slots, valid, total = _slot_map_starts(tc, capacity)
+    tri_idx = torch.where(valid, base_i[owner] + (slots - start), 0)
+    positions = lib.tri_rec[:, : TR_POS + 9]  # the corner positions only
+    cc = _clip_cols(positions[tri_idx].T.contiguous(),
+                    mats44(clip_mats).reshape(-1, 16)[owner].T.contiguous())
+    clip = torch.stack(cc, dim=1).reshape(capacity, 3, 4)
+    return clip, valid, torch.clamp(total, max=capacity).to(torch.int32)
 
 
 def build_draw_stream(

@@ -4,8 +4,9 @@
 Everything is channel-first: vectors (3, H, W), scalars (H, W). Ported:
 the full-rate path with barycentrics re-derived from the shade records'
 edge columns, base-colour textures, normal maps with the Toksvig roughness
-term, and edge AA. Shadows, ray-traced shadows and the checkerboard and
-quarter shade rates are later work.
+term, edge AA, and ray-traced shadows through the light-space grid
+(``ops/rt_grid.py``). Shadow maps, the brute-force ray caster and the
+checkerboard and quarter shade rates are later work.
 """
 
 from __future__ import annotations
@@ -14,11 +15,13 @@ import math
 
 import torch
 
+from renderer_tpu_torch.ops.aa import edge_aa
 from renderer_tpu_torch.ops.raster_spec import NO_TRIANGLE
 from renderer_tpu_torch.ops.geometry import (
     SR_BASE, SR_BC_LAYER, SR_EDGE, SR_EMISSIVE, SR_METALLIC, SR_NM_LAYER,
     SR_NORMAL, SR_ROUGH, SR_TANGENT, SR_TEXLOD, SR_UV, unproject_depth,
 )
+from renderer_tpu_torch.ops.rt_grid import RtGrid, rt_shadow_grid, slot_lights
 from renderer_tpu_torch.ops.texture import sample_atlas_cf, srgb_to_linear
 
 NM_LOD_BIAS = 1.5  # normal maps sample ~one mip softer than colour
@@ -80,12 +83,6 @@ def _ggx_brdf(n, v, l, albedo, metallic, roughness):
     return (diffuse + specular) * ndl
 
 
-def _halo_rows(a):
-    """(row above the first, row below the last) with clamp-to-edge rows:
-    the single-device form of the JAX package's row-sharded halo."""
-    return a[..., :1, :], a[..., -1:, :]
-
-
 def shade_pbr(
     vis,
     shade_rec: torch.Tensor,  # (T, SR_COLS) records (geometry.build_draw_stream)
@@ -101,6 +98,7 @@ def shade_pbr(
     trilinear: bool = True,
     light_slots: int = None,  # shade only the first k light-table slots
     aa: bool = False,  # edge AA (ops/aa.py)
+    rt_grid: RtGrid = None,  # ray-traced shadows (ops/rt_grid.py)
 ) -> torch.Tensor:
     """Shade a visibility buffer -> (H, W, 3) linear HDR colour."""
     h_, w_ = vis.depth.shape
@@ -175,6 +173,15 @@ def shade_pbr(
     else:
         n = n_geom
 
+    planes = None  # per shadow slot, the occlusion plane of its light
+    if rt_grid is not None:
+        planes = rt_shadow_grid(
+            scene, world, n_geom, covered, rt_grid.light_mats, rt_grid.lod, rt_grid.model,
+            rt_grid.scene_radius, rt_grid.caster_capacity,
+            slot_lights(rt_grid.light_casts, rt_grid.n_slots), tri=tri_in,
+            rt_scale=rt_grid.rt_scale,
+        )
+
     v = _normalize_cf(camera_pos[:, None, None] - world)
     lights = scene.lights
     color = albedo * ambient + emissive
@@ -189,13 +196,15 @@ def shade_pbr(
         l = to_light / torch.sqrt(torch.clamp(dist2, min=1e-12))
         atten = torch.where(directional, 1.0, 1.0 / torch.clamp(dist2, min=1e-4))
         radiance = lights.color[li][:, None, None] * (lights.intensity[li] * atten)
+        if planes is not None and li < len(rt_grid.light_casts):
+            slot = rt_grid.light_casts[li][0]
+            if 0 <= slot < len(planes):
+                radiance = radiance * planes[slot][None]
         contrib = _ggx_brdf(n, v, l, albedo, metallic, roughness) * radiance
         color = color + torch.where(lights.alive[li], contrib, 0.0)
 
     bg = torch.tensor(background, dtype=torch.float32, device=dev)[:, None, None]
     color = torch.where(covered[None], color, bg)
     if aa:
-        from renderer_tpu_torch.ops.aa import edge_aa
-
         color = edge_aa(color, vis.tri_id)
     return color.permute(1, 2, 0)

@@ -15,14 +15,11 @@ operation alike, so they agree bit for bit.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
 from typing import NamedTuple
 
 import torch
 
+from renderer_tpu_torch.ops.cuda_build import CudaLibrary
 from renderer_tpu_torch.ops.raster_spec import DEPTH_CLEAR, FRONT_DET_SIGN, NO_TRIANGLE
 
 TILE_H = 16
@@ -35,13 +32,7 @@ R_W = 12    # 12..14 w_clip per corner
 R_BB = 15   # 15..18 bbox xmin, xmax, ymin, ymax in pixels (+-inf if dead)
 R_TL = 19   # 19..21 top-left flag per edge (1.0 / 0.0)
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "raster.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
-)
+LIBRARY = CudaLibrary("raster.cu")
 
 
 class VisibilityBuffer(NamedTuple):
@@ -223,42 +214,23 @@ def raster_tiles_plain(rec, masks, block_list, block_count, block_simple,
 
 
 class RasterKernel:
-    """Builds ``csrc/raster.cu`` with nvcc at first use (into ``_build/``,
-    keyed by a hash of the source and flags), loads it with ctypes and
-    launches it. ``launches`` counts kernel launches."""
+    """Launches ``csrc/raster.cu`` (built at first use, see ``cuda_build``).
+    ``launches`` counts kernel launches."""
 
     def __init__(self):
         self.launches = 0
-        self.build_log = ""
         self._fn = None
 
-    def load(self):
-        if self._fn is not None:
-            return self._fn
-        with open(_SRC, "rb") as f:
-            digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
-        lib_path = os.path.join(BUILD_DIR, f"libraster-{digest}.so")
-        if not os.path.exists(lib_path):
-            from torch.utils.cpp_extension import CUDA_HOME
+    @property
+    def build_log(self) -> str:
+        return LIBRARY.build_log
 
-            if CUDA_HOME is None:
-                raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build csrc/raster.cu")
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{lib_path}.tmp{os.getpid()}"
-            t0 = time.perf_counter()
-            res = subprocess.run(
-                [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS, _SRC, "-o", tmp],
-                capture_output=True, text=True,
+    def load(self):
+        if self._fn is None:
+            self._fn = LIBRARY.function(
+                "rtt_raster_tiles", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
             )
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
-            os.replace(tmp, lib_path)
-            self.build_log = f"built in {time.perf_counter() - t0:.2f} s\n{res.stderr}"
-        fn = ctypes.CDLL(lib_path).rtt_raster_tiles
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
-        self._fn = fn
-        return fn
+        return self._fn
 
     def __call__(self, rec, masks, block_list, block_count, block_simple,
                  width: int, height: int, y0: int, with_bary: bool):

@@ -2,10 +2,11 @@
 passes, each declaring the resources it reads and writes.
 
 Ported passes, in plan order: pose (identity: no skinning yet) -> prepare
--> cull -> raster -> shade -> present. The JAX package compiles a plan per
-set of runtime switches (freeze, occlusion culling, shadows, rt, HUD, ...);
-none of the passes those switches select is ported yet, so the port has
-this one plan, and each later pass brings its switch with it.
+-> cull -> raster -> shade (or shade_rt) -> present. The JAX package builds
+a plan per set of runtime switches (freeze, occlusion culling, shadows,
+rt, HUD, ...); the port has the switches whose passes are ported, so far
+``rt``, which swaps ``shade`` for ``shade_rt`` (ray-traced shadows). Each
+later pass brings its switch with it.
 """
 
 from __future__ import annotations
@@ -13,9 +14,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, NamedTuple
 
+import torch
+
 from renderer_tpu_torch.ops import geometry
 from renderer_tpu_torch.ops.pbr import shade_pbr
 from renderer_tpu_torch.ops.raster_cuda import BLOCK, TILE_H, TILE_W, rasterize_cuda
+from renderer_tpu_torch.ops.rt_grid import RtGrid
+from renderer_tpu_torch.ops.shadow import directional_light_matrices
 
 EXTERNAL = ("scene", "camera")  # given to every frame by the Renderer
 
@@ -37,11 +42,21 @@ class PipelineConfig:
     # shade only the first k light slots (None: the Renderer sets the
     # scene's live light count)
     shade_light_slots: int = None
+    rt_scale: int = 2  # ray-traced shadows trace a 1/rt_scale receiver grid
+    shadow_slots: int = 4
+    # per-light caster expansion capacity (0: tri_capacity); casters are
+    # culled against each light's frustum, not the camera's
+    shadow_tri_capacity: int = 0
 
     @property
     def expand_capacity(self) -> int:
         """Pre-cull expansion capacity (the JAX default, 2x tri_capacity)."""
         return 2 * self.tri_capacity
+
+    @property
+    def caster_capacity(self) -> int:
+        """Per-light caster expansion capacity."""
+        return self.shadow_tri_capacity or self.tri_capacity
 
     def __post_init__(self):
         if self.aa not in ("none", "edge"):
@@ -51,6 +66,9 @@ class PipelineConfig:
                 f"need tri_capacity % {BLOCK} == 0, width % {TILE_W} == 0 and "
                 f"height % {TILE_H} == 0"
             )
+        if self.caster_capacity % BLOCK or self.rt_scale < 1 or self.shadow_slots < 0:
+            raise ValueError(f"need shadow_tri_capacity % {BLOCK} == 0, rt_scale >= 1 "
+                             "and shadow_slots >= 0")
 
 
 class Pass(NamedTuple):
@@ -74,7 +92,11 @@ def check_plan(passes, outputs) -> None:
         raise ValueError(f"outputs {missing} are written by no pass")
 
 
-def build_forward_plan(cfg: PipelineConfig, outputs=("image",)) -> list:
+def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tuple = (),
+                       rt: bool = False) -> list:
+    """The ordered passes of one frame for the switch set (``rt``).
+    ``light_casts``, (shadow_slot, directional) per shaded light with slot
+    -1 for none, picks the lights that ``shade_rt`` traces."""
     w, h = cfg.width, cfg.height
 
     def pose(scene):
@@ -96,24 +118,41 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",)) -> list:
         return {"vis": rasterize_cuda(soup.clip, soup.valid, w, h,
                                       cull_backface=cfg.cull_backface, with_bary=False)}
 
-    def shade(vis, shade_rec, scene_view, camera, prepared):
-        return {"image_pre": shade_pbr(
-            vis, shade_rec, scene_view, camera.position, prepared.vp_inv,
+    def _shade(vis, shade_rec, scene, camera, prepared, rt_grid=None):
+        return shade_pbr(
+            vis, shade_rec, scene, camera.position, prepared.vp_inv,
             background=cfg.background, enable_textures=cfg.enable_textures,
             enable_normal_maps=cfg.enable_normal_maps, trilinear=cfg.trilinear,
-            light_slots=cfg.shade_light_slots, aa=(cfg.aa == "edge"),
-        )}
+            light_slots=cfg.shade_light_slots, aa=(cfg.aa == "edge"), rt_grid=rt_grid,
+        )
+
+    def shade(vis, shade_rec, scene_view, camera, prepared):
+        return {"image_pre": _shade(vis, shade_rec, scene_view, camera, prepared)}
+
+    def shade_rt(vis, shade_rec, scene_view, camera, prepared):
+        """Ray-traced shadows: per-light caster expansion, light-space
+        binning and the occlusion walk (ops/rt_grid.py)."""
+        smin, smax = prepared.scene_min, prepared.scene_max
+        d = smax - smin
+        radius = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) * 0.5 + 1e-3
+        rt_grid = RtGrid(
+            directional_light_matrices(scene_view.lights, smin, smax), prepared.lod,
+            prepared.model, radius, cfg.caster_capacity, light_casts, cfg.shadow_slots,
+            cfg.rt_scale,
+        )
+        return {"image_pre": _shade(vis, shade_rec, scene_view, camera, prepared, rt_grid)}
 
     def present(image_pre):
         return {"image": image_pre}
 
+    shade_reads = ("vis", "shade_rec", "scene_view", "camera", "prepared")
     passes = [
         Pass("pose", ("scene",), ("scene_view",), pose),
         Pass("prepare", ("scene_view", "camera"), ("prepared",), prepare),
         Pass("cull", ("scene_view", "prepared"), ("soup", "shade_rec"), cull),
         Pass("raster", ("soup",), ("vis",), raster),
-        Pass("shade", ("vis", "shade_rec", "scene_view", "camera", "prepared"),
-             ("image_pre",), shade),
+        Pass("shade_rt", shade_reads, ("image_pre",), shade_rt) if rt
+        else Pass("shade", shade_reads, ("image_pre",), shade),
         Pass("present", ("image_pre",), ("image",), present),
     ]
     check_plan(passes, outputs)

@@ -3,11 +3,17 @@
 
 - ``execute_plan`` runs the plan's passes in order, each inside a
   ``torch.profiler`` range named ``forward.<pass>``.
-- Light-slot specialization: shading loops over the scene's live light
-  count, read once at construction.
-- Nothing persists between frames yet: the resources the JAX package keeps
-  (frozen draw list, last viewproj, last depth) are read only by passes that
-  are not ported.
+- Runtime switches (``RuntimeConfig``, so far ``rt``) with the two-frame
+  latch: ``set_config`` edits a pending copy that the next frame takes
+  up; ``apply_config_now`` takes it up at once. One plan per switch set,
+  built on first use and kept.
+- Light specialization, read once at construction: shading loops over the
+  scene's live light count, and the ray-traced shadows trace only the
+  shadow slots that hold a light, each with its kind (directional or
+  point) fixed. A scene passed to ``render`` later must keep both.
+- Nothing else persists between frames yet: the resources the JAX package
+  keeps (frozen draw list, last viewproj, last depth) are read only by
+  passes that are not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +28,22 @@ import torch
 from renderer_tpu_torch.mathx.camera import Camera
 from renderer_tpu_torch.passes.pipeline import PipelineConfig, build_forward_plan
 from renderer_tpu_torch.scene.types import Scene
+
+
+@dataclasses.dataclass
+class RuntimeConfig:
+    """Runtime switches: ``rt`` traces shadows through the light-space grid."""
+
+    rt: bool = False
+
+
+def light_casts(lights, k: int) -> tuple:
+    """(shadow_slot, directional) of the first k lights, slot -1 for a dead
+    light: read on the host."""
+    slots = lights.shadow_slot[:k].tolist()
+    dirs = lights.directional[:k].tolist()
+    alive = lights.alive[:k].tolist()
+    return tuple((int(s) if a else -1, bool(d)) for s, d, a in zip(slots, dirs, alive))
 
 
 def _record_pass(name: str):
@@ -55,10 +77,35 @@ class Renderer:
             self.cfg = dataclasses.replace(
                 self.cfg, shade_light_slots=int(scene.lights.count)
             )
+        self.light_casts = light_casts(scene.lights, self.cfg.shade_light_slots)
         self.outputs = tuple(outputs)
-        self.passes = build_forward_plan(self.cfg, self.outputs)
+        self.config = RuntimeConfig()
+        self._pending_config = RuntimeConfig()
+        self._plans = {}
         self.scene = scene
         self.stats = {"frames": 0, "last_ms": 0.0}
+
+    # -- switches (two-frame latch) -----------------------------------------
+    def set_config(self, **switches) -> None:
+        """Edit runtime switches; the edit takes effect on the next frame."""
+        for k, v in switches.items():
+            if not hasattr(self._pending_config, k):
+                raise AttributeError(f"unknown runtime switch {k!r}")
+            setattr(self._pending_config, k, bool(v))
+
+    def apply_config_now(self) -> None:
+        """Take up the pending switches at once (a copy, so later edits stay
+        pending)."""
+        self.config = dataclasses.replace(self._pending_config)
+
+    @property
+    def passes(self) -> list:
+        """The plan of the active switch set, built on first use."""
+        key = tuple(sorted(vars(self.config).items()))
+        if key not in self._plans:
+            self._plans[key] = build_forward_plan(self.cfg, self.outputs, self.light_casts,
+                                                  **vars(self.config))
+        return self._plans[key]
 
     def _external(self, camera: Camera) -> dict:
         camera = Camera(*(t.to(self.device) for t in camera))
@@ -75,18 +122,27 @@ class Renderer:
         outputs = execute_plan(self.passes, self.outputs, **self._external(camera))
         self.stats["last_ms"] = (time.perf_counter() - t0) * 1e3
         self.stats["frames"] += 1
+        if self.config != self._pending_config:  # the latch: next frame's switches
+            self.config = dataclasses.replace(self._pending_config)
         return outputs
 
     def _check_light_contract(self, scene: Scene) -> None:
-        """Shading loops over the construction scene's live light count; a
-        scene override with more live lights would shade some of them not
-        at all."""
+        """Shading loops over the construction scene's live light count and
+        traces the shadow slots of its light-cast pattern; a scene override
+        with more live lights, or with lights moved between slots or kinds,
+        would be shaded wrong."""
         count = int(scene.lights.count)
         if self._auto_light_slots and count > self.cfg.shade_light_slots:
             raise ValueError(
                 f"scene has {count} live lights but the Renderer shades "
                 f"{self.cfg.shade_light_slots} (shade_light_slots); construct a "
                 "new Renderer or pass shade_light_slots explicitly"
+            )
+        pattern = light_casts(scene.lights, self.cfg.shade_light_slots)
+        if pattern != self.light_casts:
+            raise ValueError(
+                f"scene changes the light cast pattern {self.light_casts} -> "
+                f"{pattern}; construct a new Renderer for it"
             )
 
     def pass_timings(self, camera: Camera, iters: int = 5) -> dict:

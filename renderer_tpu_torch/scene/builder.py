@@ -260,7 +260,8 @@ class SceneBuilder:
         return lib
 
     def build(self, texture_slots: int = None, device=None) -> Scene:
-        """Consolidate into the fixed-capacity Scene on ``device``.
+        """Consolidate into the fixed-capacity Scene on ``device`` (the
+        CUDA card when None).
         texture_slots preallocates atlas layers, as in the JAX builder."""
         lim = self.limits
         N, K, L = lim.max_instances, lim.max_materials, lim.max_lights

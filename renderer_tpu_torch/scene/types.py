@@ -12,6 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from renderer_tpu_torch.device import resolve_device
 from renderer_tpu_torch.scene.textures import TextureAtlas
 
 
@@ -131,9 +132,11 @@ def _tensor(a, device) -> torch.Tensor:
 
 def scene_from_numpy(tree, device=None) -> Scene:
     """A scene whose leaves are numpy arrays -> the port's Scene on
-    ``device``. ``tree`` may be the JAX package's Scene pulled to the host
-    with ``renderer_tpu.scene.types.as_numpy_scene`` (its skins and texture
-    quad tables are dropped), or the tables ``SceneBuilder`` fills."""
+    ``device`` (the CUDA card when None). ``tree`` may be the JAX package's
+    Scene pulled to the host with ``renderer_tpu.scene.types.as_numpy_scene``
+    (its skins and texture quad tables are dropped), or the tables
+    ``SceneBuilder`` fills."""
+    device = resolve_device(device)
 
     def table(cls, part):
         return cls(**{

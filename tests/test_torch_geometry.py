@@ -41,10 +41,10 @@ SETUPS = {
 def setup(name):
     build, pos, w, h, cap = SETUPS[name]
     jscene = build()
-    tscene = scene_from_numpy(as_numpy_scene(jscene))
+    tscene = scene_from_numpy(as_numpy_scene(jscene), device="cpu")
     cam = dict(fov_y=0.9, near=0.1, far=60.0, aspect=w / h)
     jprep = jgeo.prepare_frame_columns(jscene, JaxCamera.create(jnp.asarray(pos), **cam))
-    tprep = tgeo.prepare_frame_columns(tscene, Camera.create(pos, **cam))
+    tprep = tgeo.prepare_frame_columns(tscene, Camera.create(pos, **cam, device="cpu"))
     return jscene, tscene, jprep, tprep, w, h, cap
 
 

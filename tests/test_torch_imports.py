@@ -18,11 +18,16 @@ from renderer_tpu_torch.models import textured_scene
 from renderer_tpu_torch.passes.pipeline import PipelineConfig
 from renderer_tpu_torch.runtime import Renderer
 from renderer_tpu_torch.scene import SceneLimits
-r = Renderer(textured_scene(SceneLimits.tiny(), 32),
+r = Renderer(textured_scene(SceneLimits.tiny(), 32, device="cpu"),
              PipelineConfig(width=128, height=64, tri_capacity=2048, aa="edge"))
-img = r.render(Camera.create([0.0, 1.2, 4.0], fov_y=0.9, aspect=2.0))["image"].numpy()
-assert img.shape == (64, 128, 3) and np.isfinite(img).all()
+cam = Camera.create([0.0, 1.2, 4.0], fov_y=0.9, aspect=2.0, device="cpu")
+for rt in (False, True):
+    r.set_config(rt=rt)
+    r.apply_config_now()
+    img = r.render(cam)["image"].numpy()
+    assert img.shape == (64, 128, 3) and np.isfinite(img).all()
 import chip_smoke, torch_raster_cases  # noqa: F401
+import renderer_tpu_torch.ops.probe_cuda  # noqa: F401
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "renderer_tpu"))
 print("JAX_MODULES", loaded)
@@ -43,6 +48,7 @@ def test_port_renders_a_frame_without_jax():
 
 def test_no_jax_import_in_port_sources():
     paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_raster_cases.py"),
+             os.path.join(ROOT, "tests", "torch_occlusion_cases.py"),
              os.path.join(ROOT, "tests", "test_torch_kernels.py")]
     for d, dirs, files in os.walk(os.path.join(ROOT, "renderer_tpu_torch")):
         dirs[:] = [x for x in dirs if x != "_build"]  # build outputs, not sources

@@ -4,15 +4,23 @@ rasterizer only), so it also runs on a machine without jax:
 
     python -m pytest tests/test_torch_kernels.py -m gpu -q
 
-Without a CUDA device every test here skips. Gate: the raster kernel
+Without a CUDA device every test here skips. Gates: the raster kernel
 equals the plain version bit for bit (tri_id, depth, barycentrics), and
-both pass the float64-reference gate of torch_raster_gate.
+both pass the float64-reference gate of torch_raster_gate; the occlusion
+kernel's plane equals its plain version's on every occlusion case (the CPU
+tests hold the plain version to JAX and a float64 brute force); add_one and
+the transpose equal x + 1 and x.T.contiguous().
 """
 
+import numpy as np
 import pytest
 import torch
 
+from renderer_tpu_torch.ops import probe_cuda
+from renderer_tpu_torch.ops.occlusion_cuda import occlusion_kernel, occlusion_tiles_plain
 from renderer_tpu_torch.ops.raster_cuda import raster_inputs, raster_kernel, raster_tiles_plain
+from renderer_tpu_torch.ops.rt_grid import occlusion_inputs
+from torch_occlusion_cases import CASES as OCCLUSION_CASES
 from torch_raster_cases import CASES
 from torch_raster_gate import reference_gate
 
@@ -40,3 +48,23 @@ def test_raster_kernel_matches_plain(case, with_bary, cuda_device):
     depth, tri_id, b0, b1 = (t.cpu().numpy() for t in got)
     bary = torch.stack([got[2], got[3], 1.0 - got[2] - got[3]]).cpu().numpy() * (tri_id >= 0)
     reference_gate(tri_id, depth, bary if with_bary else None, clip, valid, w, h, cull)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(OCCLUSION_CASES))
+def test_occlusion_kernel_matches_plain(case, cuda_device):
+    args = occlusion_inputs(*(torch.from_numpy(a).to(cuda_device) for a in OCCLUSION_CASES[case]()))
+    before = occlusion_kernel.launches
+    got = occlusion_kernel(*args)
+    want = occlusion_tiles_plain(*args)
+    torch.cuda.synchronize()
+    assert occlusion_kernel.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 128), (262144, 36), (1000, 16), (37, 5)])
+def test_probe_kernels_match_plain(shape, cuda_device):
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=shape).astype(np.float32)).to(cuda_device)
+    assert torch.equal(probe_cuda.transpose(x), x.T.contiguous())
+    assert torch.equal(probe_cuda.add_one(x), x + 1)

@@ -28,9 +28,9 @@ from renderer_tpu_torch.scene import SceneLimits
 
 # name -> (port scene, JAX scene, camera position, width, height)
 FRAMES = {
-    "textured_128x64": (lambda: textured_scene(SceneLimits.tiny(), 32),
+    "textured_128x64": (lambda: textured_scene(SceneLimits.tiny(), 32, device="cpu"),
                         lambda: jax_textured(JaxLimits.tiny(), 32), [0.0, 1.2, 4.0], 128, 64),
-    "sponza64_256x64": (lambda: sponza_like_scene(64), lambda: jax_sponza(64),
+    "sponza64_256x64": (lambda: sponza_like_scene(64, device="cpu"), lambda: jax_sponza(64),
                         [4.0, 6.0, 18.0], 256, 64),
 }
 OPTS = dict(tri_capacity=4096, aa="edge", enable_normal_maps=True, trilinear=False)
@@ -50,7 +50,7 @@ def test_frame_matches_jax_renderer(name):
     cam = dict(fov_y=0.9, near=0.1, far=60.0, aspect=w / h)
     outputs = ("image", "vis", "soup")
     got = Renderer(port_scene(), PipelineConfig(width=w, height=h, **OPTS),
-                   outputs=outputs).render(Camera.create(pos, **cam))
+                   outputs=outputs).render(Camera.create(pos, **cam, device="cpu"))
     jcfg = JaxConfig(width=w, height=h, shading="pbr", use_pallas=True,
                      pallas_interpret=True, **OPTS)
     want = JaxRenderer(jax_scene(), jcfg, outputs=outputs).render(
@@ -66,12 +66,13 @@ def test_frame_matches_jax_renderer(name):
 
 
 def tiny_renderer(**kw):
-    return Renderer(textured_scene(SceneLimits.tiny(), 32),
+    return Renderer(textured_scene(SceneLimits.tiny(), 32, device="cpu"),
                     PipelineConfig(width=128, height=64, tri_capacity=2048, **kw))
 
 
 def cam():
-    return Camera.create([0.0, 1.2, 4.0], fov_y=0.9, near=0.1, far=60.0, aspect=2.0)
+    return Camera.create([0.0, 1.2, 4.0], fov_y=0.9, near=0.1, far=60.0, aspect=2.0,
+                         device="cpu")
 
 
 def test_plan_is_the_base_frame():
@@ -86,7 +87,7 @@ def test_plan_check_rejects_missing_producers():
     with pytest.raises(ValueError, match="no pass"):
         check_plan(plan, outputs=["shadow_map"])
     r = tiny_renderer()
-    r.passes = r.passes[:-1] + [Pass("present", ("image_pre",), ("image",), lambda image_pre: {})]
+    r.passes[-1] = Pass("present", ("image_pre",), ("image",), lambda image_pre: {})
     with pytest.raises(RuntimeError, match="claims"):
         r.render(cam())
 

@@ -27,12 +27,12 @@ def assert_scenes_equal(got, want):
 @pytest.mark.parametrize("which", ["textured_tiny", "sponza_200"])
 def test_port_scene_equals_jax_scene(which):
     if which == "textured_tiny":
-        got = textured_scene(SceneLimits.tiny(), 32)
+        got = textured_scene(SceneLimits.tiny(), 32, device="cpu")
         want = jax_textured(JaxLimits.tiny(), 32)
     else:
-        got = sponza_like_scene(200)
+        got = sponza_like_scene(200, device="cpu")
         want = jax_sponza(200)
-    assert_scenes_equal(got, scene_from_numpy(as_numpy_scene(want)))
+    assert_scenes_equal(got, scene_from_numpy(as_numpy_scene(want), device="cpu"))
     assert got.meshes.tri_rec is not None
     assert got.atlas.packed_u32.dtype == torch.int32  # the uint32 bits
 
@@ -55,4 +55,4 @@ def test_builder_capacity_errors():
     b = SceneBuilder(SceneLimits.tiny())
     b.add_mesh(primitives.uv_sphere(rings=48, sectors=96))  # > 4096 triangles
     with pytest.raises(ValueError, match="capacity exceeded"):
-        b.build()
+        b.build(device="cpu")

@@ -37,7 +37,7 @@ SCENES = {
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_sample_atlas_matches_jax(name, trilinear):
     jscene = SCENES[name][0]()
-    atlas = scene_from_numpy(as_numpy_scene(jscene)).atlas
+    atlas = scene_from_numpy(as_numpy_scene(jscene), device="cpu").atlas
     rng = np.random.default_rng(4)
     n = 4096
     layer = rng.integers(-1, int(jscene.atlas.n_layers), size=n).astype(np.int32)
@@ -63,7 +63,7 @@ def test_sample_atlas_matches_jax(name, trilinear):
 def test_shade_pbr_and_edge_aa_match_jax(name):
     build, pos, w, h = SCENES[name]
     jscene = build()
-    tscene = scene_from_numpy(as_numpy_scene(jscene))
+    tscene = scene_from_numpy(as_numpy_scene(jscene), device="cpu")
     cam = JaxCamera.create(jnp.asarray(pos), fov_y=0.9, near=0.1, far=60.0, aspect=w / h)
     prep = jax.jit(jgeo.prepare_frame_columns)(jscene, cam)
     soup, rec = jax.jit(jgeo.build_draw_stream, static_argnums=(5, 6, 7, 8))(

@@ -27,7 +27,7 @@ def soup_from_meshes(meshes, vp, pad_to=256):
 
 
 def camera_soup(meshes, position, rotation=None, near=0.1, far=20.0):
-    cam = Camera.create(position, rotation, near=near, far=far, aspect=2.0)
+    cam = Camera.create(position, rotation, near=near, far=far, aspect=2.0, device="cpu")
     _, _, vp = camera_matrices(cam)
     return soup_from_meshes(meshes, vp.numpy())
 
@@ -113,7 +113,7 @@ CASES = {
         128, 64, True),
     "two_sided": (lambda: camera_soup(
         [primitives.torus()], [0.0, 1.2, 2.0],
-        rotation=quat_from_axis_angle([1.0, 0.0, 0.0], -0.5)),
+        rotation=quat_from_axis_angle([1.0, 0.0, 0.0], -0.5, device="cpu")),
         128, 64, False),
     "near_crossing": (lambda: camera_soup(
         [primitives.box(size=4.0)], [0.05, 0.0, 0.1], near=0.05, far=50.0), 128, 64, False),
