@@ -16,10 +16,14 @@ code is non-zero:
    tests/torch_raster_cases.py (bit-identical; the CPU tests hold the plain
    version to the float64 numpy reference rasterizer);
 4. occlusion kernel against its plain version on the cases of
-   tests/torch_occlusion_cases.py (identical planes; the CPU tests hold the
-   plain version to JAX and a float64 brute force);
+   tests/torch_occlusion_cases.py, at the default segment length and at
+   one-block segments (identical planes; the CPU tests hold the plain
+   version to JAX and a float64 brute force);
 5. the two kernels on no path (add_one, transpose) against x + 1 and
-   x.T.contiguous(), timed at (8, 128) and (262144, 36);
+   x.T.contiguous(), timed at (8, 128) and (262144, 36) in turns (add_one
+   over 7 rounds, the median kept), and add_one's launch path piece by
+   piece (host us per call over 10^4 calls, the kernel's device time from
+   torch.profiler) beside x + 1;
 6. the bench frame's own soup (sponza_like_scene(10000), orbit angle 0.3,
    1920x1088, 131072 triangles): raster kernel against plain version, timed;
 7. the main path: Renderer over the bench orbit, 1 warm-up frame and 30
@@ -33,7 +37,9 @@ code is non-zero:
    through ctypes are added to the pass that launches them);
 10. the rt path's occlusion inputs at the bench camera (slot 0, the sun)
     for rt_scale 2 and 1: kernel against plain version, bin lists, caster
-    total against capacity, kernel / setup+binning+kernel / plain times;
+    total against capacity, kernel / setup+binning+kernel / plain times,
+    the kernel's share of its bound, its work items, the hit casters it
+    stages against the casters listed, and its time per segment length;
 11. the rt main path (the rt switch, rt_scale 2, 4 shadow slots): 1
     warm-up and 30 timed frames, occlusion launches = frames x traced
     slots, image checks, darker than the rt-off frame; PNG to _build/;
@@ -45,10 +51,12 @@ Then one JSON line listing every kernel, the card's name and power limit,
 and, last, the JSON result line.
 """
 
+import ctypes
 import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -82,7 +90,13 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS_PER_PAIR = 25  # FP32 operations per (pixel or receiver, triangle) pair tested
 # the pass that launches each ctypes kernel of the main path
-PASS_KERNELS = {"raster_tiles_kernel": "raster", "occlusion_tiles_kernel": "shade_rt"}
+PASS_KERNELS = {"raster_tiles_kernel": "raster", "occlusion_prep_kernel": "shade_rt",
+                "occlusion_items_kernel": "shade_rt", "occlusion_walk_kernel": "shade_rt"}
+LAUNCH_CALLS = 10_000  # calls per piece of the launch-path breakdown
+PROBE_ROUNDS = 7  # rounds of add_one, its plain version and x + 1, timed in turns
+SEGMENT_SWEEP = (1, 8, 16, 32, 64)  # occlusion segment lengths timed in phase 10
+# every kernel wrapper's launcher (launches are counted there)
+KERNELS = (rc.RASTER_TILES, oc.OCCLUSION_TILES, probe_cuda.ADD_ONE, probe_cuda.TRANSPOSE)
 
 
 def phase(name: str, msg: str) -> None:
@@ -99,6 +113,91 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us_per_call(fn, calls: int = LAUNCH_CALLS) -> float:
+    """Host-clock us per call of fn over `calls` calls, after one warm-up,
+    synchronized on both sides."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / calls
+
+
+def device_us_by_kernel(fn, calls: int = 1000) -> dict:
+    """Device us per call of fn, by kernel (or memset), from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0][-40:]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / calls
+    return out
+
+
+def us_line(times: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+
+
+def launch_breakdown(x) -> str:
+    """add_one's launch path on x, piece by piece: host us per call of each
+    step of the wrapper (and of the other public routes to the current
+    stream, and of a ctypes call that releases the GIL), the whole wrapper
+    and x + 1, and the device time of each from the profiler."""
+    kernel = probe_cuda.ADD_ONE
+    pyfn = kernel.load()
+    cdll = getattr(ctypes.CDLL(probe_cuda.LIBRARY.path), kernel.symbol)
+    cdll.restype, cdll.argtypes = ctypes.c_int, kernel.argtypes
+    y = torch.empty_like(x)
+    idx, xp, yp, n = x.get_device(), x.data_ptr(), y.data_ptr(), x.numel()
+    stream = torch.accelerator.current_stream(idx).native_handle
+    if stream != torch.cuda.current_stream(idx).cuda_stream:
+        raise AssertionError("torch.accelerator and torch.cuda disagree on the current stream")
+
+    count = [0]
+
+    def rc_check_and_count(rc=0):
+        if rc:
+            raise RuntimeError(rc)
+        count[0] += 1
+
+    pieces = {
+        "empty python call": lambda: None,
+        "check_inputs": lambda: cuda_build.check_inputs("add_one", (x, torch.float32, None)),
+        "torch.empty_like (used)": lambda: torch.empty_like(x),
+        "torch.empty": lambda: torch.empty((8, 128), dtype=torch.float32, device=x.device),
+        "torch.accelerator.current_stream(index).native_handle (used)":
+            lambda: torch.accelerator.current_stream(idx).native_handle,
+        "torch.cuda.current_stream(device).cuda_stream (former)":
+            lambda: torch.cuda.current_stream(x.device).cuda_stream,
+        "torch.cuda.current_stream(index).cuda_stream": lambda: torch.cuda.current_stream(idx).cuda_stream,
+        "torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "2 data_ptr, numel": lambda: (x.data_ptr(), y.data_ptr(), x.numel()),
+        "ctypes call, PyDLL: GIL held (used)": lambda: pyfn(xp, yp, n, stream),
+        "ctypes call, CDLL: GIL released (former)": lambda: cdll(xp, yp, n, stream),
+        "rc check + count": rc_check_and_count,
+        "add_one": lambda: probe_cuda.add_one(x),
+        "x + 1": lambda: x + 1,
+    }
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:  # private, timed as the floor only
+        pieces["torch._C._cuda_getCurrentRawStream(index) (private, not used)"] = lambda: raw(idx)
+    host = {name: host_us_per_call(fn) for name, fn in pieces.items()}
+    dev_add = device_us_by_kernel(lambda: probe_cuda.add_one(x))
+    dev_x1 = device_us_by_kernel(lambda: x + 1)
+    return (f"host us/call over {LAUNCH_CALLS}: {us_line(host)}; device us/call (profiler): "
+            f"add_one: {us_line(dev_add)}; x + 1: {us_line(dev_x1)}")
 
 
 def host_ms(fn) -> float:
@@ -148,7 +247,7 @@ def occlusion_bound(args):
     list entries, counts and tile bboxes. Operations: (live receiver, live
     caster overlapping the tile's receiver bbox) pairs of the listed
     blocks, ~25 FP32 operations each, no early exit counted. Returns
-    (bound, pairs)."""
+    (bound, pairs, hit casters: those pairs' casters summed over tiles)."""
     rec, block_list, block_count, tile_bbox, lx, ly, ld = args
     n_tiles = block_list.shape[0]
     live = oc._tile_rows(torch.isfinite(ld)).sum(dim=1)
@@ -159,7 +258,7 @@ def occlusion_bound(args):
         hits += torch.where(block_count > i, hit.sum(dim=1), 0)
     pairs = int((hits * live).sum())
     n_bytes = 16 * lx.numel() + rec.numel() * 4 + int(block_count.sum()) * 4 + n_tiles * 20
-    return bound(n_bytes, pairs * OPS_PER_PAIR), pairs
+    return bound(n_bytes, pairs * OPS_PER_PAIR), pairs, int(hits.sum())
 
 
 def traced_window(renderer, dev, activities):
@@ -286,9 +385,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libraries = {"raster.cu": rc.LIBRARY, "occlusion.cu": oc.LIBRARY, "probe.cu": probe_cuda.LIBRARY}
     cuda_build.build_all(libraries.values())
-    rc.raster_kernel.load()
-    oc.occlusion_kernel.load()
-    probe_cuda.probe_kernels.load()
+    for kernel in KERNELS:
+        kernel.load()
     phase("build", f"{len(libraries)} sources built in parallel and loaded in "
                    f"{time.perf_counter() - t0:.2f} s; " + "; ".join(
                        f"{name}: {lib.build_log.splitlines()[0] if lib.build_log else 'cached'}, "
@@ -306,34 +404,55 @@ def main() -> int:
     phase("raster_cases", f"{len(CASES)} cases x bary on/off: tri_id identical, max float err {worst:.1e}")
 
     # 4. occlusion kernel vs plain on the test cases -----------------------------
+    segment_lengths = (oc.SEGMENT_BLOCKS, 1)
     for name, build in sorted(OCCLUSION_CASES.items()):
         args = trt.occlusion_inputs(*(torch.from_numpy(a).to(dev) for a in build()))
-        if not torch.equal(oc.occlusion_kernel(*args), oc.occlusion_tiles_plain(*args)):
-            raise AssertionError(f"occlusion kernel differs from its plain version on {name}")
-    phase("occlusion_cases", f"{len(OCCLUSION_CASES)} cases: planes identical")
+        want = oc.occlusion_tiles_plain(*args)
+        for seg in segment_lengths:
+            if not torch.equal(oc.occlusion_kernel(*args, segment_blocks=seg), want):
+                raise AssertionError(f"occlusion kernel differs from its plain version on {name} "
+                                     f"with {seg}-block segments")
+    phase("occlusion_cases", f"{len(OCCLUSION_CASES)} cases x segments of {segment_lengths} blocks: "
+                             "planes identical")
 
     # 5. the kernels on no path ---------------------------------------------
     probes = {}
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 128)).astype(np.float32)).to(dev)
     e = torch.from_numpy(np.random.default_rng(1).normal(size=(262144, 36)).astype(np.float32)).to(dev)
-    for pname, replaces, kernel, plain, library, inp, iters in (
+    rounds = {}
+    for pname, replaces, kernel, plain, library, inp, iters, n_rounds in (
             ("add_one", "tests/test_tpu_hw.py:87", probe_cuda.add_one, probe_cuda.add_one_plain,
-             lambda: x + 1, x, 100),
+             lambda: x + 1, x, LAUNCH_CALLS, PROBE_ROUNDS),
             ("transpose", "scripts/prof_phasea.py:93", probe_cuda.transpose,
-             probe_cuda.transpose_plain, lambda: e.T.contiguous(), e, 50)):
+             probe_cuda.transpose_plain, lambda: e.T.contiguous(), e, 50, 2)):
         got, want = kernel(inp), plain(inp)
         if got.shape != want.shape or not torch.equal(got, want):
             raise AssertionError(f"{pname} differs from its plain version")
         p_bound, p_by = bound(2 * inp.numel() * 4, inp.numel() if pname == "add_one" else 0)
+        # timed in turns (kernel, plain, library, then the other way round, ...), median
+        fns = {"ms": lambda: kernel(inp), "plain_ms": lambda: plain(inp), "library_ms": library}
+        rounds[pname] = {k: [] for k in fns}
+        for r in range(n_rounds):
+            for k, fn in (list(fns.items()) if r % 2 == 0 else list(reversed(fns.items()))):
+                rounds[pname][k].append(cuda_ms(fn, iters))
         probes[pname] = kernels[pname] = dict(
             name=pname, route="cuda", source="renderer_tpu_torch/csrc/probe.cu",
             replaces=replaces, launches=None, max_abs_err=(got - want).abs().max().item(),
-            ms=cuda_ms(lambda: kernel(inp), iters), plain_ms=cuda_ms(lambda: plain(inp), iters),
-            bound_ms=p_bound, bound_by=p_by, library_ms=cuda_ms(library, iters))
+            bound_ms=p_bound, bound_by=p_by,
+            **{k: statistics.median(v) for k, v in rounds[pname].items()})
     phase("probe", "; ".join(
         f"{k} {tuple(v.shape)}: kernel {p['ms']:.5f} ms, plain {p['plain_ms']:.5f} ms, library "
         f"{p['library_ms']:.5f} ms, bound {p['bound_ms']:.6f} ms by {p['bound_by']}, max err "
         f"{p['max_abs_err']}" for (k, p), v in zip(probes.items(), (x, e))) + f" ({card})")
+    turns = rounds["add_one"]
+    wins = sum(a <= b for a, b in zip(turns["ms"], turns["library_ms"]))
+    phase("launch_path", f"add_one {tuple(x.shape)} against x + 1: " + launch_breakdown(x)
+          + f"; cuda_ms over {LAUNCH_CALLS} launches, median of {PROBE_ROUNDS} rounds in turns: "
+          f"add_one {1e3 * probes['add_one']['ms']:.3f} us, x + 1 "
+          f"{1e3 * probes['add_one']['library_ms']:.3f} us, add_one no slower in {wins} of "
+          f"{PROBE_ROUNDS} rounds; per round add_one "
+          + json.dumps([round(1e3 * v, 3) for v in turns["ms"]]) + ", x + 1 "
+          + json.dumps([round(1e3 * v, 3) for v in turns["library_ms"]]) + f" ({card})")
 
     # 6. the bench frame's soup ---------------------------------------------
     t0 = time.perf_counter()
@@ -367,14 +486,14 @@ def main() -> int:
     cfg = PipelineConfig(width=WIDTH, height=HEIGHT, tri_capacity=TRI_CAPACITY,
                          enable_normal_maps=True, aa="edge", trilinear=False)
     renderer = Renderer(scene, cfg, outputs=("image", "vis", "soup"), device=dev)
-    rc.raster_kernel.launches = 0
-    probe_cuda.probe_kernels.launches = dict.fromkeys(probe_cuda.probe_kernels.launches, 0)
+    for k in KERNELS:
+        k.launches = 0
     frame_ms, out = run_orbit(renderer, dev)
-    launches = rc.raster_kernel.launches
-    probe_launches = dict(probe_cuda.probe_kernels.launches)
+    base_launches = {k.symbol: k.launches for k in KERNELS}
+    launches = rc.RASTER_TILES.launches
     frames = FRAMES + 1
-    if launches != frames:
-        raise AssertionError(f"raster kernel launched {launches} times for {frames} frames")
+    if launches != frames or oc.OCCLUSION_TILES.launches:
+        raise AssertionError(f"launches for {frames} frames of the base path: {base_launches}")
     kernels["raster_tiles"]["launches"] = launches
     img_base, coverage, brightness = check_image(out)
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
@@ -389,12 +508,12 @@ def main() -> int:
     # 8. main path, kernel vs plain raster ------------------------------------
     cam = orbit_camera(0.3, WIDTH / HEIGHT, dev)
     ref_out = Renderer(scene, cfg, device=dev).render(cam)
-    kernel = rc.raster_kernel
+    kernel_fn = rc.raster_kernel
     rc.raster_kernel = rc.raster_tiles_plain  # the plain version on CUDA tensors
     try:
         plain_out = Renderer(scene, cfg, device=dev).render(cam)
     finally:
-        rc.raster_kernel = kernel
+        rc.raster_kernel = kernel_fn
     if not torch.equal(ref_out["vis"].tri_id, plain_out["vis"].tri_id):
         raise AssertionError("main path tri_id differs between kernel and plain raster")
     frame_psnr = psnr(np.clip(ref_out["image"].cpu().numpy(), 0, 1),
@@ -435,15 +554,29 @@ def main() -> int:
         occ_err = (got - want[0]).abs().max().item()
         k_ms = cuda_ms(lambda: oc.occlusion_kernel(*args), 20)
         f_ms = cuda_ms(lambda: trt.occlusion_grid(clip, valid, lx, ly, ld), 10)
-        (o_bound, o_by), pairs = occlusion_bound(args)
+        sweep = {}
+        for seg in SEGMENT_SWEEP:
+            if not torch.equal(oc.occlusion_kernel(*args, segment_blocks=seg), want[0]):
+                raise AssertionError(f"occlusion kernel with {seg}-block segments differs from plain "
+                                     f"at rt_scale {s}")
+            sweep[seg] = cuda_ms(lambda: oc.occlusion_kernel(*args, segment_blocks=seg), 10)
+        parts = device_us_by_kernel(lambda: oc.occlusion_kernel(*args), 20)
+        (o_bound, o_by), pairs, hit_casters = occlusion_bound(args)
         bc = args[2]
+        listed = int(bc.sum()) * rc.BLOCK
+        items = int(oc.segments(bc, oc.SEGMENT_BLOCKS).sum())
         live = torch.isfinite(ld)
         shadowed = float(((got[: ld.shape[0], : ld.shape[1]] == 0) & live).sum()) / max(1, int(live.sum()))
         grid.append(f"rt_scale {s}: grid {lx.shape[0]}x{lx.shape[1]}, {bc.numel()} tiles, bins mean "
                     f"{bc.float().mean().item():.1f} max {int(bc.max())} blocks/tile, {pairs} "
                     f"receiver-caster pairs, {100 * shadowed:.1f}% of live receivers shadowed; "
-                    f"kernel {k_ms:.3f} ms (bound {o_bound:.4f} ms by {o_by}), setup+binning+kernel "
-                    f"{f_ms:.3f} ms, plain {p_ms:.1f} ms; planes identical")
+                    f"kernel {k_ms:.3f} ms (device us per call: {us_line(parts)}; "
+                    f"bound {o_bound:.4f} ms by {o_by} = "
+                    f"{100 * o_bound / k_ms:.1f}% of the kernel's time), {items} work items of "
+                    f"{oc.SEGMENT_BLOCKS} blocks, {hit_casters} hit casters staged (early exit not "
+                    f"counted) of {listed} listed = {100 * hit_casters / max(1, listed):.2f}%; "
+                    f"setup+binning+kernel {f_ms:.3f} ms, plain {p_ms:.1f} ms; planes identical; "
+                    "kernel ms by segment length " + json.dumps({k: round(v, 4) for k, v in sweep.items()}))
         if s == 2:
             kernels["occlusion_tiles"] = dict(
                 name="occlusion_tiles", route="cuda", source="renderer_tpu_torch/csrc/occlusion.cu",
@@ -461,14 +594,13 @@ def main() -> int:
     rt_renderer.apply_config_now()
     slots = trt.slot_lights(rt_renderer.light_casts, rt_renderer.cfg.shadow_slots)
     per_frame = sum(0 if sl is None else (1 if sl[1] else 6) for sl in slots)
-    rc.raster_kernel.launches = 0
-    oc.occlusion_kernel.launches = 0
-    probe_cuda.probe_kernels.launches = dict.fromkeys(probe_cuda.probe_kernels.launches, 0)
+    for k in KERNELS:
+        k.launches = 0
     rt_ms, rt_out = run_orbit(rt_renderer, dev)
-    occ_launches, ras_launches = oc.occlusion_kernel.launches, rc.raster_kernel.launches
-    for k, n in probe_cuda.probe_kernels.launches.items():
-        probe_launches[k] += n
-        kernels[k]["launches"] = probe_launches[k]
+    occ_launches, ras_launches = oc.OCCLUSION_TILES.launches, rc.RASTER_TILES.launches
+    probe_launches = {}
+    for name, k in (("add_one", probe_cuda.ADD_ONE), ("transpose", probe_cuda.TRANSPOSE)):
+        probe_launches[name] = kernels[name]["launches"] = base_launches[k.symbol] + k.launches
     if any(probe_launches.values()):
         raise AssertionError(f"kernels of no path launched on the main paths: {probe_launches}")
     if occ_launches != frames * per_frame or per_frame == 0:
@@ -514,11 +646,13 @@ def main() -> int:
     if len(ref_planes) != len(plain_planes) or not all(
             torch.equal(a, b) for a, b in zip(ref_planes, plain_planes)):
         raise AssertionError("rt frame occlusion planes differ between kernel and plain version")
+    if not torch.equal(ref_img, plain_img):
+        raise AssertionError("rt frame image differs between kernel and plain occlusion")
     rt_psnr = psnr(np.clip(ref_img.cpu().numpy(), 0, 1), np.clip(plain_img.cpu().numpy(), 0, 1))
     if rt_psnr < PSNR_GATE_DB:
         raise AssertionError(f"rt frame PSNR kernel vs plain {rt_psnr:.1f} dB")
-    phase("rt_vs_plain", f"{len(ref_planes)} occlusion planes identical; display-clamped PSNR "
-                         f"{'inf' if math.isinf(rt_psnr) else f'{rt_psnr:.1f}'} dB")
+    phase("rt_vs_plain", f"{len(ref_planes)} occlusion planes and the images identical; "
+                         f"display-clamped PSNR {'inf' if math.isinf(rt_psnr) else f'{rt_psnr:.1f}'} dB")
 
     # 13. rt profile ------------------------------------------------------------
     profile_main_path("rt_profile", rt_renderer, dev, card)

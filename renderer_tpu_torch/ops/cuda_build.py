@@ -1,4 +1,5 @@
-"""Build a CUDA source of ``csrc/`` with nvcc and load it with ctypes.
+"""Build a CUDA source of ``csrc/`` with nvcc, load it with ctypes, and
+launch its C functions.
 
 Each source is a shared library with a plain C interface, compiled for
 Hopper (``sm_90a``) at first use into ``renderer_tpu_torch/_build/``
@@ -6,6 +7,9 @@ Hopper (``sm_90a``) at first use into ``renderer_tpu_torch/_build/``
 an edited source is rebuilt and an unchanged one is loaded as it is.
 Nothing is built when a module is imported. ``start()`` runs nvcc in the
 background, so several sources can build at once (``build_all``).
+
+Every kernel wrapper launches through ``CudaKernel`` and checks its inputs
+with ``check_inputs``: the one launch path of the package.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import hashlib
 import os
 import subprocess
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -38,6 +44,11 @@ class CudaLibrary:
         self._path = None
         self._proc = None
         self._lib = None
+
+    @property
+    def path(self) -> str:
+        """The shared library's path (built or not)."""
+        return self._lib_path()
 
     def _lib_path(self) -> str:
         if self._path is None:
@@ -64,8 +75,10 @@ class CudaLibrary:
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
 
-    def load(self) -> ctypes.CDLL:
-        """The loaded library, built first if need be."""
+    def load(self) -> ctypes.PyDLL:
+        """The loaded library, built first if need be. Its functions are
+        called with the GIL held: they only enqueue work, and keeping the
+        GIL is cheaper than releasing it around the call."""
         if self._lib is None:
             self.start()
             if self._proc is not None:
@@ -75,7 +88,7 @@ class CudaLibrary:
                     raise RuntimeError(f"nvcc failed on {self.source}:\n{err}")
                 os.replace(self._tmp, self._lib_path())
                 self.build_log = f"built in {time.perf_counter() - self._t0:.2f} s\n{err}"
-            self._lib = ctypes.CDLL(self._lib_path())
+            self._lib = ctypes.PyDLL(self._lib_path())
         return self._lib
 
     def function(self, name: str, argtypes: list):
@@ -84,6 +97,47 @@ class CudaLibrary:
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
         return fn
+
+
+class CudaKernel:
+    """One launch function of a library, ``int symbol(args..., void*
+    stream)`` returning a cudaError_t. The function is resolved once, at
+    the first launch. Each launch passes PyTorch's current stream of the
+    device, looked up anew every time (through ``torch.accelerator``, the
+    cheapest public route to its handle), raises if the function returns
+    an error, and adds one to ``launches``."""
+
+    def __init__(self, library: CudaLibrary, symbol: str, argtypes: list):
+        self.library = library
+        self.symbol = symbol
+        self.argtypes = [*argtypes, ctypes.c_void_p]
+        self.launches = 0
+        self._fn = None
+
+    def load(self):
+        if self._fn is None:
+            self._fn = self.library.function(self.symbol, self.argtypes)
+        return self._fn
+
+    def launch(self, device_index: int, *args) -> None:
+        rc = (self._fn or self.load())(*args, torch.accelerator.current_stream(device_index).native_handle)
+        if rc:
+            raise RuntimeError(f"{self.symbol} failed: cudaError {rc}")
+        self.launches += 1
+
+
+def check_inputs(kernel: str, *specs) -> int:
+    """The CUDA device index of the inputs. Raise ValueError unless each
+    (tensor, dtype, shape) of ``specs`` is a contiguous CUDA tensor of that
+    dtype and shape (None: any shape) on the first tensor's device."""
+    index = specs[0][0].get_device()
+    for t, dtype, shape in specs:
+        if (not t.is_cuda or t.dtype is not dtype or t.get_device() != index
+                or (shape is not None and t.shape != shape) or not t.is_contiguous()):
+            raise ValueError(f"{kernel} kernel input: want a contiguous {dtype} "
+                             f"{'tensor' if shape is None else tuple(shape)} on the same CUDA "
+                             f"device, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return index
 
 
 def build_all(libraries) -> None:

@@ -9,8 +9,9 @@ receiver bbox in light NDC (n_tiles, 4) f32 (xmin, xmax, ymin, ymax), and
 the receivers' light-space x, y and depth as (H, W) f32 planes that are
 16x64 tile multiples. The result is the (H, W) plane, 1 lit and 0
 occluded; receivers with a non-finite depth (ld = +inf: background) are
-skipped and stay lit. The kernel and the plain version visit the same
-casters and round every operation alike, so they agree bit for bit.
+skipped and stay lit. The kernel and the plain version test the same
+(receiver, caster) pairs and round every operation alike, so they agree
+bit for bit.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import ctypes
 
 import torch
 
-from renderer_tpu_torch.ops.cuda_build import CudaLibrary
+from renderer_tpu_torch.ops.cuda_build import CudaKernel, CudaLibrary, check_inputs
 from renderer_tpu_torch.ops.raster_cuda import BLOCK, TILE_H, TILE_W
 
 REC = 20   # floats per caster record
@@ -29,7 +30,13 @@ O_W = 12   # 12..14 w_clip per corner
 O_BB = 15  # 15..18 light NDC bbox xmin, xmax, ymin, ymax
 O_OK = 19  # 1.0 live caster, 0.0 dead
 
+SEGMENT_BLOCKS = 32  # caster blocks per work item (tile, segment) of the kernel
+SEGMENT_MAX = 64     # the most the kernel takes (csrc/occlusion.cu SEG_MAX)
+
 LIBRARY = CudaLibrary("occlusion.cu")
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+OCCLUSION_TILES = CudaKernel(LIBRARY, "rtt_occlusion_tiles",
+                             [_PTR] * 7 + [_I32] * 5 + [_PTR, _PTR, ctypes.c_size_t])
 PLAIN_CHUNK = 1 << 24  # (tile, caster, receiver) triples per plain-version step
 
 
@@ -83,58 +90,52 @@ def occlusion_tiles_plain(rec, block_list, block_count, tile_bbox, lx, ly, ld):
             .reshape(h, w))
 
 
-class OcclusionKernel:
-    """Launches ``csrc/occlusion.cu`` (built at first use, see
-    ``cuda_build``). ``launches`` counts kernel launches."""
-
-    def __init__(self):
-        self.launches = 0
-        self._fn = None
-
-    @property
-    def build_log(self) -> str:
-        return LIBRARY.build_log
-
-    def load(self):
-        if self._fn is None:
-            self._fn = LIBRARY.function(
-                "rtt_occlusion_tiles", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-            )
-        return self._fn
-
-    def __call__(self, rec, block_list, block_count, tile_bbox, lx, ly, ld):
-        """Same arguments and result as ``occlusion_tiles_plain``; CUDA only."""
-        h, w = lx.shape
-        if h % TILE_H or w % TILE_W:
-            raise ValueError(f"occlusion kernel: receiver planes {h}x{w} are not 16x64 tile multiples")
-        n_ty, n_tx = h // TILE_H, w // TILE_W
-        n_blocks = rec.shape[0] // BLOCK
-        expect = (
-            (rec, torch.float32, (n_blocks * BLOCK, REC)),
-            (block_list, torch.int32, (n_ty * n_tx, n_blocks)),
-            (block_count, torch.int32, (n_ty * n_tx,)),
-            (tile_bbox, torch.float32, (n_ty * n_tx, 4)),
-            (lx, torch.float32, (h, w)),
-            (ly, torch.float32, (h, w)),
-            (ld, torch.float32, (h, w)),
-        )
-        for t, dtype, shape in expect:
-            if (t.device.type != "cuda" or t.device != rec.device or t.dtype != dtype
-                    or tuple(t.shape) != shape or not t.is_contiguous()):
-                raise ValueError(
-                    f"occlusion kernel input: want contiguous {dtype} {shape} on "
-                    f"{rec.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-                )
-        fn = self.load()
-        occ = torch.empty((h, w), dtype=torch.float32, device=rec.device)
-        stream = torch.cuda.current_stream(rec.device).cuda_stream
-        rc = fn(rec.data_ptr(), block_list.data_ptr(), block_count.data_ptr(),
-                tile_bbox.data_ptr(), lx.data_ptr(), ly.data_ptr(), ld.data_ptr(),
-                n_ty * n_tx, n_blocks, n_tx, w, occ.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"occlusion kernel launch failed: cudaError {rc}")
-        self.launches += 1
-        return occ
+def segments(block_count: torch.Tensor, segment_blocks: int) -> torch.Tensor:
+    """Work items per tile: its bin list cut into segments of
+    ``segment_blocks`` blocks."""
+    return (block_count + segment_blocks - 1) // segment_blocks
 
 
-occlusion_kernel = OcclusionKernel()
+def scratch_bytes(n_tiles: int, n_blocks: int, segment_blocks: int) -> int:
+    """Bytes of the kernel's device scratch, laid out as
+    ``rtt_occlusion_tiles`` carves it: the work counter and the item count
+    (16 B), a bbox side copy per caster slot (16 B), the tile order (4 B a
+    tile, rounded up to an even count) and the work items (8 B each, at most
+    ceil(n_blocks / segment_blocks) per tile)."""
+    n_seg = -(-n_blocks // segment_blocks)
+    return 16 + 16 * n_blocks * BLOCK + 4 * (n_tiles + n_tiles % 2) + 8 * n_tiles * n_seg
+
+
+def occlusion_kernel(rec, block_list, block_count, tile_bbox, lx, ly, ld,
+                     segment_blocks: int = SEGMENT_BLOCKS):
+    """Same arguments and result as ``occlusion_tiles_plain``; CUDA tensors
+    only. Each tile's bin list is walked in segments of ``segment_blocks``
+    blocks (1..SEGMENT_MAX); the plane does not depend on it.
+    ``OCCLUSION_TILES.launches`` counts the launches."""
+    if not 1 <= segment_blocks <= SEGMENT_MAX:
+        raise ValueError(f"occlusion kernel: segment_blocks {segment_blocks} not in 1..{SEGMENT_MAX}")
+    h, w = lx.shape
+    if h % TILE_H or w % TILE_W:
+        raise ValueError(f"occlusion kernel: receiver planes {h}x{w} are not 16x64 tile multiples")
+    n_ty, n_tx = h // TILE_H, w // TILE_W
+    n_tiles, n_blocks = n_ty * n_tx, rec.shape[0] // BLOCK
+    index = check_inputs(
+        "occlusion",
+        (rec, torch.float32, (n_blocks * BLOCK, REC)),
+        (block_list, torch.int32, (n_tiles, n_blocks)),
+        (block_count, torch.int32, (n_tiles,)),
+        (tile_bbox, torch.float32, (n_tiles, 4)),
+        (lx, torch.float32, (h, w)),
+        (ly, torch.float32, (h, w)),
+        (ld, torch.float32, (h, w)),
+    )
+    if rec.data_ptr() % 16:
+        raise ValueError("occlusion kernel input: the records must be 16-byte aligned")
+    occ = torch.empty((h, w), dtype=torch.float32, device=rec.device)
+    n_scratch = scratch_bytes(n_tiles, n_blocks, segment_blocks)
+    scratch = torch.empty((n_scratch,), dtype=torch.uint8, device=rec.device)
+    OCCLUSION_TILES.launch(index, rec.data_ptr(), block_list.data_ptr(),
+                           block_count.data_ptr(), tile_bbox.data_ptr(), lx.data_ptr(),
+                           ly.data_ptr(), ld.data_ptr(), n_tiles, n_blocks, n_tx, w,
+                           segment_blocks, occ.data_ptr(), scratch.data_ptr(), n_scratch)
+    return occ

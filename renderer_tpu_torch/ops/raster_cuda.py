@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from renderer_tpu_torch.ops.cuda_build import CudaLibrary
+from renderer_tpu_torch.ops.cuda_build import CudaKernel, CudaLibrary, check_inputs
 from renderer_tpu_torch.ops.raster_spec import DEPTH_CLEAR, FRONT_DET_SIGN, NO_TRIANGLE
 
 TILE_H = 16
@@ -213,61 +213,33 @@ def raster_tiles_plain(rec, masks, block_list, block_count, block_simple,
     return image(depth), image(tid), image(b0), image(b1)
 
 
-class RasterKernel:
-    """Launches ``csrc/raster.cu`` (built at first use, see ``cuda_build``).
-    ``launches`` counts kernel launches."""
-
-    def __init__(self):
-        self.launches = 0
-        self._fn = None
-
-    @property
-    def build_log(self) -> str:
-        return LIBRARY.build_log
-
-    def load(self):
-        if self._fn is None:
-            self._fn = LIBRARY.function(
-                "rtt_raster_tiles", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
-            )
-        return self._fn
-
-    def __call__(self, rec, masks, block_list, block_count, block_simple,
-                 width: int, height: int, y0: int, with_bary: bool):
-        """Same arguments and results as ``raster_tiles_plain``; CUDA only."""
-        n_ty, n_tx = height // TILE_H, width // TILE_W
-        n_blocks = rec.shape[0] // BLOCK
-        expect = (
-            (rec, torch.float32, (n_blocks * BLOCK, ROWS)),
-            (masks, torch.int64, (n_ty * n_tx, n_blocks)),
-            (block_list, torch.int32, (n_ty * n_tx, n_blocks)),
-            (block_count, torch.int32, (n_ty * n_tx,)),
-            (block_simple, torch.int32, (n_blocks,)),
-        )
-        for t, dtype, shape in expect:
-            if (t.device.type != "cuda" or t.device != rec.device or t.dtype != dtype
-                    or tuple(t.shape) != shape or not t.is_contiguous()):
-                raise ValueError(
-                    f"raster kernel input: want contiguous {dtype} {shape} on "
-                    f"{rec.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-                )
-        fn = self.load()
-        depth = torch.empty((height, width), dtype=torch.float32, device=rec.device)
-        tri_id = torch.empty((height, width), dtype=torch.int32, device=rec.device)
-        b0 = torch.empty_like(depth)
-        b1 = torch.empty_like(depth)
-        stream = torch.cuda.current_stream(rec.device).cuda_stream
-        rc = fn(rec.data_ptr(), masks.data_ptr(), block_list.data_ptr(),
-                block_count.data_ptr(), block_simple.data_ptr(), n_ty * n_tx, n_blocks,
-                n_tx, int(y0), width, int(bool(with_bary)), depth.data_ptr(),
-                tri_id.data_ptr(), b0.data_ptr(), b1.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"raster kernel launch failed: cudaError {rc}")
-        self.launches += 1
-        return depth, tri_id, b0, b1
+RASTER_TILES = CudaKernel(LIBRARY, "rtt_raster_tiles",
+                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4)
 
 
-raster_kernel = RasterKernel()
+def raster_kernel(rec, masks, block_list, block_count, block_simple,
+                  width: int, height: int, y0: int, with_bary: bool):
+    """Same arguments and results as ``raster_tiles_plain``; CUDA tensors
+    only. ``RASTER_TILES.launches`` counts the launches."""
+    n_ty, n_tx = height // TILE_H, width // TILE_W
+    n_blocks = rec.shape[0] // BLOCK
+    index = check_inputs(
+        "raster",
+        (rec, torch.float32, (n_blocks * BLOCK, ROWS)),
+        (masks, torch.int64, (n_ty * n_tx, n_blocks)),
+        (block_list, torch.int32, (n_ty * n_tx, n_blocks)),
+        (block_count, torch.int32, (n_ty * n_tx,)),
+        (block_simple, torch.int32, (n_blocks,)),
+    )
+    depth = torch.empty((height, width), dtype=torch.float32, device=rec.device)
+    tri_id = torch.empty((height, width), dtype=torch.int32, device=rec.device)
+    b0 = torch.empty_like(depth)
+    b1 = torch.empty_like(depth)
+    RASTER_TILES.launch(index, rec.data_ptr(), masks.data_ptr(), block_list.data_ptr(),
+                        block_count.data_ptr(), block_simple.data_ptr(), n_ty * n_tx, n_blocks,
+                        n_tx, int(y0), width, int(bool(with_bary)), depth.data_ptr(),
+                        tri_id.data_ptr(), b0.data_ptr(), b1.data_ptr())
+    return depth, tri_id, b0, b1
 
 
 def raster_inputs(clip, valid, width: int, height: int, cull_backface: bool = True,

@@ -8,8 +8,10 @@ Without a CUDA device every test here skips. Gates: the raster kernel
 equals the plain version bit for bit (tri_id, depth, barycentrics), and
 both pass the float64-reference gate of torch_raster_gate; the occlusion
 kernel's plane equals its plain version's on every occlusion case (the CPU
-tests hold the plain version to JAX and a float64 brute force); add_one and
-the transpose equal x + 1 and x.T.contiguous().
+tests hold the plain version to JAX and a float64 brute force), at the
+default segment length and at one-block segments, so segments of a tile
+combine; add_one and the transpose equal x + 1 and x.T.contiguous(); the
+kernels launch on the current stream, not on a stream seen before.
 """
 
 import numpy as np
@@ -17,7 +19,8 @@ import pytest
 import torch
 
 from renderer_tpu_torch.ops import probe_cuda
-from renderer_tpu_torch.ops.occlusion_cuda import occlusion_kernel, occlusion_tiles_plain
+from renderer_tpu_torch.ops.occlusion_cuda import (OCCLUSION_TILES, SEGMENT_BLOCKS, occlusion_kernel,
+                                                   occlusion_tiles_plain)
 from renderer_tpu_torch.ops.raster_cuda import raster_inputs, raster_kernel, raster_tiles_plain
 from renderer_tpu_torch.ops.rt_grid import occlusion_inputs
 from torch_occlusion_cases import CASES as OCCLUSION_CASES
@@ -51,14 +54,15 @@ def test_raster_kernel_matches_plain(case, with_bary, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("segment_blocks", [SEGMENT_BLOCKS, 1])
 @pytest.mark.parametrize("case", sorted(OCCLUSION_CASES))
-def test_occlusion_kernel_matches_plain(case, cuda_device):
+def test_occlusion_kernel_matches_plain(case, segment_blocks, cuda_device):
     args = occlusion_inputs(*(torch.from_numpy(a).to(cuda_device) for a in OCCLUSION_CASES[case]()))
-    before = occlusion_kernel.launches
-    got = occlusion_kernel(*args)
+    before = OCCLUSION_TILES.launches
+    got = occlusion_kernel(*args, segment_blocks=segment_blocks)
     want = occlusion_tiles_plain(*args)
     torch.cuda.synchronize()
-    assert occlusion_kernel.launches == before + 1
+    assert OCCLUSION_TILES.launches == before + 1
     assert torch.equal(got, want)
 
 
@@ -68,3 +72,34 @@ def test_probe_kernels_match_plain(shape, cuda_device):
     x = torch.from_numpy(np.random.default_rng(0).normal(size=shape).astype(np.float32)).to(cuda_device)
     assert torch.equal(probe_cuda.transpose(x), x.T.contiguous())
     assert torch.equal(probe_cuda.add_one(x), x + 1)
+
+
+SPIN_CYCLES = 50_000_000  # keeps a stream busy for some tens of milliseconds
+
+
+@pytest.mark.gpu
+def test_kernels_launch_on_the_current_stream(cuda_device):
+    """Inside ``torch.cuda.stream(side)`` the inputs are written on the side
+    stream behind a spin: a kernel launched on any other stream would read
+    them before they are written."""
+    x_new = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 128)).astype(np.float32))
+    x_new = x_new.to(cuda_device)
+    args = occlusion_inputs(*(torch.from_numpy(a).to(cuda_device)
+                              for a in OCCLUSION_CASES["orthographic"]()))
+    want_occ = occlusion_tiles_plain(*args)
+    assert (want_occ == 0).any()
+    probe_cuda.add_one(x_new)  # built, and launched on the default stream
+    occlusion_kernel(*args)
+    x = torch.zeros_like(x_new)
+    ld = torch.full_like(args[6], float("inf"))  # all lit until the copy lands
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(SPIN_CYCLES)
+        x.copy_(x_new)
+        ld.copy_(args[6])
+        y = probe_cuda.add_one(x)
+        occ = occlusion_kernel(*args[:6], ld)
+    torch.cuda.synchronize()
+    assert torch.equal(y, x_new + 1)
+    assert torch.equal(occ, want_occ)
