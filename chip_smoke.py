@@ -26,6 +26,11 @@ code is non-zero:
    torch.profiler) beside x + 1;
 6. the bench frame's own soup (sponza_like_scene(10000), orbit angle 0.3,
    1920x1088, 131072 triangles): raster kernel against plain version, timed;
+   its work counted from its inputs (mask bits per tile, triangles per
+   pixel region, the (pixel, triangle) pairs inside the padded bboxes that
+   set its bound, beside the mask-bit count of the earlier bound), and the
+   kernel timed with the bin lists of the heaviest tile alone, of the ten
+   heaviest, and of none;
 7. the main path: Renderer over the bench orbit, 1 warm-up frame and 30
    timed frames; per-pass times, the raster kernel's launch count, image
    checks, the last frame written to renderer_tpu_torch/_build/;
@@ -89,9 +94,16 @@ DEPTH_TOL = 1e-6  # raster kernel vs plain version (they should agree bit for bi
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS_PER_PAIR = 25  # FP32 operations per (pixel or receiver, triangle) pair tested
+# pixel regions (width, height) whose triangles phase 6 counts: the 32x4 strip
+# a warp covered when one CTA walked a whole tile's mask, and the kernel's
+# 8x8 region
+REGION_SHAPES = ((32, 4), (8, 8))
+REC_BYTES_READ = (rc.R_TL + 3) * 4  # record columns 0..21: all a pixel's test reads
+HOT_TILES = 10  # phase 6 times the kernel on the heaviest tile alone and on these many
 # the pass that launches each ctypes kernel of the main path
-PASS_KERNELS = {"raster_tiles_kernel": "raster", "occlusion_prep_kernel": "shade_rt",
-                "occlusion_items_kernel": "shade_rt", "occlusion_walk_kernel": "shade_rt"}
+PASS_KERNELS = {"raster_prep_kernel": "raster", "raster_walk_kernel": "raster",
+                "occlusion_prep_kernel": "shade_rt", "occlusion_items_kernel": "shade_rt",
+                "occlusion_walk_kernel": "shade_rt"}
 LAUNCH_CALLS = 10_000  # calls per piece of the launch-path breakdown
 PROBE_ROUNDS = 7  # rounds of add_one, its plain version and x + 1, timed in turns
 SEGMENT_SWEEP = (1, 8, 16, 32, 64)  # occlusion segment lengths timed in phase 10
@@ -227,19 +239,80 @@ def compare(got, want) -> float:
     return err
 
 
-def raster_bound(args):
-    """Bytes: the records, the listed mask words and list entries, the
-    counts and flags, four output planes. Operations: every (pixel,
-    triangle) pair of the tiles' mask bits."""
-    rec, masks, block_list, block_count, block_simple, width, height, _ = args
+def centre_span(lo, hi, origin, n):
+    """The pixel centres origin + c + 0.5 (0 <= c < n) inside [lo, hi]:
+    (first c, last c), empty when first > last. float64, exact."""
+    return (torch.ceil(lo - origin - 0.5).clamp(min=0),
+            torch.floor(hi - origin - 0.5).clamp(max=n - 1))
+
+
+def raster_work(args):
+    """What the raster kernel's inputs ask of it, counted on the device from
+    the listed blocks' mask bits: per tile the mask bits; per region shape
+    of REGION_SHAPES, per region the triangles (mask bit set) whose padded
+    bbox overlaps the box of the region's pixel centres; the (pixel,
+    triangle) pairs whose pixel centre lies inside the padded bbox; the
+    triangles with a mask bit in some listed block. Returns (bits per
+    tile, {shape: triangles per region}, pixel pairs, listed triangles)."""
+    rec, masks, block_list, block_count, _, width, _, y0 = args
+    dev = rec.device
+    n_tiles = masks.shape[0]
+    tiles = torch.arange(n_tiles, device=dev)
+    x0 = ((tiles % (width // rc.TILE_W)) * rc.TILE_W).double()[:, None]
+    ya = ((tiles // (width // rc.TILE_W)) * rc.TILE_H + y0).double()[:, None]
+    k = torch.arange(rc.BLOCK, device=dev)
+    bits_per_tile = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    per_region = {(rw, rh): torch.zeros((n_tiles, rc.TILE_H // rh, rc.TILE_W // rw),
+                                        dtype=torch.int64, device=dev) for rw, rh in REGION_SHAPES}
+    pixel_pairs = 0
+    listed = torch.zeros(rec.shape[0], dtype=torch.bool, device=dev)
+    for i in range(int(block_count.max()) if n_tiles else 0):
+        live = block_count > i
+        blk = torch.where(live, block_list[:, i], 0).long()
+        bit = (((torch.where(live, masks[tiles, blk], 0)[:, None] >> k) & 1) != 0)
+        xmin, xmax, ymin, ymax = (rec[blk[:, None] * rc.BLOCK + k, rc.R_BB:rc.R_BB + 4]
+                                  .double().unbind(-1))  # (n_tiles, 64) each
+        bits_per_tile += bit.sum(dim=1)
+        listed[(blk[:, None] * rc.BLOCK + k)[bit]] = True
+        (cx0, cx1), (cy0, cy1) = (centre_span(xmin, xmax, x0, rc.TILE_W),
+                                  centre_span(ymin, ymax, ya, rc.TILE_H))
+        inside = (cx1 - cx0 + 1).clamp(min=0) * (cy1 - cy0 + 1).clamp(min=0)
+        pixel_pairs += int(torch.where(bit, inside, 0).sum())
+        for (rw, rh), count in per_region.items():
+            lo_x = x0[:, :, None] + torch.arange(0, rc.TILE_W, rw, device=dev) + 0.5
+            lo_y = ya[:, :, None] + torch.arange(0, rc.TILE_H, rh, device=dev) + 0.5
+            hit_x = (xmin[..., None] <= lo_x + (rw - 1)) & (xmax[..., None] >= lo_x)
+            hit_y = (ymin[..., None] <= lo_y + (rh - 1)) & (ymax[..., None] >= lo_y)
+            count += (bit[:, :, None, None] & hit_y[..., None] & hit_x[:, :, None, :]).sum(dim=1)
+    return (bits_per_tile, {s: c.flatten() for s, c in per_region.items()}, pixel_pairs,
+            int(listed.sum()))
+
+
+def spread(v) -> str:
+    v = v.double()
+    return (f"mean {v.mean().item():.1f} median {v.median().item():.0f} p99 "
+            f"{torch.quantile(v, 0.99).item():.0f} max {int(v.max())}")
+
+
+def raster_bound(args, pixel_pairs, listed_tris):
+    """Bytes: the columns the kernel reads of each triangle with a mask bit
+    in a listed block, the listed mask words and list entries, the counts
+    and flags, four output planes. Operations: the (pixel, triangle) pairs
+    of the listed mask bits whose pixel centre lies inside the triangle's
+    padded bbox. Both counts come from raster_work."""
+    _, masks, _, block_count, _, width, height, _ = args
     n_tiles, n_blocks = masks.shape
-    pos = torch.arange(n_blocks, device=masks.device)[None] < block_count[:, None].long()
-    words = torch.where(pos, masks.gather(1, block_list.long()), 0)
-    bits = sum(((words >> k) & 1).sum().item() for k in range(64))
-    n_listed = int(block_count.sum())
-    n_bytes = (rec.numel() * 4 + n_listed * 12 + n_tiles * 4 + n_blocks * 4
-               + 4 * width * height * 4)
-    return bound(n_bytes, bits * rc.TILE_H * rc.TILE_W * OPS_PER_PAIR)
+    n_bytes = (listed_tris * REC_BYTES_READ + int(block_count.sum()) * 12 + n_tiles * 4
+               + n_blocks * 4 + 4 * width * height * 4)
+    return bound(n_bytes, pixel_pairs * OPS_PER_PAIR)
+
+
+def with_lists_of(args, tiles):
+    """The raster inputs with every tile's bin list emptied except those of
+    `tiles` (a valid input: the other tiles render empty)."""
+    count = torch.zeros_like(args[3])
+    count[tiles] = args[3][tiles]
+    return (*args[:3], count, *args[4:])
 
 
 def occlusion_bound(args):
@@ -307,7 +380,8 @@ def profile_main_path(name, renderer, dev, card: str) -> None:
     owned = dict.fromkeys(passes, 0.0)
     for e in events:
         for kernel, owner in PASS_KERNELS.items():
-            if e.device_type == DeviceType.CUDA and f"{kernel}(" in e.key and owner in owned:
+            if (e.device_type == DeviceType.CUDA and owner in owned
+                    and (f"{kernel}(" in e.key or f"{kernel}<" in e.key)):
                 owned[owner] += e.self_device_time_total / 1e3 / PROFILE_FRAMES
     per_pass = ", ".join(f"{k} {d:.3f}" + (f"+{owned[k]:.3f}" if owned[k] else "") + f"/{h:.3f}"
                          for k, (d, h) in passes.items())
@@ -464,23 +538,50 @@ def main() -> int:
                                          WIDTH, HEIGHT)
     args = rc.raster_inputs(soup.clip, soup.valid, WIDTH, HEIGHT)
     counts = args[3]
-    kernel_ms = cuda_ms(lambda: rc.raster_kernel(*args, False), 20)
     full_ms = cuda_ms(lambda: rc.rasterize_cuda(soup.clip, soup.valid, WIDTH, HEIGHT,
                                                 with_bary=False), 10)
     got = rc.raster_kernel(*args, False)
     want = [None]
     plain_ms = host_ms(lambda: want.__setitem__(0, rc.raster_tiles_plain(*args, False)))
     bench_err = compare(got, want[0])
-    r_bound, r_by = raster_bound(args)
+    bits, regions, pixel_pairs, listed_tris = raster_work(args)
+    r_bound, r_by = raster_bound(args, pixel_pairs, listed_tris)
+    old_bound, old_by = bound(0, int(bits.sum()) * rc.TILE_H * rc.TILE_W * OPS_PER_PAIR)
+    hot = torch.argsort(bits, descending=True, stable=True)[:HOT_TILES].tolist()
+    # the whole soup, and the same inputs with the bin lists of the heaviest
+    # tile, the HOT_TILES heaviest and none: ms by CUDA events over 20 calls
+    # (host-bound when the device work is shorter than a call's launch path)
+    # and device ms per call from the profiler
+    lists = {n: with_lists_of(args, hot[:n]) for n in (1, HOT_TILES, 0)}
+    lists["all"] = args
+    event_ms = {n: cuda_ms(lambda a=a: rc.raster_kernel(*a, False), 20) for n, a in lists.items()}
+    device_us = {n: device_us_by_kernel(lambda a=a: rc.raster_kernel(*a, False), 100)
+                 for n, a in lists.items()}
+    kernel_ms = event_ms["all"]
+
+    def timed(n) -> str:
+        return f"{event_ms[n]:.4f} / {sum(device_us[n].values()) / 1e3:.4f} ms"
+
     kernels["raster_tiles"] = dict(
         name="raster_tiles", route="cuda", source="renderer_tpu_torch/csrc/raster.cu",
         replaces="renderer_tpu/ops/raster_pallas.py:373", launches=None, max_abs_err=bench_err,
         ms=kernel_ms, plain_ms=plain_ms, bound_ms=r_bound, bound_by=r_by, library_ms=None)
     phase("bench_soup", f"scene built in {t_scene:.1f} s; {int(soup.count)} triangles; bins "
                         f"mean {counts.float().mean().item():.1f} max {int(counts.max())} blocks/tile; "
-                        f"kernel {kernel_ms:.3f} ms (bound {r_bound:.4f} ms by {r_by}), "
-                        f"setup+binning+kernel {full_ms:.3f} ms, plain {plain_ms:.1f} ms; tri_id "
-                        f"identical, max float err {bench_err:.1e} ({card})")
+                        f"kernel by events / device {timed('all')} ({us_line(device_us['all'])} us), "
+                        f"setup+binning+kernel {full_ms:.3f} ms, plain "
+                        f"{plain_ms:.1f} ms; tri_id identical, max float err {bench_err:.1e}; "
+                        f"mask bits {int(bits.sum())} (ops bound {old_bound:.4f} ms), pixel pairs "
+                        f"inside the padded bbox {pixel_pairs}, {listed_tris} triangles listed: "
+                        f"bound {r_bound:.4f} ms by {r_by} = "
+                        f"{100 * r_bound / kernel_ms:.1f}% of the kernel's time; mask bits per tile "
+                        f"{spread(bits)}; triangles per region whose bbox overlaps its pixel centres "
+                        + "; ".join(f"{rw}x{rh} ({v.numel()}): {int(v.sum())} pairs, {spread(v)}"
+                                    for (rw, rh), v in regions.items())
+                        + f"; kernel by events / device with the bin lists of the heaviest tile only "
+                        f"(tile {hot[0]}, {int(bits[hot[0]])} bits, {int(counts[hot[0]])} blocks) "
+                        f"{timed(1)}, of the {HOT_TILES} heaviest (tiles {sorted(hot)}) "
+                        f"{timed(HOT_TILES)}, of none {timed(0)} ({card})")
 
     # 7. main path ------------------------------------------------------------
     cfg = PipelineConfig(width=WIDTH, height=HEIGHT, tri_capacity=TRI_CAPACITY,

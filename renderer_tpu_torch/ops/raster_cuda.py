@@ -214,7 +214,7 @@ def raster_tiles_plain(rec, masks, block_list, block_count, block_simple,
 
 
 RASTER_TILES = CudaKernel(LIBRARY, "rtt_raster_tiles",
-                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4)
+                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5)
 
 
 def raster_kernel(rec, masks, block_list, block_count, block_simple,
@@ -231,14 +231,17 @@ def raster_kernel(rec, masks, block_list, block_count, block_simple,
         (block_count, torch.int32, (n_ty * n_tx,)),
         (block_simple, torch.int32, (n_blocks,)),
     )
+    if rec.data_ptr() % 16:
+        raise ValueError("raster kernel input: the records must be 16-byte aligned")
     depth = torch.empty((height, width), dtype=torch.float32, device=rec.device)
     tri_id = torch.empty((height, width), dtype=torch.int32, device=rec.device)
     b0 = torch.empty_like(depth)
     b1 = torch.empty_like(depth)
+    bb = torch.empty((n_blocks * BLOCK, 4), dtype=torch.float32, device=rec.device)  # bbox side copy
     RASTER_TILES.launch(index, rec.data_ptr(), masks.data_ptr(), block_list.data_ptr(),
                         block_count.data_ptr(), block_simple.data_ptr(), n_ty * n_tx, n_blocks,
                         n_tx, int(y0), width, int(bool(with_bary)), depth.data_ptr(),
-                        tri_id.data_ptr(), b0.data_ptr(), b1.data_ptr())
+                        tri_id.data_ptr(), b0.data_ptr(), b1.data_ptr(), bb.data_ptr())
     return depth, tri_id, b0, b1
 
 

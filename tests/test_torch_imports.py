@@ -1,5 +1,5 @@
-"""The port runs without jax and without the JAX package: the port package
-and chip_smoke.py import neither, directly or indirectly (the machine with
+"""The port runs without jax and without the JAX package: the port package,
+chip_smoke.py and chip_ab.py import neither, directly or indirectly (the machine with
 the card has no jax installed, and the port stands alone)."""
 
 import os
@@ -26,7 +26,7 @@ for rt in (False, True):
     r.apply_config_now()
     img = r.render(cam)["image"].numpy()
     assert img.shape == (64, 128, 3) and np.isfinite(img).all()
-import chip_smoke, torch_raster_cases  # noqa: F401
+import chip_ab, chip_smoke, torch_raster_cases  # noqa: F401
 import renderer_tpu_torch.ops.probe_cuda  # noqa: F401
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "renderer_tpu"))
@@ -47,7 +47,8 @@ def test_port_renders_a_frame_without_jax():
 
 
 def test_no_jax_import_in_port_sources():
-    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tests", "torch_raster_cases.py"),
+    paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_ab.py"),
+             os.path.join(ROOT, "tests", "torch_raster_cases.py"),
              os.path.join(ROOT, "tests", "torch_occlusion_cases.py"),
              os.path.join(ROOT, "tests", "test_torch_kernels.py")]
     for d, dirs, files in os.walk(os.path.join(ROOT, "renderer_tpu_torch")):

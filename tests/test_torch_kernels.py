@@ -5,7 +5,9 @@ rasterizer only), so it also runs on a machine without jax:
     python -m pytest tests/test_torch_kernels.py -m gpu -q
 
 Without a CUDA device every test here skips. Gates: the raster kernel
-equals the plain version bit for bit (tri_id, depth, barycentrics), and
+equals the plain version bit for bit (tri_id, depth, barycentrics) on the
+whole image and on a row band of it (y0, as the shadow atlas renders),
+and on the hot-tile case with every other tile's bin list emptied, and
 both pass the float64-reference gate of torch_raster_gate; the occlusion
 kernel's plane equals its plain version's on every occlusion case (the CPU
 tests hold the plain version to JAX and a float64 brute force), at the
@@ -21,10 +23,12 @@ import torch
 from renderer_tpu_torch.ops import probe_cuda
 from renderer_tpu_torch.ops.occlusion_cuda import (OCCLUSION_TILES, SEGMENT_BLOCKS, occlusion_kernel,
                                                    occlusion_tiles_plain)
-from renderer_tpu_torch.ops.raster_cuda import raster_inputs, raster_kernel, raster_tiles_plain
+from renderer_tpu_torch.ops.raster_cuda import (TILE_H, TILE_W, raster_inputs, raster_kernel,
+                                                raster_tiles_plain)
+from renderer_tpu_torch.ops.raster_spec import NO_TRIANGLE
 from renderer_tpu_torch.ops.rt_grid import occlusion_inputs
 from torch_occlusion_cases import CASES as OCCLUSION_CASES
-from torch_raster_cases import CASES
+from torch_raster_cases import CASES, HOT_TILE
 from torch_raster_gate import reference_gate
 
 
@@ -41,16 +45,49 @@ def cuda_device():
 def test_raster_kernel_matches_plain(case, with_bary, cuda_device):
     build, w, h, cull = CASES[case]
     clip, valid = build()
-    args = raster_inputs(torch.from_numpy(clip).to(cuda_device),
-                         torch.from_numpy(valid).to(cuda_device), w, h, cull)
+    c, v = torch.from_numpy(clip).to(cuda_device), torch.from_numpy(valid).to(cuda_device)
+    args = raster_inputs(c, v, w, h, cull)
     got = raster_kernel(*args, with_bary)
     want = raster_tiles_plain(*args, with_bary)
+    # a row band that starts off the image's tile and region rows
+    y0, band_h = h // 4 + 4, h // 2
+    band_args = raster_inputs(c, v, w, band_h, cull, y0=y0, full_height=h)
+    band = raster_kernel(*band_args, with_bary)
+    band_want = raster_tiles_plain(*band_args, with_bary)
     torch.cuda.synchronize()
-    for name, g, p in zip(("depth", "tri_id", "b0", "b1"), got, want):
+    for name, g, p, bg, bp in zip(("depth", "tri_id", "b0", "b1"), got, want, band, band_want):
         assert torch.equal(g, p), name
+        assert torch.equal(bg, bp), f"band {name}"
+        assert torch.equal(bg, g[y0:y0 + band_h]), f"band {name} against the image"
     depth, tri_id, b0, b1 = (t.cpu().numpy() for t in got)
     bary = torch.stack([got[2], got[3], 1.0 - got[2] - got[3]]).cpu().numpy() * (tri_id >= 0)
     reference_gate(tri_id, depth, bary if with_bary else None, clip, valid, w, h, cull)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_bary", [True, False])
+def test_raster_kernel_on_one_hot_tile(with_bary, cuda_device):
+    """The hot-tile case with every bin list emptied but the pile's tile's:
+    the other tiles render empty, the pile as in the whole image."""
+    build, w, h, cull = CASES["hot_tile"]
+    clip, valid = build()
+    args = raster_inputs(torch.from_numpy(clip).to(cuda_device),
+                         torch.from_numpy(valid).to(cuda_device), w, h, cull)
+    count = torch.zeros_like(args[3])
+    count[HOT_TILE] = args[3][HOT_TILE]
+    one = (*args[:3], count, *args[4:])
+    got = raster_kernel(*one, with_bary)
+    want = raster_tiles_plain(*one, with_bary)
+    whole = raster_kernel(*args, with_bary)
+    torch.cuda.synchronize()
+    for name, g, p in zip(("depth", "tri_id", "b0", "b1"), got, want):
+        assert torch.equal(g, p), name
+    ty, tx = divmod(HOT_TILE, w // TILE_W)
+    rows, cols = slice(ty * TILE_H, (ty + 1) * TILE_H), slice(tx * TILE_W, (tx + 1) * TILE_W)
+    assert torch.equal(got[1][rows, cols], whole[1][rows, cols])
+    assert (got[1][rows, cols] >= 0).sum() > 500
+    got[1][rows, cols] = NO_TRIANGLE
+    assert (got[1] == NO_TRIANGLE).all()
 
 
 @pytest.mark.gpu
@@ -88,18 +125,28 @@ def test_kernels_launch_on_the_current_stream(cuda_device):
                               for a in OCCLUSION_CASES["orthographic"]()))
     want_occ = occlusion_tiles_plain(*args)
     assert (want_occ == 0).any()
+    build, w, h, cull = CASES["hot_tile"]
+    r_args = raster_inputs(*(torch.from_numpy(a).to(cuda_device) for a in build()), w, h, cull)
+    want_ras = raster_tiles_plain(*r_args, True)
+    assert (want_ras[1] != NO_TRIANGLE).any()
     probe_cuda.add_one(x_new)  # built, and launched on the default stream
     occlusion_kernel(*args)
+    raster_kernel(*r_args, True)
     x = torch.zeros_like(x_new)
     ld = torch.full_like(args[6], float("inf"))  # all lit until the copy lands
+    count = torch.zeros_like(r_args[3])  # nothing listed until the copy lands
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
     with torch.cuda.stream(side):
         torch.cuda._sleep(SPIN_CYCLES)
         x.copy_(x_new)
         ld.copy_(args[6])
+        count.copy_(r_args[3])
         y = probe_cuda.add_one(x)
         occ = occlusion_kernel(*args[:6], ld)
+        ras = raster_kernel(*r_args[:3], count, *r_args[4:], True)
     torch.cuda.synchronize()
     assert torch.equal(y, x_new + 1)
     assert torch.equal(occ, want_occ)
+    for g, p in zip(ras, want_ras):
+        assert torch.equal(g, p)

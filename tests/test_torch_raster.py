@@ -100,6 +100,45 @@ def test_bins_are_conservative_and_ascending():
         assert (word >> (tri % 64)) & 1
 
 
+@pytest.mark.parametrize("case", ["tile_aligned", "hot_tile"])
+def test_raster_work_counts(case):
+    """chip_smoke's count of the raster kernel's work (the mask bits per
+    tile, the triangles whose padded bbox reaches each region's pixel-centre
+    box, the (pixel, triangle) pairs inside the bbox and the listed
+    triangles, which set its bound) against a count triangle by triangle."""
+    import chip_smoke
+
+    build, w, h, cull = CASES[case]
+    clip, valid = build()
+    args = raster_inputs(torch.from_numpy(clip), torch.from_numpy(valid), w, h, cull)
+    bits, regions, pixel_pairs, listed = chip_smoke.raster_work(args)
+    rec, masks = args[0].numpy().astype(np.float64), args[1].numpy()
+    n_tx = w // 64
+    want_pairs, want_bits, want_listed = 0, np.zeros(len(masks), np.int64), set()
+    want_regions = {s: np.zeros((len(masks), 16 // s[1], 64 // s[0]), np.int64) for s in regions}
+    for tile in range(len(masks)):
+        xs = (tile % n_tx) * 64 + np.arange(64) + 0.5
+        ys = (tile // n_tx) * 16 + np.arange(16) + 0.5
+        for tri in range(len(rec)):
+            if not (int(masks[tile, tri // 64]) >> (tri % 64)) & 1:
+                continue
+            xmin, xmax, ymin, ymax = rec[tri, 15:19]
+            in_x, in_y = (xs >= xmin) & (xs <= xmax), (ys >= ymin) & (ys <= ymax)
+            want_bits[tile] += 1
+            want_listed.add(tri)
+            want_pairs += int(in_x.sum()) * int(in_y.sum())
+            for (rw, rh), count in want_regions.items():
+                cx, cy = xs.reshape(-1, rw), ys.reshape(-1, rh)  # regions' centres
+                reach_x = (xmin <= cx[:, -1]) & (xmax >= cx[:, 0])
+                reach_y = (ymin <= cy[:, -1]) & (ymax >= cy[:, 0])
+                count[tile] += reach_y[:, None] & reach_x[None, :]
+    assert (bits.numpy() == want_bits).all()
+    assert pixel_pairs == want_pairs > 0
+    assert listed == len(want_listed)
+    for shape, count in regions.items():
+        assert (count.numpy() == want_regions[shape].reshape(-1)).all(), shape
+
+
 def test_only_cpu_tensors_take_the_plain_path(monkeypatch):
     """Dispatch is by device: CPU -> plain version, CUDA -> kernel, any
     other device raises; nothing falls back to the plain version."""

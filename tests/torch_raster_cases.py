@@ -4,8 +4,9 @@ the JAX package).
 The cases are those of tests/test_raster_pallas.py, built with the port's
 camera and meshes: box, sphere+torus, two-sided, near-crossing, empty,
 multi-block, tile-aligned, crowded (the JAX kernel's bin-overflow case)
-and random soups. Shared by the CPU tests, the card tests and
-chip_smoke.py; the float64-reference gate is in torch_raster_gate.py.
+and random soups, and hot-tile (the bench soup's heaviest tile in small).
+Shared by the CPU tests, the card tests and chip_smoke.py; the
+float64-reference gate is in torch_raster_gate.py.
 """
 
 import numpy as np
@@ -105,6 +106,47 @@ def crowded_soup():
     return tris, np.ones(n, bool)
 
 
+def hot_tile_soup(w=128, h=64):
+    """The bench soup's hot tile in small: 706 triangles over 12 record
+    blocks piled onto the 16x64 tile at columns 0..63, rows 16..31 (their
+    padded bboxes reach into its neighbours), of both windings. Corners lie
+    on a 4-pixel lattice (a quarter of them shifted by half a pixel), so
+    the padded bboxes end on the pixel centres next to the 4-, 8- and
+    32-pixel seams of the kernel's pixel regions, or exactly on a seam.
+    Depths are spaced 1.3e-3 apart, five triangles repeat the five
+    front-most ones exactly (the lower id wins the tie on every pixel), and
+    one triangle crosses w = 0."""
+    rng = np.random.default_rng(11)
+    n = 700
+    x0 = rng.integers(0, 15, size=n) * 4.0
+    y0 = 16.0 + rng.integers(0, 4, size=n) * 4.0
+    dx = np.minimum(rng.integers(1, 4, size=n) * 4.0, 64.0 - x0)
+    dy = np.minimum(rng.integers(1, 3, size=n) * 4.0, 32.0 - y0)
+    shift = np.where(rng.random(n) < 0.25, 0.5, 0.0)
+    corners = np.stack([np.stack([x0 + shift, y0], 1), np.stack([x0 + dx - shift, y0], 1),
+                        np.stack([x0 + shift, y0 + dy - shift], 1)], 1)  # (n, 3, 2) pixels
+    flip = rng.random(n) < 0.5
+    corners[flip] = corners[flip][:, ::-1]
+    z = 0.05 + 0.9 * rng.permutation(n) / n
+    # the w-crossing triangle in front of the pile, its second corner behind the eye
+    corners = np.concatenate([corners, [[(4.0, 18.0), (60.0, 18.0), (4.0, 30.0)]]])
+    z = np.append(z, 0.02)
+    tris = np.zeros((n + 1, 3, 4), np.float32)
+    tris[:, :, 0] = corners[:, :, 0] / w * 2.0 - 1.0
+    tris[:, :, 1] = 1.0 - corners[:, :, 1] / h * 2.0
+    tris[:, :, 2] = z[:, None]
+    tris[:, :, 3] = 1.0
+    tris[n, 1, 3] = -0.1
+    front = np.argsort(z[:n])[:5]
+    tris = np.concatenate([tris[:n], tris[front], tris[n:]])
+    t = len(tris)
+    pad = (-t) % 256
+    return (np.concatenate([tris, np.zeros((pad, 3, 4), np.float32)]),
+            np.concatenate([np.ones(t, bool), np.zeros(pad, bool)]))
+
+
+HOT_TILE = 2  # the tile of hot_tile_soup's pile (tile row 1, column 0)
+
 # name -> (soup builder, width, height, cull_backface)
 CASES = {
     "box": (lambda: camera_soup([primitives.box()], [1.2, 1.0, 2.5]), 128, 64, True),
@@ -121,6 +163,7 @@ CASES = {
     "multi_block": (multi_block_soup, 128, 64, True),
     "tile_aligned": (tile_aligned_soup, 256, 64, False),
     "crowded": (crowded_soup, 128, 64, False),
+    "hot_tile": (hot_tile_soup, 128, 64, False),
     "random_cull": (lambda: random_soup(100), 256, 64, True),
     "random_two_sided": (lambda: random_soup(101), 256, 64, False),
 }
