@@ -13,10 +13,13 @@ and prints one JSON line with what chip_smoke.py measures at the bench
 
 - raster_ms: the raster kernel at the bench soup, CUDA events over 20
   calls; raster_device_us: its device time per call from torch.profiler;
-- base_ms, rt_ms: the base and the rt orbit (rt_scale 2), host clock over
-  30 frames after one warm-up;
-- base_busy_ms, rt_busy_ms: device busy time per frame over a window of
-  10 frames traced with device activity only.
+- base_ms, rt_ms, shadowed_cb_ms: the base, the rt (rt_scale 2) and the
+  shadowed static checkerboard+fix orbit (the shadows switch, cached
+  512x512 atlas, bench.py's headline shading mode), host clock over 30
+  frames after one warm-up; a checkout whose port has no shadows switch
+  has no shadowed_cb metrics;
+- base_busy_ms, rt_busy_ms, shadowed_cb_busy_ms: device busy time per
+  frame over a window of 10 frames traced with device activity only.
 
 Then, per checkout and metric, the runs and their median, and against the
 first checkout the difference per round, its median and the rounds in
@@ -37,7 +40,8 @@ N_INSTANCES = 10000
 TRI_CAPACITY = 1 << 17
 FRAMES = 30
 PROFILE_FRAMES = 10
-METRICS = ("raster_ms", "raster_device_us", "base_ms", "base_busy_ms", "rt_ms", "rt_busy_ms")
+METRICS = ("raster_ms", "raster_device_us", "base_ms", "base_busy_ms", "rt_ms", "rt_busy_ms",
+           "shadowed_cb_ms", "shadowed_cb_busy_ms")
 
 
 def measure(tree: str) -> dict:
@@ -94,11 +98,14 @@ def measure(tree: str) -> dict:
 
     cfg = PipelineConfig(width=WIDTH, height=HEIGHT, tri_capacity=TRI_CAPACITY,
                          enable_normal_maps=True, aa="edge", trilinear=False)
-    for name, c, rt in (("base", cfg, False), ("rt", dataclasses.replace(cfg, rt_scale=2), True)):
+    tiers = [("base", cfg, {}), ("rt", dataclasses.replace(cfg, rt_scale=2), dict(rt=True))]
+    if "shade_rate" in {f.name for f in dataclasses.fields(PipelineConfig)}:
+        tiers.append(("shadowed_cb", dataclasses.replace(cfg, shade_rate="checkerboard"),
+                      dict(shadows=True)))
+    for name, c, switches in tiers:
         renderer = Renderer(scene, c, device=dev)
-        if rt:
-            renderer.set_config(rt=True)
-            renderer.apply_config_now()
+        renderer.set_config(**switches)
+        renderer.apply_config_now()
         frame(renderer, 0)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -134,9 +141,11 @@ def main() -> int:
     for tree, rs in runs.items():
         summary[tree] = s = {}
         for m in METRICS:
-            vals = [x[m] for x in rs]
+            vals = [x[m] for x in rs if m in x]
+            if not vals:
+                continue
             s[m] = {"runs": vals, "median": statistics.median(vals)}
-            if tree != ref:
+            if tree != ref and all(m in y for y in runs[ref]):
                 diff = [x[m] - y[m] for x, y in zip(rs, runs[ref])]
                 s[m].update(diff_median=statistics.median(diff),
                             rounds_higher=sum(d > 0 for d in diff), rounds=len(diff))

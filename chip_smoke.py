@@ -38,8 +38,9 @@ code is non-zero:
    frame with the plain raster version swapped in;
 9. torch.profiler over the main path: the device's busy and idle share of
    one traced window (device activity only), then device and host time per
-   pass in a second window that also traces the host (the kernels launched
-   through ctypes are added to the pass that launches them);
+   pass in a second window that also traces the host (a pass's device time
+   is that of the work launched inside its range, matched through the
+   profiler's correlation ids, kernels launched through ctypes included);
 10. the rt path's occlusion inputs at the bench camera (slot 0, the sun)
     for rt_scale 2 and 1: kernel against plain version, bin lists, caster
     total against capacity, kernel / setup+binning+kernel / plain times,
@@ -50,12 +51,33 @@ code is non-zero:
     slots, image checks, darker than the rt-off frame; PNG to _build/;
 12. one rt frame with the occlusion kernel against the same frame with its
     plain version swapped in: identical planes and images;
-13. the profile of phase 9 over the rt main path.
+13. the profile of phase 9 over the rt main path;
+14. the shadow atlas's raster views at the bench camera (slot 0, the sun, a
+    512x512 slot and its 512x32 band of most casters): caster demand
+    against capacity, bin-list entries, kernel against plain version (depth
+    and ids identical), the kernel's time;
+15. bench.py's timed tiers besides phase 7's: base checkerboard+fix,
+    shadowed static exact and checkerboard+fix, and shadowed dynamic
+    (checkerboard+fix, budget 1, 16 bands, one scripted moving caster, 65
+    warm-up frames): ms/frame, launches (the raster kernel once per frame
+    and once per atlas view), shadow updates per frame from the Renderer's
+    state over 8 more frames (0 on the static tier, in (0, 1] on the
+    dynamic one); the shadowed frame's PNG to _build/;
+16. image quality: the minimum over bench.py's gate poses of display-clamped
+    PSNR, checkerboard+fix against exact, base and shadowed; the mode
+    bench.result_line would report; PSNR against the committed goldens
+    (printed, not enforced, as in bench.py);
+17. the shadowed checkerboard frame with aa none: its shaded lattice and
+    every pixel the fix changed equal the exact frame bit for bit;
+18. the shadowed checkerboard+fix frame with the plain raster in both the
+    camera and the atlas pass: image identical;
+19. the profile of phase 9 over the shadowed checkerboard+fix frame.
 
 Then one JSON line listing every kernel, the card's name and power limit,
 and, last, the JSON result line.
 """
 
+import bisect
 import ctypes
 import dataclasses
 import json
@@ -76,10 +98,12 @@ from renderer_tpu_torch.mathx import orbit_camera  # noqa: E402
 from renderer_tpu_torch.models import sponza_like_scene  # noqa: E402
 from renderer_tpu_torch.ops import cuda_build, geometry, occlusion_cuda as oc  # noqa: E402
 from renderer_tpu_torch.ops import probe_cuda, raster_cuda as rc, rt_grid as trt  # noqa: E402
+from renderer_tpu_torch.ops import shadow as tshadow  # noqa: E402
+from renderer_tpu_torch.ops.pbr import fix_capacity  # noqa: E402
 from renderer_tpu_torch.ops.shadow import directional_light_matrices  # noqa: E402
 from renderer_tpu_torch.passes.pipeline import PipelineConfig  # noqa: E402
 from renderer_tpu_torch.runtime import Renderer  # noqa: E402
-from renderer_tpu_torch.utils.image import psnr, write_png  # noqa: E402
+from renderer_tpu_torch.utils.image import psnr, read_png, write_png  # noqa: E402
 from torch_occlusion_cases import CASES as OCCLUSION_CASES  # noqa: E402
 from torch_raster_cases import CASES  # noqa: E402
 
@@ -100,13 +124,17 @@ OPS_PER_PAIR = 25  # FP32 operations per (pixel or receiver, triangle) pair test
 REGION_SHAPES = ((32, 4), (8, 8))
 REC_BYTES_READ = (rc.R_TL + 3) * 4  # record columns 0..21: all a pixel's test reads
 HOT_TILES = 10  # phase 6 times the kernel on the heaviest tile alone and on these many
-# the pass that launches each ctypes kernel of the main path
-PASS_KERNELS = {"raster_prep_kernel": "raster", "raster_walk_kernel": "raster",
-                "occlusion_prep_kernel": "shade_rt", "occlusion_items_kernel": "shade_rt",
-                "occlusion_walk_kernel": "shade_rt"}
 LAUNCH_CALLS = 10_000  # calls per piece of the launch-path breakdown
 PROBE_ROUNDS = 7  # rounds of add_one, its plain version and x + 1, timed in turns
 SEGMENT_SWEEP = (1, 8, 16, 32, 64)  # occlusion segment lengths timed in phase 10
+# bench.py's shadowed tiers and quality gate (bench.py:43-59, 102, 257-265)
+GATE_ANGLES = (0.3, 0.3 + 0.005 * FRAMES, 0.3 + 0.01 * (FRAMES - 1))
+GATE_DB = 40.0
+SHADOW_PROGRESSIVE = 16  # bands per directional slot, dynamic tier
+SHADOW_BAND_CAPACITY = 131072  # casters per band render, dynamic tier
+MOVER_INSTANCE = 1  # the dynamic tier's scripted moving caster
+UPDATE_FRAMES = 8  # frames over which shadow updates per frame are counted
+GOLDEN_DIR = os.path.join(ROOT, "assets", "golden")
 # every kernel wrapper's launcher (launches are counted there)
 KERNELS = (rc.RASTER_TILES, oc.OCCLUSION_TILES, probe_cuda.ADD_ONE, probe_cuda.TRANSPOSE)
 
@@ -349,12 +377,44 @@ def traced_window(renderer, dev, activities):
     return prof, wall_ms
 
 
+def pass_device_ms(events, n_frames: int):
+    """Per pass, the device ms per frame of the work its range launched, and
+    the ms per frame of device work that no pass launched. A device event
+    (kernel, memset, copy) belongs to the pass whose ``forward.<pass>``
+    range holds the host call that launched it: the CUDA runtime or driver
+    call with the event's correlation id (kernels launched through ctypes
+    included), or else the PyTorch op the event is linked to."""
+    from torch.autograd import DeviceType
+
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name[len("forward."):])
+                    for e in events if e.device_type == DeviceType.CPU
+                    and e.name.startswith("forward."))
+    starts = [r[0] for r in ranges]
+    runtime_at, op_at = {}, {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and not e.name.startswith("forward."):
+            (runtime_at if e.name.startswith("cu") else op_at)[e.id] = e.time_range.start
+    per_pass = {r[2]: 0.0 for r in ranges}
+    other = 0.0
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name.startswith("forward."):
+            continue
+        t = runtime_at.get(e.id, op_at.get(getattr(e, "linked_correlation_id", None)))
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        ms = e.time_range.elapsed_us() / 1e3 / n_frames
+        if i >= 0 and t <= ranges[i][1]:
+            per_pass[ranges[i][2]] += ms
+        else:
+            other += ms
+    return per_pass, other
+
+
 def profile_main_path(name, renderer, dev, card: str) -> None:
     """Device busy time against wall time in one traced window, and per-pass
-    device and host time in a second window. The kernels launched through
-    ctypes fall under no pass's range in the profile, so each one's device
-    time is added to the pass that launches it (PASS_KERNELS), shown as
-    range+kernel."""
+    device and host time in a second window that also traces the host. A
+    pass's device time is that of the work launched inside its range
+    (pass_device_ms); the passes and the unattributed rest add up to the
+    second window's device busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
@@ -373,32 +433,30 @@ def profile_main_path(name, renderer, dev, card: str) -> None:
     else:
         share = "device time not measured (the profiler saw no device activity)"
     prof, wall_ms = traced_window(renderer, dev, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    events = prof.key_averages()
-    passes = {e.key[len("forward."):]: (e.device_time_total / 1e3 / PROFILE_FRAMES,
-                                        e.cpu_time_total / 1e3 / PROFILE_FRAMES)
-              for e in events if e.key.startswith("forward.") and e.device_type == DeviceType.CPU}
-    owned = dict.fromkeys(passes, 0.0)
-    for e in events:
-        for kernel, owner in PASS_KERNELS.items():
-            if (e.device_type == DeviceType.CUDA and owner in owned
-                    and (f"{kernel}(" in e.key or f"{kernel}<" in e.key)):
-                owned[owner] += e.self_device_time_total / 1e3 / PROFILE_FRAMES
-    per_pass = ", ".join(f"{k} {d:.3f}" + (f"+{owned[k]:.3f}" if owned[k] else "") + f"/{h:.3f}"
-                         for k, (d, h) in passes.items())
-    total = sum(d for d, _ in passes.values()) + sum(owned.values())
+    host = {e.key[len("forward."):]: e.cpu_time_total / 1e3 / PROFILE_FRAMES
+            for e in prof.key_averages()
+            if e.key.startswith("forward.") and e.device_type == DeviceType.CPU}
+    per_pass, other = pass_device_ms(prof.events(), PROFILE_FRAMES)
+    busy2 = sum(per_pass.values()) + other
     phase(name, f"{PROFILE_FRAMES} frames ({card}): {share}; host+device traced window "
-                f"{wall_ms:.3f} ms/frame, per pass device(range+ctypes kernel)/host ms/frame: "
-                f"{per_pass}; passes sum to {total:.3f} ms/frame of device time")
+                f"{wall_ms:.3f} ms/frame, per pass device/host ms/frame (device: the work "
+                "launched inside the pass's range): "
+                + ", ".join(f"{k} {d:.3f}/{host.get(k, 0.0):.3f}" for k, d in per_pass.items())
+                + f"; passes sum to {sum(per_pass.values()):.3f} + {other:.3f} launched outside "
+                f"any pass = {busy2:.3f} ms/frame of device time")
 
 
-def run_orbit(renderer, dev):
-    """One warm-up and FRAMES timed orbit frames. Returns (ms per frame,
-    last outputs)."""
-    out = renderer.render(orbit_camera(0.3, WIDTH / HEIGHT, dev))  # warm-up
+def run_orbit(renderer, dev, scene_at=lambda k: None, warmup: int = 1):
+    """``warmup`` frames at the first pose, then FRAMES timed orbit frames;
+    frame k renders ``scene_at(k)`` (None: the renderer's scene), the
+    warm-up frames k = -warmup..-1. Returns (ms per timed frame, last
+    outputs)."""
+    for w in range(warmup):
+        renderer.render(orbit_camera(0.3, WIDTH / HEIGHT, dev), scene=scene_at(w - warmup))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for k in range(FRAMES):
-        out = renderer.render(orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev))
+        out = renderer.render(orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev), scene=scene_at(k))
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / FRAMES, out
 
@@ -417,25 +475,241 @@ def check_image(out):
 
 
 class Recorder:
-    """Wraps rt_grid.occlusion_grid while active: keeps each call's
-    arguments and result."""
+    """Wraps ``module.name`` while active: keeps each call's positional
+    arguments, keyword arguments and result."""
 
-    def __init__(self):
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
         self.calls = []
 
     def __enter__(self):
-        self._orig = trt.occlusion_grid
+        self._orig = getattr(self.module, self.name)
 
-        def record(*args):
-            out = self._orig(*args)
-            self.calls.append((args, out))
+        def record(*args, **kwargs):
+            out = self._orig(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
             return out
 
-        trt.occlusion_grid = record
+        setattr(self.module, self.name, record)
         return self
 
     def __exit__(self, *exc):
-        trt.occlusion_grid = self._orig
+        setattr(self.module, self.name, self._orig)
+
+
+def mover_tables(scene, ks, dev):
+    """(len(ks), N, 3) instance translations on the card, one table per
+    frame k of ``ks``: bench.py's scripted caster (instance MOVER_INSTANCE)
+    at its frame-k position (bench.py:105-120), made once before the timed
+    frames so that no frame copies a table to the card."""
+    base = scene.instances.translation.cpu().numpy()
+    tables = np.repeat(base[None], len(ks), axis=0)
+    for i, k in enumerate(ks):
+        tables[i, MOVER_INSTANCE] = (4.0 * math.sin(0.7 * k), 1.5 + 0.5 * math.sin(1.3 * k),
+                                     4.0 * math.cos(0.7 * k))
+    return torch.from_numpy(tables).to(dev)
+
+
+def shadow_updates(renderer, dev, scene_at):
+    """Units of the cached atlas re-rendered per frame over UPDATE_FRAMES
+    frames after the timed ones, counted from ``Renderer.state`` as
+    bench.py:157-170 counts them (a unit whose signature changed)."""
+    sig_prev = renderer.state["shadow_cache"][1].clone()
+    changed = []
+    for k in range(FRAMES, FRAMES + UPDATE_FRAMES):
+        renderer.render(orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev), scene=scene_at(k))
+        sig = renderer.state["shadow_cache"][1]
+        changed.append(int((sig != sig_prev).reshape(-1, sig.shape[-1]).any(dim=-1).sum()))
+        sig_prev = sig.clone()
+    return statistics.mean(changed)
+
+
+def gate_frames(renderer, dev) -> dict:
+    """Display-clamped (H, W, 3) numpy frames at the gate poses."""
+    return {a: np.clip(renderer.render(orbit_camera(a, WIDTH / HEIGHT, dev))["image"].cpu().numpy(),
+                       0.0, 1.0) for a in GATE_ANGLES}
+
+
+def psnr_min(frames_a, frames_b) -> float:
+    """The minimum over the gate poses of the PSNR between two frame sets."""
+    return min(psnr(frames_a[a], frames_b[a]) for a in frames_a)
+
+
+def psnr_vs_golden(frames) -> float:
+    """The minimum over the gate poses of the PSNR against the committed
+    golden frames, -1 where their shape differs (bench.psnr_vs_golden, read
+    with the port's read_png)."""
+    worst = math.inf
+    for i, a in enumerate(GATE_ANGLES):
+        ref = read_png(os.path.join(GOLDEN_DIR, f"shadowed_pose{i}.png")) / 255.0
+        if ref.shape != frames[a].shape:
+            return -1.0
+        worst = min(worst, psnr(ref, frames[a]))
+    return worst
+
+
+def fmt_db(v: float) -> str:
+    return "inf" if math.isinf(v) else f"{v:.2f}"
+
+
+def shadow_phases(scene, prepared, cfg, renderer, frame_ms, kernels, dev, card) -> None:
+    """Phases 14-19: the shadow atlas's raster, bench.py's checkerboard and
+    shadowed tiers, image quality, the checkerboard's exactness, the plain
+    raster in the shadowed frame and its profile. ``renderer`` is the base
+    frame's (phase 7), ``frame_ms`` its ms per frame."""
+    # 14. the shadow atlas's raster at the bench camera (slot 0, the sun) -------
+    size, k_bands = cfg.shadow_size, SHADOW_PROGRESSIVE
+    slots = trt.slot_lights(renderer.light_casts, cfg.shadow_slots)
+    mats_cube = tshadow.light_matrices_cube(scene.lights, prepared.scene_min, prepared.scene_max)
+
+    def atlas_view(band=None):
+        """Render slot 0 whole (band None) or one band of it; returns (caster
+        demand, the raster call's (clip, valid, width, height))."""
+        sel = prev = None
+        if band is not None:
+            sel = torch.zeros((1, k_bands), dtype=torch.bool, device=dev)
+            sel[0, band] = True
+            prev = torch.ones((1, size, size), dtype=torch.float32, device=dev)
+        with Recorder(tshadow, "expand_clip_only") as ex, Recorder(tshadow, "rasterize_cuda") as ras:
+            tshadow.render_shadow_atlas_per_light(
+                scene, mats_cube, prepared.model, prepared.lod, slots[:1], size, cfg.caster_capacity,
+                selected=sel, atlas_prev=prev, scene_min=prepared.scene_min,
+                scene_max=prepared.scene_max, progressive=1 if band is None else k_bands)
+        _, visible, lod_pick, _, _ = ex.calls[0][0]
+        mesh_id = scene.instances.mesh_id.long()
+        demand = int(torch.where(visible, scene.meshes.lod_tri_count[mesh_id, lod_pick], 0).sum())
+        return demand, ras.calls[0][0]
+
+    slot_demand, slot_call = atlas_view()
+    band_demands = [atlas_view(b) for b in range(k_bands)]
+    worst = max(range(k_bands), key=lambda b: band_demands[b][0])
+    atlas_lines = []
+    for what, demand, (clip, valid, w, h) in (("slot", slot_demand, slot_call),
+                                              (f"band {worst}", *band_demands[worst])):
+        a_args = rc.raster_inputs(clip, valid, w, h, cull_backface=False)
+        got = rc.raster_kernel(*a_args, False)
+        want = [None]
+        p_ms = host_ms(lambda: want.__setitem__(0, rc.raster_tiles_plain(*a_args, False)))
+        if not (torch.equal(got[0], want[0][0]) and torch.equal(got[1], want[0][1])):
+            raise AssertionError(f"atlas {what}: depth or ids differ between kernel and plain")
+        a_ms = cuda_ms(lambda: rc.raster_kernel(*a_args, False), 20)
+        atlas_lines.append(
+            f"{what} {w}x{h}: casters wanted {demand} against capacity {cfg.caster_capacity} "
+            f"({'truncated' if demand > cfg.caster_capacity else 'not truncated'}), "
+            f"{int(valid.sum())} "
+            f"expanded, {int(a_args[3].sum())} bin-list entries over {a_args[3].numel()} tiles; "
+            f"kernel {a_ms:.4f} ms, plain {p_ms:.1f} ms, depth and ids identical")
+    phase("atlas", "; ".join(atlas_lines) + f"; band demands {[d for d, _ in band_demands]} ({card})")
+
+    # 15. bench.py's timed tiers: checkerboard+fix, shadowed static, dynamic ----
+    cfg_cb = dataclasses.replace(cfg, shade_rate="checkerboard", shade_fix=True)
+    cfg_dyn = dataclasses.replace(cfg_cb, shadow_update_budget=1,
+                                  shadow_progressive=SHADOW_PROGRESSIVE,
+                                  shadow_tri_capacity=SHADOW_BAND_CAPACITY)
+    views = sum(0 if sl is None else (1 if sl[1] else 6) for sl in slots)  # atlas views per frame
+    tier_ms, tier_launches, tier_renderers = {"base_exact": frame_ms}, {}, {"base_exact": renderer}
+    warmup = cfg_dyn.shadow_slots * SHADOW_PROGRESSIVE + 1
+    tables = mover_tables(scene, range(-warmup, FRAMES + UPDATE_FRAMES), dev)
+
+    def moved_scene(k):
+        return scene._replace(instances=scene.instances._replace(translation=tables[k + warmup]))
+
+    def static_scene(k):
+        return None
+
+    for tier, c, shadows, scene_at, n_warm in (
+            ("base_checkerboard", cfg_cb, False, static_scene, 1),
+            ("shadowed_exact", cfg, True, static_scene, 1),
+            ("shadowed_checkerboard", cfg_cb, True, static_scene, 1),
+            ("shadowed_dynamic", cfg_dyn, True, moved_scene, warmup)):
+        r = Renderer(scene, c, outputs=("image", "vis"), device=dev)
+        r.set_config(shadows=shadows)
+        r.apply_config_now()
+        for kernel in KERNELS:
+            kernel.launches = 0
+        tier_ms[tier], out = run_orbit(r, dev, scene_at, n_warm)
+        tier_launches[tier] = {kn.symbol: kn.launches for kn in KERNELS}
+        per_frame = 1 + (views if shadows else 0)
+        want = {kn.symbol: 0 for kn in KERNELS}
+        want[rc.RASTER_TILES.symbol] = (FRAMES + n_warm) * per_frame
+        if tier_launches[tier] != want:
+            raise AssertionError(f"{tier}: launches {tier_launches[tier]}, want {want}")
+        check_image(out)
+        if shadows:
+            updates = shadow_updates(r, dev, scene_at)
+            ok = updates == 0 if scene_at is static_scene else 0 < updates <= 1
+            if not ok:
+                raise AssertionError(f"{tier}: {updates} shadow updates per frame")
+            tier_launches[tier]["shadow_updates_per_frame"] = updates
+        tier_renderers[tier] = r
+    kernels["raster_tiles"]["launches"] = tier_launches["shadowed_checkerboard"][rc.RASTER_TILES.symbol]
+    write_png(os.path.join(cuda_build.BUILD_DIR, "chip_smoke_shadowed_frame.png"),
+              np.clip(out["image"].cpu().numpy(), 0.0, 1.0))
+    phase("tiers", "; ".join(
+        f"{t} {ms:.2f} ms/frame = {1e3 / ms:.2f} FPS" + (
+            f" (launches {tier_launches[t]})" if t in tier_launches else "")
+        for t, ms in tier_ms.items())
+          + f"; {FRAMES} timed frames after 1 warm-up ({warmup} for the dynamic tier) ({card})")
+
+    # 16. image quality: checkerboard+fix against exact, and the goldens -------
+    frames = {t: gate_frames(r, dev) for t, r in tier_renderers.items() if t != "shadowed_dynamic"}
+    psnr_base = psnr_min(frames["base_exact"], frames["base_checkerboard"])
+    psnr_sh = psnr_min(frames["shadowed_exact"], frames["shadowed_checkerboard"])
+    golden = psnr_vs_golden(frames["shadowed_checkerboard" if psnr_sh >= GATE_DB
+                                   else "shadowed_exact"])
+    phase("quality", f"min over the gate poses {GATE_ANGLES} of display-clamped PSNR, "
+                     f"checkerboard+fix against exact: base {fmt_db(psnr_base)} dB, shadowed "
+                     f"{fmt_db(psnr_sh)} dB (gate {GATE_DB} dB, not enforced); bench.result_line "
+                     f"would report base {'checkerboard+fix' if psnr_base >= GATE_DB else 'full'}, "
+                     f"shadowed {'checkerboard+fix' if psnr_sh >= GATE_DB else 'full'}; "
+                     f"psnr_vs_golden_db {fmt_db(golden)} (assets/golden, read with read_png)")
+
+    # 17. bit-exactness of the checkerboard frame, aa none -----------------------
+    cfg_plain_aa = dataclasses.replace(cfg, aa="none")
+    gate_cam = orbit_camera(GATE_ANGLES[0], WIDTH / HEIGHT, dev)
+    bit = {}
+    for name, c in (("exact", cfg_plain_aa),
+                    ("cb", dataclasses.replace(cfg_plain_aa, shade_rate="checkerboard",
+                                               shade_fix=False)),
+                    ("cb_fix", dataclasses.replace(cfg_plain_aa, shade_rate="checkerboard"))):
+        r = Renderer(scene, c, device=dev)
+        r.set_config(shadows=True)
+        r.apply_config_now()
+        bit[name] = r.render(gate_cam)["image"]
+    yy = torch.arange(HEIGHT, device=dev)[:, None]
+    xx = torch.arange(WIDTH, device=dev)[None, :]
+    lattice = (xx + yy) % 2 == 0
+    changed = (bit["cb_fix"] != bit["cb"]).any(dim=-1)
+    if not torch.equal(bit["cb"][lattice], bit["exact"][lattice]):
+        raise AssertionError("checkerboard: the shaded lattice differs from the exact frame")
+    if not torch.equal(bit["cb_fix"][changed], bit["exact"][changed]) or changed[lattice].any():
+        raise AssertionError("checkerboard: a pixel the fix re-shaded differs from the exact frame")
+    phase("cb_exact", f"shadowed, aa none, pose {GATE_ANGLES[0]}: the {int(lattice.sum())} shaded "
+                      f"lattice pixels and the {int(changed.sum())} pixels the fix changed equal "
+                      f"the exact frame bit for bit (fix capacity "
+                      f"{fix_capacity(HEIGHT * WIDTH // 2)})")
+
+    # 18. the shadowed checkerboard frame with the plain raster in both passes ---
+    def shadowed_cb_image():
+        r = Renderer(scene, cfg_cb, device=dev)
+        r.set_config(shadows=True)
+        r.apply_config_now()
+        return r.render(gate_cam)["image"]
+
+    ref_img = shadowed_cb_image()
+    kernel_fn = rc.raster_kernel
+    rc.raster_kernel = rc.raster_tiles_plain  # the plain version on CUDA tensors
+    try:
+        plain_img = shadowed_cb_image()
+    finally:
+        rc.raster_kernel = kernel_fn
+    if not torch.equal(ref_img, plain_img):
+        raise AssertionError("shadowed checkerboard frame differs between kernel and plain raster")
+    phase("shadowed_vs_plain", "shadowed checkerboard+fix frame with the plain raster in the "
+                               "camera and atlas passes: image identical")
+
+    # 19. profile of the shadowed checkerboard+fix frame -------------------------
+    profile_main_path("shadow_profile", tier_renderers["shadowed_checkerboard"], dev, card)
 
 
 def main() -> int:
@@ -634,7 +908,7 @@ def main() -> int:
         r = Renderer(scene, c, device=dev)
         r.set_config(rt=True)
         r.apply_config_now()
-        with Recorder() as rec:
+        with Recorder(trt, "occlusion_grid") as rec:
             r.render(cam)
         rt_inputs[s] = rec.calls[0][0]  # the first slot traced: slot 0
     mats = directional_light_matrices(scene.lights, prepared.scene_min, prepared.scene_max)
@@ -733,9 +1007,9 @@ def main() -> int:
         r = Renderer(scene, rt_cfgs[2], device=dev)
         r.set_config(rt=True)
         r.apply_config_now()
-        with Recorder() as rec:
+        with Recorder(trt, "occlusion_grid") as rec:
             img = r.render(cam)["image"]
-        return img, [out for _, out in rec.calls]
+        return img, [out for _, _, out in rec.calls]
 
     ref_img, ref_planes = rt_frame()
     kernel = trt.occlusion_kernel
@@ -757,6 +1031,8 @@ def main() -> int:
 
     # 13. rt profile ------------------------------------------------------------
     profile_main_path("rt_profile", rt_renderer, dev, card)
+
+    shadow_phases(scene, prepared, cfg, renderer, frame_ms, kernels, dev, card)
 
     print(json.dumps({"kernels": [kernels[k] for k in
                                   ("raster_tiles", "occlusion_tiles", "add_one", "transpose")]}))

@@ -32,17 +32,27 @@ class Camera(NamedTuple):
     @staticmethod
     def create(position, rotation=None, fov_y=1.1, aspect=1.0, near=0.1,
                far=100.0, device=None) -> "Camera":
-        """The camera's tensors on ``device`` (the CUDA card when None)."""
+        """The camera's tensors on ``device`` (the CUDA card when None), from
+        host values (numbers, sequences, numpy arrays or CPU tensors).
+
+        The eleven floats travel as one packed tensor. To the card it goes
+        from pinned memory without blocking: a copy from pageable memory
+        would wait for all the work queued on the stream. The caching host
+        allocator keeps the pinned block until the copy has completed."""
         if rotation is None:
             rotation = (1.0, 0.0, 0.0, 0.0)
         device = resolve_device(device)
-
-        def f32(v):
-            return torch.as_tensor(v, dtype=torch.float32).to(device)
-
+        host = torch.from_numpy(np.concatenate([
+            np.asarray(v, np.float32).reshape(-1)
+            for v in (position, rotation, fov_y, aspect, near, far)
+        ]))
+        if device.type == "cuda":
+            packed = host.pin_memory().to(device, non_blocking=True)
+        else:
+            packed = host.to(device)
         return Camera(
-            position=f32(position), rotation=f32(rotation), fov_y=f32(fov_y),
-            aspect=f32(aspect), near=f32(near), far=f32(far),
+            position=packed[0:3], rotation=packed[3:7], fov_y=packed[7],
+            aspect=packed[8], near=packed[9], far=packed[10],
         )
 
 
@@ -88,8 +98,8 @@ def view_matrix(cam: Camera) -> torch.Tensor:
     rt = quat_to_mat3(cam.rotation).T  # world -> view
     t = -matmul4(rt, cam.position[:, None])[:, 0]
     top = torch.cat([rt, t[:, None]], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=rt.device)
-    return torch.cat([top, bottom], dim=0)
+    bottom = torch.cat([torch.zeros_like(t), torch.ones_like(t[:1])])  # [0, 0, 0, 1], on the device
+    return torch.cat([top, bottom[None]], dim=0)
 
 
 def look_at(eye, target, up=(0.0, 1.0, 0.0)) -> torch.Tensor:
@@ -145,13 +155,14 @@ def camera_matrices(cam: Camera):
 
 
 def frustum_planes(viewproj: torch.Tensor) -> torch.Tensor:
-    """(6, 4) normalized planes a*x+b*y+c*z+d >= 0 inside (Gribb-Hartmann).
-    Order: left, right, bottom, top, near, far."""
-    r = viewproj
+    """(..., 6, 4) normalized planes a*x+b*y+c*z+d >= 0 inside
+    (Gribb-Hartmann) of (..., 4, 4) viewprojs. Order: left, right, bottom,
+    top, near, far."""
+    r = [viewproj[..., i, :] for i in range(4)]
     planes = torch.stack(
-        [r[3] + r[0], r[3] - r[0], r[3] + r[1], r[3] - r[1], r[2], r[3] - r[2]]
+        [r[3] + r[0], r[3] - r[0], r[3] + r[1], r[3] - r[1], r[2], r[3] - r[2]], dim=-2
     )
-    n = torch.linalg.norm(planes[:, :3], dim=-1, keepdim=True)
+    n = torch.linalg.norm(planes[..., :3], dim=-1, keepdim=True)
     return planes / n
 
 

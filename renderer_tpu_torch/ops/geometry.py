@@ -102,20 +102,19 @@ def _world_aabb_cols(scene: Scene, m: list):
 
 
 def _outside_frustum(viewproj: torch.Tensor, cw: list, ew: list) -> torch.Tensor:
-    """(N,) bool: the AABB lies wholly outside one of the six planes."""
-    planes = frustum_planes(viewproj)
-    outside = torch.zeros(cw[0].shape, dtype=torch.bool, device=cw[0].device)
-    for p in range(6):
-        d = planes[p, 0] * cw[0] + planes[p, 1] * cw[1] + planes[p, 2] * cw[2] + planes[p, 3]
-        rr = planes[p, 0].abs() * ew[0] + planes[p, 1].abs() * ew[1] + planes[p, 2].abs() * ew[2]
-        outside = outside | (d + rr < 0.0)
-    return outside
+    """(..., N) bool: the AABB lies wholly outside one of the six planes of
+    the (..., 4, 4) viewproj. The six planes are tested at once."""
+    planes = frustum_planes(viewproj)[..., None]  # (..., 6, 4, 1) against (N,) columns
+    a, b, c, d = (planes[..., k, :] for k in range(4))  # (..., 6, 1) each
+    dist = a * cw[0] + b * cw[1] + c * cw[2] + d
+    rr = a.abs() * ew[0] + b.abs() * ew[1] + c.abs() * ew[2]
+    return (dist + rr < 0.0).any(dim=-2)
 
 
 def coarse_cull(scene: Scene, model: torch.Tensor, viewproj: torch.Tensor) -> torch.Tensor:
-    """Instance-level frustum cull of world AABBs -> (N,) bool visible, with
-    the camera cull's arithmetic (``prepare_frame_columns``). ``model`` is
-    (N, 16) rows or (N, 4, 4)."""
+    """Instance-level frustum cull of world AABBs -> (..., N) bool visible
+    under each (..., 4, 4) viewproj, with the camera cull's arithmetic
+    (``prepare_frame_columns``). ``model`` is (N, 16) rows or (N, 4, 4)."""
     flat = mats44(model).reshape(-1, 16)
     m = [[flat[:, 4 * i + j] for j in range(4)] for i in range(3)]
     cw, ew, _, _ = _world_aabb_cols(scene, m)
@@ -376,17 +375,34 @@ def build_draw_stream(
     return soup, shade_rec
 
 
+def clip_rows(m: torch.Tensor, model16: torch.Tensor) -> torch.Tensor:
+    """m (4, 4) @ each (N, 16)-row matrix -> (N, 16) rows, the sum over the
+    inner index taken left to right."""
+    b = model16.reshape(-1, 4, 4)
+    out = m[None, :, 0, None] * b[:, None, 0, :]
+    for j in range(1, 4):
+        out = out + m[None, :, j, None] * b[:, None, j, :]
+    return out.reshape(-1, 16)
+
+
+def pixel_centres(h: int, w: int, y0: int, device):
+    """(px, py) (H, W) pixel-centre coordinates of rows [y0, y0 + h)."""
+    px = torch.arange(w, dtype=torch.float32, device=device)[None, :].expand(h, w) + 0.5
+    py = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w) + float(y0) + 0.5
+    return px, py
+
+
 def unproject_depth(depth, viewproj_inv, width: int, height: int, y0: int = 0,
-                    full_height: int = None) -> torch.Tensor:
-    """(H, W) depth + inverse viewproj -> channel-first (3, H, W) world
-    positions at the pixel centres (rows offset by y0 in a full_height
-    image)."""
+                    full_height: int = None, px=None, py=None) -> torch.Tensor:
+    """Depth + inverse viewproj -> channel-first (3, ...) world positions.
+    Without ``px``/``py`` the samples are the (H, W) pixel centres (rows
+    offset by y0 in a full_height image); with them, explicit absolute
+    pixel-centre coordinates of any grid of samples (the checkerboard
+    lattice, the sparse fix batch) shaped like ``depth``, and y0 is unused."""
     if full_height is None:
         full_height = depth.shape[0]
-    h, w = depth.shape
-    dev = depth.device
-    px = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w) + 0.5
-    py = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w) + float(y0) + 0.5
+    if px is None:
+        px, py = pixel_centres(*depth.shape, y0, depth.device)
     x = px / width * 2.0 - 1.0
     y = 1.0 - py / full_height * 2.0
     m = viewproj_inv

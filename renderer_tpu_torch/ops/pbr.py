@@ -1,12 +1,16 @@
 """PBR metallic-roughness deferred shading: GGX + Smith + Schlick
 (``renderer_tpu.ops.pbr``).
 
-Everything is channel-first: vectors (3, H, W), scalars (H, W). Ported:
-the full-rate path with barycentrics re-derived from the shade records'
+Everything is channel-first: vectors (3, H, W), scalars (H, W). One
+shading closure (``run`` inside ``shade_pbr``) works on any 2D grid of
+samples with explicit pixel centres, so the same expressions shade the
+full frame, the packed checkerboard lattice and the sparse batch of the
+checkerboard fix. Ported: barycentrics re-derived from the shade records'
 edge columns, base-colour textures, normal maps with the Toksvig roughness
-term, edge AA, and ray-traced shadows through the light-space grid
-(``ops/rt_grid.py``). Shadow maps, the brute-force ray caster and the
-checkerboard and quarter shade rates are later work.
+term, edge AA, shadow maps (``ops/shadow.py``), ray-traced shadows through
+the light-space grid (``ops/rt_grid.py``), and the checkerboard shade rate
+with its fix. The quarter shade rate and the brute-force ray caster are
+later work.
 """
 
 from __future__ import annotations
@@ -15,16 +19,19 @@ import math
 
 import torch
 
-from renderer_tpu_torch.ops.aa import edge_aa
+from renderer_tpu_torch.ops.aa import _dn, _up, edge_aa
 from renderer_tpu_torch.ops.raster_spec import NO_TRIANGLE
 from renderer_tpu_torch.ops.geometry import (
     SR_BASE, SR_BC_LAYER, SR_EDGE, SR_EMISSIVE, SR_METALLIC, SR_NM_LAYER,
-    SR_NORMAL, SR_ROUGH, SR_TANGENT, SR_TEXLOD, SR_UV, unproject_depth,
+    SR_NORMAL, SR_ROUGH, SR_TANGENT, SR_TEXLOD, SR_UV, pixel_centres, unproject_depth,
 )
 from renderer_tpu_torch.ops.rt_grid import RtGrid, rt_shadow_grid, slot_lights
+from renderer_tpu_torch.ops.shadow import ShadowMaps, shadow_occlusion
 from renderer_tpu_torch.ops.texture import sample_atlas_cf, srgb_to_linear
 
 NM_LOD_BIAS = 1.5  # normal maps sample ~one mip softer than colour
+FIX_TAU = 0.04  # the fix re-shades suspects whose neighbour spread exceeds this
+FIX_K_DIV = 16  # fix capacity: K = P / FIX_K_DIV suspects (P: the lattice's pixels)
 
 # Record columns gathered per pixel, grouped as the JAX package groups them:
 # the 8 interpolated attributes of each corner, then per-triangle constants.
@@ -42,6 +49,22 @@ _CONST = (
 )
 _ORDER = _CORNER[0] + _CORNER[1] + _CORNER[2] + _CONST
 _C_OFF = 24  # first constant row
+
+
+def _runs(cols):
+    """Consecutive column runs of ``cols`` as (start, stop) slices: the
+    gather takes them by slicing (an index list would be a host tensor
+    copied to the card, which waits for the queued work)."""
+    runs = []
+    for c in cols:
+        if runs and runs[-1][1] == c:
+            runs[-1][1] = c + 1
+        else:
+            runs.append([c, c + 1])
+    return [tuple(r) for r in runs]
+
+
+_ORDER_RUNS = _runs(_ORDER)
 
 
 def _dot_cf(a, b):
@@ -99,112 +122,256 @@ def shade_pbr(
     light_slots: int = None,  # shade only the first k light-table slots
     aa: bool = False,  # edge AA (ops/aa.py)
     rt_grid: RtGrid = None,  # ray-traced shadows (ops/rt_grid.py)
+    shadow: ShadowMaps = None,  # shadow maps (ops/shadow.py)
+    # shade the (x + y) even half-lattice packed to (H, W/2) and rebuild the
+    # rest from same-triangle neighbours (_checkerboard_expand)
+    checkerboard: bool = False,
+    # with checkerboard: exactly re-shade the worst rebuilt pixels
+    # (_checkerboard_fix); skipped under rt_grid, whose screen tiles need
+    # the full lattice
+    shade_fix: bool = True,
 ) -> torch.Tensor:
     """Shade a visibility buffer -> (H, W, 3) linear HDR colour."""
-    h_, w_ = vis.depth.shape
-    p_ = h_ * w_
+    fh_, fw_ = vis.depth.shape
     dev = vis.depth.device
-    tri_in = vis.tri_id
-    covered = tri_in != NO_TRIANGLE
-    safe_id = torch.clamp(tri_in, min=0).reshape(p_).long()
-    world = unproject_depth(
-        vis.depth, viewproj_inv, w_, h_, y0=y0,
-        full_height=full_height if full_height is not None else h_,
-    )
-    # one gather of the 45 needed record columns per pixel -> (45, P)
-    cols_t = shade_rec[:, _ORDER].T.contiguous()[:, safe_id]
+    full_height = full_height if full_height is not None else fh_
+    # the background as a (3, 1, 1) fill on the device, not a host copy
+    bg = torch.stack([torch.full((1, 1), float(c), dtype=torch.float32, device=dev)
+                      for c in background])
 
-    def col(k):
-        return cols_t[_C_OFF + _CONST.index(k)].reshape(h_, w_)
+    def run(depth_in, tri_in, px, py):
+        """The per-sample shading core on a 2D grid of samples at the
+        absolute pixel centres (px, py) (None: the full frame's)."""
+        h_, w_ = depth_in.shape
+        p_ = h_ * w_
+        covered = tri_in != NO_TRIANGLE
+        safe_id = torch.clamp(tri_in, min=0).reshape(p_).long()
+        if px is None:
+            px, py = pixel_centres(h_, w_, y0, dev)
+        world = unproject_depth(depth_in, viewproj_inv, fw_, fh_, full_height=full_height,
+                                px=px, py=py)
+        # one gather of the 45 needed record columns per sample -> (45, P)
+        cols_t = torch.cat([shade_rec[:, a:b] for a, b in _ORDER_RUNS], dim=1).T.contiguous()
+        cols_t = cols_t[:, safe_id]
 
-    # barycentrics: the winner's edge functions at the pixel centre
-    pxf = (torch.arange(w_, dtype=torch.float32, device=dev)[None, :].expand(h_, w_)
-           + 0.5).reshape(p_)
-    pyf = (torch.arange(h_, dtype=torch.float32, device=dev)[:, None].expand(h_, w_)
-           + float(y0) + 0.5).reshape(p_)
+        def col(k):
+            return cols_t[_C_OFF + _CONST.index(k)].reshape(h_, w_)
 
-    def e(k):
-        return cols_t[_C_OFF + 6 + k]
+        # barycentrics: the winner's edge functions at the pixel centre
+        pxf, pyf = px.reshape(p_), py.reshape(p_)
 
-    lam0 = e(0) * pxf + e(1) * pyf + e(2)
-    lam1 = e(3) * pxf + e(4) * pyf + e(5)
-    lam2 = e(6) * pxf + e(7) * pyf + e(8)
-    lsum = lam0 + lam1 + lam2
-    inv = 1.0 / torch.where(lsum != 0.0, lsum, 1.0)
-    b0, b1, b2 = (lam0 * inv)[None], (lam1 * inv)[None], (lam2 * inv)[None]
+        def e(k):
+            return cols_t[_C_OFF + 6 + k]
 
-    attrs = b0 * cols_t[0:8] + b1 * cols_t[8:16] + b2 * cols_t[16:24]
-    n_geom = _normalize_cf(attrs[0:3].reshape(3, h_, w_))
-    u = attrs[3].reshape(h_, w_)
-    v_ = attrs[4].reshape(h_, w_)
-    tangent = attrs[5:8].reshape(3, h_, w_)
-    tan_w = col(SR_TANGENT + 3)[None]
-    tex_lod = col(SR_TEXLOD)
-    base_factor = cols_t[_C_OFF + 15 : _C_OFF + 18].reshape(3, h_, w_)
-    metallic = col(SR_METALLIC)[None]
-    roughness = col(SR_ROUGH)[None]
-    emissive = cols_t[_C_OFF + 18 : _C_OFF + 21].reshape(3, h_, w_)
-    bc_layer = col(SR_BC_LAYER).to(torch.int32)
-    nm_layer = col(SR_NM_LAYER).to(torch.int32)
+        lam0 = e(0) * pxf + e(1) * pyf + e(2)
+        lam1 = e(3) * pxf + e(4) * pyf + e(5)
+        lam2 = e(6) * pxf + e(7) * pyf + e(8)
+        lsum = lam0 + lam1 + lam2
+        inv = 1.0 / torch.where(lsum != 0.0, lsum, 1.0)
+        b0, b1, b2 = (lam0 * inv)[None], (lam1 * inv)[None], (lam2 * inv)[None]
 
-    if enable_textures:
-        bc = sample_atlas_cf(scene.atlas, bc_layer, u, v_, tex_lod, trilinear=trilinear)
-        albedo = base_factor * srgb_to_linear(bc[0:3])
+        attrs = b0 * cols_t[0:8] + b1 * cols_t[8:16] + b2 * cols_t[16:24]
+        n_geom = _normalize_cf(attrs[0:3].reshape(3, h_, w_))
+        u = attrs[3].reshape(h_, w_)
+        v_ = attrs[4].reshape(h_, w_)
+        tangent = attrs[5:8].reshape(3, h_, w_)
+        tan_w = col(SR_TANGENT + 3)[None]
+        tex_lod = col(SR_TEXLOD)
+        base_factor = cols_t[_C_OFF + 15 : _C_OFF + 18].reshape(3, h_, w_)
+        metallic = col(SR_METALLIC)[None]
+        roughness = col(SR_ROUGH)[None]
+        emissive = cols_t[_C_OFF + 18 : _C_OFF + 21].reshape(3, h_, w_)
+        bc_layer = col(SR_BC_LAYER).to(torch.int32)
+        nm_layer = col(SR_NM_LAYER).to(torch.int32)
+
+        if enable_textures:
+            bc = sample_atlas_cf(scene.atlas, bc_layer, u, v_, tex_lod, trilinear=trilinear)
+            albedo = base_factor * srgb_to_linear(bc[0:3])
+        else:
+            albedo = base_factor
+
+        if enable_textures and enable_normal_maps:
+            t = _normalize_cf(tangent - n_geom * _dot_cf(tangent, n_geom))
+            b = _cross_cf(n_geom, t) * tan_w
+            nm = sample_atlas_cf(scene.atlas, nm_layer, u, v_, tex_lod + NM_LOD_BIAS,
+                                 trilinear=trilinear)
+            nx, ny, nz = nm[0] * 2 - 1, nm[1] * 2 - 1, nm[2] * 2 - 1
+            n_mapped = _normalize_cf(t * nx[None] + b * ny[None] + n_geom * nz[None])
+            has_nm = (nm_layer >= 0)[None]
+            n = torch.where(has_nm, n_mapped, n_geom)
+            # Toksvig: the filtered normal's length encodes the footprint's
+            # normal variance, folded into GGX roughness
+            len2 = torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-6)[None]
+            ell = torch.sqrt(len2)
+            sigma2 = torch.clamp((1.0 - ell) / ell, 0.0, 1.0)
+            alpha2 = torch.square(roughness * roughness) + sigma2
+            rough_eff = torch.sqrt(torch.sqrt(torch.clamp(alpha2, max=1.0)))
+            roughness = torch.where(has_nm, rough_eff, roughness)
+        else:
+            n = n_geom
+
+        planes = None  # per shadow slot, the occlusion plane of its light
+        if rt_grid is not None:
+            planes = rt_shadow_grid(
+                scene, world, n_geom, covered, rt_grid.light_mats, rt_grid.lod, rt_grid.model,
+                rt_grid.scene_radius, rt_grid.caster_capacity,
+                slot_lights(rt_grid.light_casts, rt_grid.n_slots), tri=tri_in,
+                rt_scale=rt_grid.rt_scale,
+            )
+
+        v = _normalize_cf(camera_pos[:, None, None] - world)
+        lights = scene.lights
+        color = albedo * ambient + emissive
+        n_slots = lights.alive.shape[0]
+        if light_slots is not None:
+            n_slots = min(light_slots, n_slots)
+        for li in range(n_slots):
+            pos = lights.position[li][:, None, None]
+            directional = lights.directional[li]
+            to_light = torch.where(directional, -pos * torch.ones_like(world), pos - world)
+            dist2 = _dot_cf(to_light, to_light)
+            l = to_light / torch.sqrt(torch.clamp(dist2, min=1e-12))
+            atten = torch.where(directional, 1.0, 1.0 / torch.clamp(dist2, min=1e-4))
+            radiance = lights.color[li][:, None, None] * (lights.intensity[li] * atten)
+            if planes is not None and li < len(rt_grid.light_casts):
+                slot = rt_grid.light_casts[li][0]
+                if 0 <= slot < len(planes):
+                    radiance = radiance * planes[slot][None]
+            if shadow is not None and li < len(shadow.light_casts):
+                slot, s_dir = shadow.light_casts[li]
+                if 0 <= slot < shadow.atlas.shape[0]:
+                    ndl_geom = torch.clamp(_dot_cf(n_geom, l), min=0.0)
+                    radiance = radiance * shadow_occlusion(
+                        world, ndl_geom, shadow.light_mats[li], shadow.atlas[slot],
+                        normal=n_geom, is_point=not s_dir, light_pos=lights.position[li])
+            contrib = _ggx_brdf(n, v, l, albedo, metallic, roughness) * radiance
+            color = color + torch.where(lights.alive[li], contrib, 0.0)
+        return torch.where(covered[None], color, bg)
+
+    if checkerboard:
+        # the shaded half-lattice ((x + y) even) packed to (H, W/2):
+        # x = 2j + ((y + y0) & 1), shaded at its true pixel centres
+        rowpar = ((torch.arange(fh_, device=dev) + y0) & 1)[:, None]
+        par0 = rowpar == 0
+
+        def pack(a):
+            return torch.where(par0, a[:, 0::2], a[:, 1::2])
+
+        w2 = fw_ // 2
+        px = (2.0 * torch.arange(w2, dtype=torch.float32, device=dev)[None, :]
+              + rowpar.to(torch.float32) + 0.5)
+        py = (torch.arange(fh_, dtype=torch.float32, device=dev)[:, None]
+              + float(y0) + 0.5).expand(fh_, w2)
+        tri_s = pack(vis.tri_id)
+        shaded = run(pack(vis.depth), tri_s, px, py)
+        recon, score, tri_u = _checkerboard_expand(shaded, vis.tri_id, tri_s,
+                                                   tri_s != NO_TRIANGLE, rowpar, bg)
+        color = _cb_interleave(shaded, recon, rowpar)
+        if shade_fix and rt_grid is None:
+            color = _checkerboard_fix(color, score, tri_u, vis, rowpar, y0, run)
     else:
-        albedo = base_factor
-
-    if enable_textures and enable_normal_maps:
-        t = _normalize_cf(tangent - n_geom * _dot_cf(tangent, n_geom))
-        b = _cross_cf(n_geom, t) * tan_w
-        nm = sample_atlas_cf(scene.atlas, nm_layer, u, v_, tex_lod + NM_LOD_BIAS,
-                             trilinear=trilinear)
-        nx, ny, nz = nm[0] * 2 - 1, nm[1] * 2 - 1, nm[2] * 2 - 1
-        n_mapped = _normalize_cf(t * nx[None] + b * ny[None] + n_geom * nz[None])
-        has_nm = (nm_layer >= 0)[None]
-        n = torch.where(has_nm, n_mapped, n_geom)
-        # Toksvig: the filtered normal's length encodes the footprint's
-        # normal variance, folded into GGX roughness
-        len2 = torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-6)[None]
-        ell = torch.sqrt(len2)
-        sigma2 = torch.clamp((1.0 - ell) / ell, 0.0, 1.0)
-        alpha2 = torch.square(roughness * roughness) + sigma2
-        rough_eff = torch.sqrt(torch.sqrt(torch.clamp(alpha2, max=1.0)))
-        roughness = torch.where(has_nm, rough_eff, roughness)
-    else:
-        n = n_geom
-
-    planes = None  # per shadow slot, the occlusion plane of its light
-    if rt_grid is not None:
-        planes = rt_shadow_grid(
-            scene, world, n_geom, covered, rt_grid.light_mats, rt_grid.lod, rt_grid.model,
-            rt_grid.scene_radius, rt_grid.caster_capacity,
-            slot_lights(rt_grid.light_casts, rt_grid.n_slots), tri=tri_in,
-            rt_scale=rt_grid.rt_scale,
-        )
-
-    v = _normalize_cf(camera_pos[:, None, None] - world)
-    lights = scene.lights
-    color = albedo * ambient + emissive
-    n_slots = lights.alive.shape[0]
-    if light_slots is not None:
-        n_slots = min(light_slots, n_slots)
-    for li in range(n_slots):
-        pos = lights.position[li][:, None, None]
-        directional = lights.directional[li]
-        to_light = torch.where(directional, -pos * torch.ones_like(world), pos - world)
-        dist2 = _dot_cf(to_light, to_light)
-        l = to_light / torch.sqrt(torch.clamp(dist2, min=1e-12))
-        atten = torch.where(directional, 1.0, 1.0 / torch.clamp(dist2, min=1e-4))
-        radiance = lights.color[li][:, None, None] * (lights.intensity[li] * atten)
-        if planes is not None and li < len(rt_grid.light_casts):
-            slot = rt_grid.light_casts[li][0]
-            if 0 <= slot < len(planes):
-                radiance = radiance * planes[slot][None]
-        contrib = _ggx_brdf(n, v, l, albedo, metallic, roughness) * radiance
-        color = color + torch.where(lights.alive[li], contrib, 0.0)
-
-    bg = torch.tensor(background, dtype=torch.float32, device=dev)[:, None, None]
-    color = torch.where(covered[None], color, bg)
+        color = run(vis.depth, vis.tri_id, None, None)
     if aa:
         color = edge_aa(color, vis.tri_id)
     return color.permute(1, 2, 0)
+
+
+def fix_capacity(p2: int) -> int:
+    """Suspects the fix re-shades for a P-pixel lattice: P / FIX_K_DIV, at
+    least 2048, a multiple of 8, at most the lattice."""
+    return min(p2 - p2 % 8, max(2048, -(-p2 // FIX_K_DIV) // 8 * 8))
+
+
+def _checkerboard_fix(color, score, tri_u, vis, rowpar, y0: int, run):
+    """Exactly re-shade the worst reconstructed pixels.
+
+    Up to K = fix_capacity(P) suspects by neighbour-spread score, those
+    above FIX_TAU, are shaded through the frame's own closure ``run`` on an
+    (8, K/8) batch at their pixel centres, so each equals the full-rate
+    frame's pixel, and scattered into the interleaved frame (3, H, W). The
+    suspects not above FIX_TAU land in a trash column; nothing here reads
+    a device value on the host."""
+    h_, w_ = score.shape
+    p2 = h_ * w_
+    k = fix_capacity(p2)
+    # exact top-k: the JAX package's approx_max_k is exact on the CPU too;
+    # only the TPU's is approximate (recall 0.95)
+    vals, idx = torch.topk(score.reshape(p2), k)
+    # ascending pixel order (the JAX package sorts for its scatter's speed)
+    idx, perm = torch.sort(idx)
+    good = vals[perm] > FIX_TAU
+    depth_u = torch.where(rowpar == 0, vis.depth[:, 1::2], vis.depth[:, 0::2])
+    d_k = depth_u.reshape(p2)[idx]
+    t_k = torch.where(good, tri_u.reshape(p2)[idx], NO_TRIANGLE)
+    yk, jk = idx // w_, idx % w_
+    xk = 2 * jk + (1 - ((yk + y0) & 1))  # the complement: x = 2j + 1 - parity
+    px_k = xk.to(torch.float32) + 0.5
+    py_k = yk.to(torch.float32) + float(y0) + 0.5
+    shape2 = (8, k // 8)
+    color_k = run(d_k.reshape(shape2), t_k.reshape(shape2), px_k.reshape(shape2),
+                  py_k.reshape(shape2)).reshape(3, k)
+    fw_ = color.shape[-1]
+    p_full = h_ * fw_
+    out = torch.cat([color.reshape(3, p_full), color.new_zeros((3, 1))], dim=1)
+    out.index_copy_(1, torch.where(good, yk * fw_ + xk, p_full), color_k)
+    return out[:, :p_full].reshape(color.shape)
+
+
+def _checkerboard_expand(shaded, tri_full, tri_s, cov_s, rowpar, bg):
+    """(3, H, W/2) shaded half-lattice -> the complement lattice rebuilt,
+    (3, H, W/2), its suspect score (H, W/2) and its triangle ids.
+
+    Each missing pixel ((x + y) odd) averages its four cardinal neighbours,
+    all shaded, weighted by same-triangle membership, so edges never bleed
+    across surfaces; with all four on its triangle, the per-channel trimmed
+    mean (drop min and max: exact for linear colour, and a one-neighbour
+    specular spike stays out). Without a same-triangle neighbour, the
+    covered-neighbour mean, then the background; uncovered pixels take the
+    background. The score is the same-triangle neighbours' colour spread
+    (1e9 for a covered pixel with none, -1 for uncovered)."""
+    par0 = rowpar == 0
+    tri_u = torch.where(par0, tri_full[:, 1::2], tri_full[:, 0::2])
+    cov_u = tri_u != NO_TRIANGLE
+
+    def left(a):  # (y, x-1): packed j on parity-0 rows, j-1 on parity-1
+        return torch.where(par0, a, torch.cat([a[..., :, :1], a[..., :, :-1]], dim=-1))
+
+    def right(a):
+        return torch.where(par0, torch.cat([a[..., :, 1:], a[..., :, -1:]], dim=-1), a)
+
+    num = torch.zeros_like(shaded)
+    den = torch.zeros(tri_u.shape, dtype=torch.float32, device=shaded.device)
+    numc = torch.zeros_like(shaded)
+    denc = torch.zeros_like(den)
+    nb_min = torch.full_like(shaded, math.inf)
+    nb_max = torch.full_like(shaded, -math.inf)
+    for sh in (_up, _dn, left, right):
+        nb_t, nb_cov, nb_c = sh(tri_s), sh(cov_s), sh(shaded)
+        w_same = ((nb_t == tri_u) & nb_cov).to(torch.float32)
+        num = num + nb_c * w_same[None]
+        den = den + w_same
+        numc = numc + nb_c * nb_cov.to(torch.float32)[None]
+        denc = denc + nb_cov.to(torch.float32)
+        same = (w_same != 0.0)[None]
+        nb_min = torch.where(same, torch.minimum(nb_min, nb_c), nb_min)
+        nb_max = torch.where(same, torch.maximum(nb_max, nb_c), nb_max)
+    trimmed = (num - nb_min - nb_max) * 0.5
+    mean = num / torch.clamp(den, min=1.0)[None]
+    recon = torch.where(
+        (den > 0)[None],
+        torch.where((den == 4.0)[None], trimmed, mean),
+        torch.where((denc > 0)[None], numc / torch.clamp(denc, min=1.0)[None], bg),
+    )
+    recon = torch.where(cov_u[None], recon, bg)
+    spread = torch.where((den > 0)[None], nb_max - nb_min, 0.0)
+    spread = spread[0] + spread[1] + spread[2]
+    score = torch.where(cov_u, torch.where(den == 0.0, 1e9, spread), -1.0)
+    return recon, score, tri_u
+
+
+def _cb_interleave(shaded, recon, rowpar):
+    """(3, H, W/2) shaded + rebuilt half-lattices -> (3, H, W)."""
+    par0 = rowpar == 0
+    even = torch.where(par0, shaded, recon)
+    odd = torch.where(par0, recon, shaded)
+    return torch.stack([even, odd], dim=-1).reshape(shaded.shape[0], shaded.shape[1], -1)

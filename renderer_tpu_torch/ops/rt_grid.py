@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from renderer_tpu_torch.ops.geometry import coarse_cull, expand_clip_only
+from renderer_tpu_torch.ops.geometry import clip_rows, coarse_cull, expand_clip_only
 from renderer_tpu_torch.ops.occlusion_cuda import O_BB, O_OK, occlusion_kernel, occlusion_tiles_plain
 from renderer_tpu_torch.ops.raster_cuda import BLOCK, TILE_H, TILE_W, bin_blocks_from_masks
 from renderer_tpu_torch.ops.shadow import cube_face_matrices, lod_by_distance
@@ -219,15 +219,6 @@ def _light_ndc(m, pos):
     return lclip[0] / lw, lclip[1] / lw, lclip[2] / lw
 
 
-def _mat_cols(m, model16):
-    """m (4, 4) @ each (N, 16)-row matrix -> (N, 16) rows."""
-    return torch.stack([
-        m[i, 0] * model16[:, k] + m[i, 1] * model16[:, 4 + k] + m[i, 2] * model16[:, 8 + k]
-        + m[i, 3] * model16[:, 12 + k]
-        for i in range(4) for k in range(4)
-    ], dim=-1)
-
-
 def rt_shadow_grid(
     scene,
     world: torch.Tensor,     # (3, H, W) receiver world positions
@@ -289,7 +280,7 @@ def rt_shadow_grid(
             lx, ly, lz = _light_ndc(m, offset_world)
             ld = torch.where(covered, lz - depth_eps, math.inf)
             visible = coarse_cull(scene, model, m)
-            cclip, cvalid, _ = expand_clip_only(scene, visible, lod, _mat_cols(m, model),
+            cclip, cvalid, _ = expand_clip_only(scene, visible, lod, clip_rows(m, model),
                                                 caster_capacity)
             planes.append(occlusion_grid(cclip, cvalid, lx, ly, ld))
             continue

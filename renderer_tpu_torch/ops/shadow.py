@@ -1,15 +1,34 @@
-"""Light cameras (``renderer_tpu.ops.shadow``): the cube-face axes, the
-per-light view-projection of the ray-traced shadow path, and the caster
-LOD pick by distance to a light. The shadow-map atlas and its lookup are
-not ported yet."""
+"""Shadow mapping (``renderer_tpu.ops.shadow``): light cameras, the cached
+shadow-map atlas rendered through the tile rasterizer in depth-only mode,
+and the 2x2 PCF lookup, plus the per-light view-projection and caster LOD
+pick of the ray-traced shadow path.
+
+The atlas is (n_slots, S, S) depth, one slot per shadow-casting light.
+Casters are culled and expanded per light against the light's own frustum,
+so off-camera geometry still casts into view. A directional slot renders
+whole or as one of K horizontal bands; a point slot renders six cube faces
+into a 2x3 grid of (S/2, S/4) faces. Every view is a two-sided depth-only
+raster (``raster_cuda.rasterize_cuda``: the CUDA kernel on the card).
+
+The Renderer's light-cast pattern is static (``runtime.frame.light_casts``),
+so which slot holds which kind of light is known on the host: a slot
+without a light is a fill of 1.0 and costs no work. Whether a slot renders
+this frame (the cache's choice) is a device tensor and is never read on
+the host: an unselected slot culls against an empty set, so its raster
+walks no triangle, and the result keeps the previous depth through
+``torch.where``.
+"""
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from renderer_tpu_torch.mathx.camera import look_at, matmul4, orthographic, perspective
+from renderer_tpu_torch.ops.geometry import clip_rows, coarse_cull, expand_clip_only
+from renderer_tpu_torch.ops.raster_cuda import rasterize_cuda
 
 # cube faces in axis order +x, -x, +y, -y, +z, -z; a receiver belongs to the
 # face of the major axis of its light -> receiver direction
@@ -23,23 +42,46 @@ CUBE_FACE_UPS = (
     (0.0, 0.0, 1.0), (0.0, 0.0, -1.0),
     (0.0, 1.0, 0.0), (0.0, 1.0, 0.0),
 )
+SIG_C = 3  # independent signature components per unit (shadow_signature)
+_SALTS = (2.0, 23.0, 61.0)
+
+
+class ShadowMaps(NamedTuple):
+    """What shading needs to look shadows up in the atlas."""
+
+    atlas: torch.Tensor       # (n_slots, S, S) depth
+    light_mats: torch.Tensor  # (L, 6, 4, 4) from light_matrices_cube
+    light_casts: tuple        # (shadow_slot, directional) per shaded light, -1 none
 
 
 def _norm3(v):
     return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2])
 
 
+def _cube_axes(device):
+    """CUBE_FACE_DIRS and CUBE_FACE_UPS as (6, 3) tensors built on the
+    device (a host tensor copied over would wait for the queued work)."""
+    e = torch.eye(3, dtype=torch.float32, device=device)
+    return (torch.stack([e[0], -e[0], e[1], -e[1], e[2], -e[2]]),
+            torch.stack([e[1], e[1], e[2], -e[2], e[1], e[1]]))
+
+
+def _scene_sphere(scene_min, scene_max):
+    """(centre, radius) of the scene AABB's bounding sphere."""
+    return (scene_min + scene_max) * 0.5, _norm3(scene_max - scene_min) * 0.5 + 1e-3
+
+
 def directional_light_matrices(lights, scene_min, scene_max) -> torch.Tensor:
     """(L, 4, 4) light view-projection per light (identity for lights
-    without a shadow slot).
+    without a shadow slot): the single-face variant of the ray-traced
+    shadow path.
 
     Directional lights: an orthographic box fitted around the scene AABB,
     looking along the light direction from outside the scene. Point
     lights: a perspective camera at the light aimed at the scene centre,
-    fov fitted to the scene's bounding sphere (the single-face variant).
-    All lights are computed at once, as the JAX package's vmap does."""
-    center = (scene_min + scene_max) * 0.5
-    radius = _norm3(scene_max - scene_min) * 0.5 + 1e-3
+    fov fitted to the scene's bounding sphere. All lights are computed at
+    once, as the JAX package's vmap does."""
+    center, radius = _scene_sphere(scene_min, scene_max)
     position = lights.position
     directional = lights.directional[:, None]
     d_dir = position / torch.clamp(_norm3(position), min=1e-8)[:, None]
@@ -58,6 +100,33 @@ def directional_light_matrices(lights, scene_min, scene_max) -> torch.Tensor:
     mats = matmul4(proj, view)
     want = (lights.alive & (lights.shadow_slot >= 0))[:, None, None]
     return torch.where(want, mats, torch.eye(4, dtype=torch.float32, device=mats.device))
+
+
+def light_matrices_cube(lights, scene_min, scene_max) -> torch.Tensor:
+    """(L, 6, 4, 4) face view-projections per light (identity for lights
+    without a shadow slot).
+
+    Directional lights: the fitted orthographic matrix on all six faces
+    (lookups use face 0). Point lights: six fov-90 perspective cameras at
+    the light, packed into one atlas slot as a 2x3 face grid."""
+    center, radius = _scene_sphere(scene_min, scene_max)
+    position = lights.position
+    dev = position.device
+    d_dir = position / torch.clamp(_norm3(position), min=1e-8)[:, None]
+    eye_dir = center - d_dir * (radius * 2.0)
+    dist = torch.maximum(_norm3(center - position), radius * 0.05 + 1e-3)
+    axes = torch.eye(3, dtype=torch.float32, device=dev)
+    up_d = torch.where((d_dir[:, 1].abs() > 0.95)[:, None], axes[0], axes[1])
+    m_dir = matmul4(orthographic(radius, radius, radius * 0.5, radius * 3.5),
+                    look_at(eye_dir, eye_dir + d_dir, up_d))  # (L, 4, 4)
+    near = torch.clamp(radius * 1e-2, min=1e-4)
+    proj_pt = perspective(math.pi / 2, 1.0, near, dist + radius)  # (L, 4, 4)
+    dirs, ups = _cube_axes(dev)
+    eye = position[:, None, :]
+    m_pt = matmul4(proj_pt[:, None], look_at(eye, eye + dirs, ups))  # (L, 6, 4, 4)
+    mats = torch.where(lights.directional[:, None, None, None], m_dir[:, None], m_pt)
+    want = (lights.alive & (lights.shadow_slot >= 0))[:, None, None, None]
+    return torch.where(want, mats, torch.eye(4, dtype=torch.float32, device=dev))
 
 
 def lod_by_distance(scene, model: torch.Tensor, point: torch.Tensor, bias: float = 0.0):
@@ -83,13 +152,338 @@ def lod_by_distance(scene, model: torch.Tensor, point: torch.Tensor, bias: float
     return torch.clamp(lod, 0, lib.lod_tri_count.shape[1] - 1).long()
 
 
+def shadow_lod_bias(slot_size: int) -> float:
+    """Resolution-aware caster LOD bias for a slot_size^2 atlas slot: 0 at
+    the reference's 4096^2 slots, one level coarser per halving."""
+    return max(0.0, math.log2(4096.0 / slot_size))
+
+
 def cube_face_matrices(near, far) -> torch.Tensor:
     """(6, 4, 4) fov-90 view-projections of the cube faces around the origin
     (a light-centred frame)."""
     proj = perspective(math.pi / 2, 1.0, near, far)
-    e = torch.eye(3, dtype=torch.float32, device=proj.device)
-    # CUBE_FACE_DIRS and CUBE_FACE_UPS, built on the device (a host tensor
-    # copied over would wait for the queued work)
-    dirs = torch.stack([e[0], -e[0], e[1], -e[1], e[2], -e[2]])
-    ups = torch.stack([e[1], e[1], e[2], -e[2], e[1], e[1]])
-    return matmul4(proj, look_at(torch.zeros_like(e[0]), dirs, ups))
+    dirs, ups = _cube_axes(proj.device)
+    return matmul4(proj, look_at(torch.zeros_like(dirs[0]), dirs, ups))
+
+
+def band_matrix(m: torch.Tensor, band, k: int) -> torch.Tensor:
+    """Remap NDC y of view-projection ``m`` so horizontal band ``band`` (of
+    k equal bands, top to bottom) fills the viewport: row r of a (S/k, S)
+    render under the result has the pixel centres of row band*(S/k) + r of
+    the (S, S) render under ``m``. ``band`` may be a device tensor of any
+    shape (...,), giving (..., 4, 4)."""
+    band = band.to(torch.float32) if isinstance(band, torch.Tensor) else float(band)
+    cshift = (1.0 - k) + 2.0 * band
+    row1 = k * m[1] + (cshift[..., None] if isinstance(cshift, torch.Tensor) else cshift) * m[3]
+    rows = [m[0], row1, m[2], m[3]]
+    return torch.stack([r.expand(row1.shape) for r in rows], dim=-2)
+
+
+# -- change detection and scheduling -------------------------------------------
+
+def _weights(n: int, salt: float, device) -> torch.Tensor:
+    """(n,) deterministic pseudo-random fold weights in ~[-1, 1] (change
+    detection only: a collision needs an exact cancellation)."""
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    return torch.sin(i * 12.9898 + salt * 78.233)
+
+
+class SignatureWeights(NamedTuple):
+    """The constant fold weights of ``shadow_signature`` for N instances, per
+    salt: made once (``signature_weights``) and reused every frame."""
+
+    light: tuple       # (6, 16) per salt: the fold of a light's face matrices
+    model_cols: tuple  # (16,) per salt
+    rows: tuple        # (N,) per salt: weights of the model fold
+    mesh: tuple        # (N,) per salt: weights of the mesh id
+    count: tuple       # (N,) per salt: the per-instance count term
+
+
+def signature_weights(n_instances: int, device) -> SignatureWeights:
+    out = [[], [], [], [], []]
+    for salt in _SALTS:
+        out[0].append(_weights(6, salt + 3.0, device)[:, None]
+                      * _weights(16, salt + 4.0, device)[None, :])
+        out[1].append(_weights(16, salt + 1.0, device))
+        out[2].append(_weights(n_instances, salt, device))
+        out[3].append(_weights(n_instances, salt + 11.0, device)
+                      * _weights(1, salt + 12.0, device)[0])
+        out[4].append(_weights(n_instances, salt + 29.0, device))
+    return SignatureWeights(*(tuple(v) for v in out))
+
+
+def shadow_signature(scene, light_mats: torch.Tensor, model: torch.Tensor, slots: tuple,
+                     progressive: int = 1, weights: SignatureWeights = None) -> torch.Tensor:
+    """Per-unit f32 change-detection signatures of the cached atlas.
+
+    progressive=1: (n_slots, SIG_C), one unit per slot. progressive=K>1:
+    (n_slots, K, SIG_C); a directional slot is K horizontal band units,
+    each folding only the casters its band frustum can see, so a moving
+    caster dirties only the bands it projects into. Point and empty slots
+    track on band 0; their bands 1..K-1 hold a constant and are never dirty.
+
+    A unit's depth is a function of its light's face matrices, its kind
+    and the casters inside its frustum (model matrices, mesh ids), culled
+    by ``coarse_cull`` as the render culls them. The fold has SIG_C
+    independently salted components, so a change must round away in all
+    of them to be missed. An empty slot holds a sentinel. ``slots`` is
+    ``rt_grid.slot_lights`` of the light-cast pattern."""
+    flat = model.reshape(model.shape[0], -1).to(torch.float32)
+    dev = flat.device
+    if weights is None:
+        weights = signature_weights(flat.shape[0], dev)
+    mid = scene.instances.mesh_id.to(torch.float32)
+    # the caster fold is bilinear in (instance weights x column weights), so
+    # the column contraction is done once: one (N,) profile per salt
+    profiles = [(flat * wk[None, :]).sum(dim=1) * wr + mid * wm + wc
+                for wk, wr, wm, wc in zip(*weights[1:])]
+
+    def sentinel(v, n=1):
+        return torch.full((n, SIG_C), v, dtype=torch.float32, device=dev)
+
+    out = []
+    for slot in slots:
+        if slot is None:
+            units = [sentinel(-1e30), sentinel(-2e30, progressive - 1)]
+        else:
+            li, directional = slot
+            mats = light_mats[li]  # (6, 4, 4)
+            if directional and progressive > 1:  # one unit per band
+                vis = coarse_cull(scene, model, band_matrix(
+                    mats[0], torch.arange(progressive, device=dev), progressive))
+            elif directional:
+                vis = coarse_cull(scene, model, mats[0])[None]
+            else:  # the union of the six faces
+                vis = coarse_cull(scene, model, mats).any(dim=0, keepdim=True)
+            visf = vis.to(torch.float32)  # (units, N)
+            kind = 17.0 if directional else 39.0
+            comps = [torch.sum(mats.reshape(6, 16) * wl) + kind + (visf * prof).sum(dim=-1)
+                     for wl, prof in zip(weights.light, profiles)]
+            units = [torch.stack(comps, dim=-1), sentinel(-2e30, progressive - vis.shape[0])]
+        sig = torch.cat(units)
+        out.append(sig if progressive > 1 else sig[0])
+    return torch.stack(out)
+
+
+def select_shadow_updates(sig: torch.Tensor, sig_prev: torch.Tensor, cursor: torch.Tensor,
+                          budget: int):
+    """Round-robin budgeted scheduling of dirty units.
+
+    Returns (selected (n,) bool, new_sig, new_cursor). A unit is dirty when
+    any component of its signature changed (a NaN previous signature, the
+    initial state, is always dirty). With budget <= 0 every dirty unit
+    renders; otherwise at most ``budget`` dirty units, taken in round-robin
+    order from ``cursor``, and the cursor moves past the last one served.
+    Units not served keep their old signature and stay dirty. Everything
+    stays on the device."""
+    n = sig.shape[0]
+    dirty = ~torch.all(sig == sig_prev, dim=-1) if sig.dim() == 2 else ~(sig == sig_prev)
+    if budget <= 0 or budget >= n:
+        sel, new_cursor = dirty, cursor
+    else:
+        order = torch.remainder(torch.arange(n, dtype=torch.int32, device=sig.device) - cursor, n)
+        pri = torch.where(dirty, order, n + 1)
+        rank = torch.argsort(pri, stable=True)
+        sel_sorted = (torch.arange(n, device=sig.device) < budget) & (pri[rank] <= n)
+        sel = torch.zeros_like(dirty).scatter(0, rank, sel_sorted)
+        last_order = torch.max(torch.where(sel, order, -1))
+        new_cursor = torch.where(sel.any(), torch.remainder(cursor + last_order + 1, n),
+                                 cursor).to(torch.int32)
+    new_sig = torch.where(sel[:, None] if sig.dim() == 2 else sel, sig, sig_prev)
+    return sel, new_sig, new_cursor
+
+
+def initial_cache(n_slots: int, slot_size: int, progressive: int, device) -> tuple:
+    """The cache's state before frame 1: (atlas of ones, NaN signatures, so
+    every unit is dirty, cursor 0)."""
+    sig_shape = (n_slots, SIG_C) if progressive <= 1 else (n_slots, progressive, SIG_C)
+    return (torch.ones((n_slots, slot_size, slot_size), dtype=torch.float32, device=device),
+            torch.full(sig_shape, math.nan, dtype=torch.float32, device=device),
+            torch.zeros((), dtype=torch.int32, device=device))
+
+
+def render_shadow_atlas_cached(scene, light_mats, model, lod, slots: tuple, slot_size: int,
+                               caster_capacity: int, prev: tuple, budget: int = 0,
+                               progressive: int = 1, scene_min=None, scene_max=None,
+                               weights: SignatureWeights = None):
+    """The cached atlas: re-render only the units whose signature changed,
+    at most ``budget`` of them per frame (round robin). A static scene
+    converges to no raster work. ``prev`` is the state (atlas, sig, cursor)
+    of ``initial_cache`` or of the previous frame. progressive=K>1 (needs
+    budget 1) schedules (slot, band) units: at most one band renders per
+    frame. Returns (atlas, (atlas, new_sig, new_cursor))."""
+    atlas_prev, sig_prev, cursor = prev
+    n_slots = len(slots)
+    sig = shadow_signature(scene, light_mats, model, slots, progressive, weights)
+    if progressive > 1:
+        if budget != 1 or slot_size % progressive:
+            raise ValueError("progressive band updates need budget 1 and slot_size % K == 0")
+        sel, new_sig, new_cursor = select_shadow_updates(
+            sig.reshape(n_slots * progressive, -1), sig_prev.reshape(n_slots * progressive, -1),
+            cursor, 1)
+        sel, new_sig = sel.reshape(n_slots, progressive), new_sig.reshape(sig.shape)
+    else:
+        sel, new_sig, new_cursor = select_shadow_updates(sig, sig_prev, cursor, budget)
+    atlas = render_shadow_atlas_per_light(
+        scene, light_mats, model, lod, slots, slot_size, caster_capacity, selected=sel,
+        atlas_prev=atlas_prev, scene_min=scene_min, scene_max=scene_max, progressive=progressive)
+    return atlas, (atlas, new_sig, new_cursor)
+
+
+def render_shadow_atlas_per_light(scene, light_mats, model, lod, slots: tuple, slot_size: int,
+                                  caster_capacity: int, selected=None, atlas_prev=None,
+                                  scene_min=None, scene_max=None, progressive: int = 1):
+    """(n_slots, S, S) depth atlas with per-light caster cull and expansion.
+
+    ``slots``: per slot (light index, directional) or None
+    (``rt_grid.slot_lights``). A directional slot culls against its light
+    matrix and renders the whole slot, or with ``progressive`` K > 1 the
+    band of ``selected[slot]`` (at most one set) into ``atlas_prev``'s rows;
+    a point slot renders its six faces into the 2x3 grid, padded with 1.0.
+    ``selected`` (per slot, or (n_slots, K)) and ``atlas_prev`` come from the
+    cache: an unselected slot keeps its previous depth.
+
+    Caster LOD: point slots pick by distance to the light; directional
+    slots by distance to the light's virtual eye when the scene bounds are
+    given (camera-independent, so the cache stays exact as the camera
+    moves), else the camera's ``lod``."""
+    if progressive > 1 and (selected is None or atlas_prev is None):
+        raise ValueError("progressive band renders need the cache's selection and atlas")
+    dev = light_mats.device
+    s = slot_size
+    fw, fh = s // 2, s // 4
+    bias = shadow_lod_bias(s)
+
+    def render_view(m, on, w, h, lod_pick):
+        visible = coarse_cull(scene, model, m)
+        if on is not None:
+            visible = visible & on
+        clip, valid, _ = expand_clip_only(scene, visible, lod_pick, clip_rows(m, model),
+                                          caster_capacity)
+        return rasterize_cuda(clip, valid, w, h, cull_backface=False, with_bary=False).depth
+
+    def ones(h):
+        return torch.ones((h, s), dtype=torch.float32, device=dev)
+
+    out = []
+    for slot, light in enumerate(slots):
+        if light is None:
+            out.append(ones(s))
+            continue
+        li, directional = light
+        prev = None if atlas_prev is None else atlas_prev[slot]
+        row = None if selected is None else selected[slot]
+        on = None if row is None else (row.any() if progressive > 1 else row)
+        if directional:
+            if scene_min is not None:
+                center, radius = _scene_sphere(scene_min, scene_max)
+                pos = scene.lights.position[li]
+                eye = center - pos / torch.clamp(_norm3(pos), min=1e-8) * (radius * 2.0)
+                lod_pick = lod_by_distance(scene, model, eye, bias=bias)
+            else:
+                lod_pick = lod
+            m = light_mats[li, 0]
+            if progressive > 1:
+                bh = s // progressive
+                band = torch.argmax(row.to(torch.int32))
+                depth = render_view(band_matrix(m, band, progressive), on, s, bh, lod_pick)
+                rows = band * bh + torch.arange(bh, device=dev)
+                fresh = prev.index_copy(0, rows, depth)
+            else:
+                fresh = render_view(m, on, s, s, lod_pick)
+        else:
+            lod_l = lod_by_distance(scene, model, scene.lights.position[li], bias=bias)
+            grid = [torch.cat([render_view(light_mats[li, 2 * r + c], on, fw, fh, lod_l)
+                               for c in range(2)], dim=1) for r in range(3)]
+            fresh = torch.cat(grid + [ones(s - 3 * fh)], dim=0)
+        out.append(fresh if on is None else torch.where(on, fresh, prev))
+    return torch.stack(out)
+
+
+# -- lookup ----------------------------------------------------------------------
+
+def _pcf(slot_depth, tx, ty, ref_d, inside, x_lo, x_hi, y_lo, y_hi):
+    """2x2 PCF of ``ref_d <= depth`` at texel coordinates (tx, ty), the taps
+    clamped to [x_lo, x_hi] x [y_lo, y_hi] (the slot, or a cube face's
+    rectangle). A base below a lower bound folds both taps of that axis
+    onto the edge texel. 1.0 outside."""
+    s = slot_depth.shape[1]
+    x0f, y0f = torch.floor(tx), torch.floor(ty)
+    fx, fy = tx - x0f, ty - y0f
+    x0, y0 = x0f.long(), y0f.long()  # garbage outside (inf, NaN): clamped, then masked
+    xc, yc = torch.clamp(x0, min=x_lo, max=x_hi), torch.clamp(y0, min=y_lo, max=y_hi)
+    x1 = torch.where(x0 >= x_lo, torch.clamp(xc + 1, max=x_hi), xc)
+    y1 = torch.where(y0 >= y_lo, torch.clamp(yc + 1, max=y_hi), yc)
+    flat = slot_depth.reshape(-1)
+
+    def lit(y, x):
+        return (ref_d <= flat[y * s + x]).to(torch.float32)
+
+    out = (lit(yc, xc) * (1 - fx) * (1 - fy) + lit(yc, x1) * fx * (1 - fy)
+           + lit(y1, xc) * (1 - fx) * fy + lit(y1, x1) * fx * fy)
+    return torch.where(inside, out, 1.0)
+
+
+def _project(m16, w2):
+    """Points (3, ...) under a 4x4 matrix given as its 16 entries row by row
+    (``m16`` (16, ...): each entry a scalar or one per point) -> (u, v,
+    depth, inside the unit cube)."""
+    clip = [m16[4 * i] * w2[0] + m16[4 * i + 1] * w2[1] + m16[4 * i + 2] * w2[2] + m16[4 * i + 3]
+            for i in range(4)]
+    w = torch.where(clip[3].abs() > 1e-9, clip[3], 1e-9)
+    u = (clip[0] / w + 1.0) * 0.5
+    v = (1.0 - clip[1] / w) * 0.5
+    d = clip[2] / w
+    inside = (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1) & (d >= 0) & (d <= 1)
+    return u, v, d, inside
+
+
+def shadow_occlusion(world, ndl, light_mat, slot_depth, normal=None, is_point: bool = False,
+                     light_pos=None, bias: float = 1e-3, slope_bias: float = 3e-3,
+                     normal_offset_texels: float = 1.5) -> torch.Tensor:
+    """(1, ...) shadow factor in [0, 1] of receivers ``world`` (3, ...) (an
+    image or any grid of samples), with 2x2 PCF.
+
+    A directional light samples the whole slot through face matrix 0. A
+    point light picks the cube face per receiver (major axis of light ->
+    receiver) and samples inside that face's rectangle of the 2x3 grid,
+    taps clamped to the face. Receivers move along the geometric normal by
+    ~1.5 texels (normal offset), plus a slope-scaled depth bias from
+    ``ndl`` (1, ...), the clamped n.l. ``is_point`` is the static kind."""
+    s = slot_depth.shape[0]
+    fw, fh = s // 2, s // 4
+    if light_mat.dim() == 2:
+        light_mat = light_mat.expand(6, 4, 4)
+    slope = torch.sqrt(torch.clamp(1.0 - ndl[0] ** 2, min=0.0)) / torch.clamp(ndl[0], min=1e-2)
+    bias_term = bias + slope_bias * torch.clamp(slope, max=4.0)
+    tail = (1,) * (world.dim() - 1)
+    if not is_point:
+        if normal is not None:
+            row_norm = _norm3(light_mat[0, 0, :3]) + 1e-12
+            texel_dir = 2.0 / (row_norm * s)
+            w2 = world + normal * (texel_dir * normal_offset_texels)
+        else:
+            w2 = world
+        u, v, d, inside = _project(light_mat[0].reshape(16), w2)
+        return _pcf(slot_depth, u * s - 0.5, v * s - 0.5, d - bias_term, inside,
+                    0, s - 1, 0, s - 1)[None]
+    lp = light_pos.reshape((3,) + tail)
+    if normal is not None:
+        dvec = world - lp
+        dist = torch.sqrt(dvec[0] * dvec[0] + dvec[1] * dvec[1] + dvec[2] * dvec[2])[None]
+        w2 = world + normal * (2.0 * dist / fh * normal_offset_texels)
+    else:
+        w2 = world
+    d_l = w2 - lp
+    ax, ay, az = d_l[0].abs(), d_l[1].abs(), d_l[2].abs()
+    face = torch.where(
+        (ax >= ay) & (ax >= az),
+        torch.where(d_l[0] >= 0, 0, 1),
+        torch.where(ay >= az, torch.where(d_l[1] >= 0, 2, 3), torch.where(d_l[2] >= 0, 4, 5)),
+    )
+    # the receiver's face matrix, entry by entry
+    u, v, d, inside = _project(light_mat.reshape(6, 16)[face].movedim(-1, 0), w2)
+    col, row = face % 2, face // 2
+    x_lo, y_lo = col * fw, row * fh
+    return _pcf(slot_depth, x_lo + u * fw - 0.5, y_lo + v * fh - 0.5, d - bias_term, inside,
+                x_lo, x_lo + fw - 1, y_lo, y_lo + fh - 1)[None]

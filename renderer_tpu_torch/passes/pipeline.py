@@ -1,12 +1,14 @@
 """The forward frame (``renderer_tpu.passes.pipeline``) as an ordered plan of
 passes, each declaring the resources it reads and writes.
 
-Ported passes, in plan order: pose (identity: no skinning yet) -> prepare
--> cull -> raster -> shade (or shade_rt) -> present. The JAX package builds
-a plan per set of runtime switches (freeze, occlusion culling, shadows,
-rt, HUD, ...); the port has the switches whose passes are ported, so far
-``rt``, which swaps ``shade`` for ``shade_rt`` (ray-traced shadows). Each
-later pass brings its switch with it.
+Plan order: pose (identity: no skinning yet) -> prepare -> cull -> raster
+-> [shadow_pass] -> shade | shade_shadowed | shade_rt -> present. The JAX
+package builds a plan per set of runtime switches; the port has the
+switches whose passes are ported: ``shadows`` (the shadow-map atlas and
+``shade_shadowed``) and ``rt`` (``shade_rt``, ray-traced shadows, which
+wins over ``shadows``). A pass may read a persistent resource as the
+previous frame left it (``reads_prev``, the JAX package's resource of the
+same name): the cached atlas's ``shadow_cache``.
 """
 
 from __future__ import annotations
@@ -19,8 +21,11 @@ import torch
 from renderer_tpu_torch.ops import geometry
 from renderer_tpu_torch.ops.pbr import shade_pbr
 from renderer_tpu_torch.ops.raster_cuda import BLOCK, TILE_H, TILE_W, rasterize_cuda
-from renderer_tpu_torch.ops.rt_grid import RtGrid
-from renderer_tpu_torch.ops.shadow import directional_light_matrices
+from renderer_tpu_torch.ops.rt_grid import RtGrid, slot_lights
+from renderer_tpu_torch.ops.shadow import (
+    ShadowMaps, directional_light_matrices, initial_cache, light_matrices_cube,
+    render_shadow_atlas_cached, render_shadow_atlas_per_light, signature_weights,
+)
 
 EXTERNAL = ("scene", "camera")  # given to every frame by the Renderer
 
@@ -44,9 +49,23 @@ class PipelineConfig:
     shade_light_slots: int = None
     rt_scale: int = 2  # ray-traced shadows trace a 1/rt_scale receiver grid
     shadow_slots: int = 4
+    shadow_size: int = 512  # atlas slot resolution
     # per-light caster expansion capacity (0: tri_capacity); casters are
     # culled against each light's frustum, not the camera's
     shadow_tri_capacity: int = 0
+    # persist the atlas across frames and re-render only the units whose
+    # light/caster signature changed (ops/shadow.py render_shadow_atlas_cached)
+    shadow_cache: bool = True
+    # with shadow_cache: at most this many dirty units per frame, round robin
+    # (0: every dirty unit)
+    shadow_update_budget: int = 0
+    # K > 1 (needs shadow_cache and budget 1): a directional slot updates as
+    # K horizontal bands, one unit per frame
+    shadow_progressive: int = 1
+    # "full" shades every pixel; "checkerboard" shades the (x + y) even
+    # half-lattice and rebuilds the rest (ops/pbr.py); "quarter" is not ported
+    shade_rate: str = "full"
+    shade_fix: bool = True  # checkerboard: re-shade the worst rebuilt pixels
 
     @property
     def expand_capacity(self) -> int:
@@ -61,6 +80,10 @@ class PipelineConfig:
     def __post_init__(self):
         if self.aa not in ("none", "edge"):
             raise ValueError(f"aa={self.aa!r}")
+        if self.shade_rate == "quarter":
+            raise NotImplementedError('shade_rate="quarter" is not ported')
+        if self.shade_rate not in ("full", "checkerboard"):
+            raise ValueError(f"shade_rate={self.shade_rate!r}")
         if self.tri_capacity % BLOCK or self.width % TILE_W or self.height % TILE_H:
             raise ValueError(
                 f"need tri_capacity % {BLOCK} == 0, width % {TILE_W} == 0 and "
@@ -69,21 +92,42 @@ class PipelineConfig:
         if self.caster_capacity % BLOCK or self.rt_scale < 1 or self.shadow_slots < 0:
             raise ValueError(f"need shadow_tri_capacity % {BLOCK} == 0, rt_scale >= 1 "
                              "and shadow_slots >= 0")
+        # the atlas's views are raster shapes: S x S slots, (S/2, S/4) cube
+        # faces and (S, S/K) bands
+        if self.shadow_size % (2 * TILE_W) or self.shadow_size % (4 * TILE_H):
+            raise ValueError(f"need shadow_size % {2 * TILE_W} == 0 and % {4 * TILE_H} == 0")
+        if self.shadow_progressive > 1 and not (
+                self.shadow_cache and self.shadow_update_budget == 1
+                and self.shadow_size % (self.shadow_progressive * TILE_H) == 0):
+            raise ValueError("shadow_progressive needs shadow_cache, shadow_update_budget=1 "
+                             f"and shadow_size % (shadow_progressive * {TILE_H}) == 0")
+
+
+def initial_state(cfg: PipelineConfig, device) -> dict:
+    """The persistent resources before frame 1: the cached atlas's state
+    when ``cfg.shadow_cache``."""
+    if not cfg.shadow_cache:
+        return {}
+    return {"shadow_cache": initial_cache(cfg.shadow_slots, cfg.shadow_size,
+                                                 cfg.shadow_progressive, device)}
 
 
 class Pass(NamedTuple):
     name: str
     reads: tuple
     writes: tuple
-    fn: Callable  # fn(**{read: value}) -> {write: value}
+    fn: Callable  # fn(**{read: value}, **{f"{prev}_prev": value}) -> {write: value}
+    reads_prev: tuple = ()  # persistent resources read as the previous frame left them
 
 
-def check_plan(passes, outputs) -> None:
+def check_plan(passes, outputs, state=()) -> None:
     """Raise ValueError unless every pass reads only external resources or
-    what an earlier pass writes, and every output is written."""
+    what an earlier pass writes, reads the previous frame only of
+    persistent resources (``state``), and every output is written."""
     have = set(EXTERNAL)
     for p in passes:
         missing = [r for r in p.reads if r not in have]
+        missing += [f"{r} (previous frame)" for r in p.reads_prev if r not in state]
         if missing:
             raise ValueError(f"pass {p.name!r} reads {missing}, which no earlier pass writes")
         have.update(p.writes)
@@ -93,10 +137,11 @@ def check_plan(passes, outputs) -> None:
 
 
 def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tuple = (),
-                       rt: bool = False) -> list:
-    """The ordered passes of one frame for the switch set (``rt``).
-    ``light_casts``, (shadow_slot, directional) per shaded light with slot
-    -1 for none, picks the lights that ``shade_rt`` traces."""
+                       shadows: bool = False, rt: bool = False) -> list:
+    """The ordered passes of one frame for the switch set (``shadows``,
+    ``rt``), the JAX plan's passes. ``light_casts``, (shadow_slot,
+    directional) per shaded light with slot -1 for none, picks the lights
+    that shadow and that ``shade_rt`` traces."""
     w, h = cfg.width, cfg.height
 
     def pose(scene):
@@ -118,16 +163,45 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         return {"vis": rasterize_cuda(soup.clip, soup.valid, w, h,
                                       cull_backface=cfg.cull_backface, with_bary=False)}
 
-    def _shade(vis, shade_rec, scene, camera, prepared, rt_grid=None):
+    slots = slot_lights(light_casts, cfg.shadow_slots)
+    sig_weights = {}  # the signature's fold weights, made at the first shadowed frame
+
+    def shadow_pass(scene_view, prepared, shadow_cache_prev=None):
+        """The shadow-map atlas: cached (the previous frame's state in,
+        this frame's out) or rendered whole every frame."""
+        lights = scene_view.lights
+        smin, smax = prepared.scene_min, prepared.scene_max
+        mats = light_matrices_cube(lights, smin, smax)
+        args = (scene_view, mats, prepared.model, prepared.lod, slots, cfg.shadow_size,
+                cfg.caster_capacity)
+        if not cfg.shadow_cache:
+            atlas = render_shadow_atlas_per_light(*args, scene_min=smin, scene_max=smax)
+            return {"shadow": ShadowMaps(atlas, mats, light_casts)}
+        n = prepared.model.shape[0]
+        if n not in sig_weights:
+            sig_weights[n] = signature_weights(n, prepared.model.device)
+        atlas, cache = render_shadow_atlas_cached(
+            *args, prev=shadow_cache_prev, budget=cfg.shadow_update_budget,
+            progressive=cfg.shadow_progressive, scene_min=smin, scene_max=smax,
+            weights=sig_weights[n])
+        return {"shadow": ShadowMaps(atlas, mats, light_casts), "shadow_cache": cache}
+
+    def _shade(vis, shade_rec, scene, camera, prepared, rt_grid=None, shadow_maps=None):
         return shade_pbr(
             vis, shade_rec, scene, camera.position, prepared.vp_inv,
             background=cfg.background, enable_textures=cfg.enable_textures,
             enable_normal_maps=cfg.enable_normal_maps, trilinear=cfg.trilinear,
             light_slots=cfg.shade_light_slots, aa=(cfg.aa == "edge"), rt_grid=rt_grid,
+            shadow=shadow_maps, checkerboard=(cfg.shade_rate == "checkerboard"),
+            shade_fix=cfg.shade_fix,
         )
 
     def shade(vis, shade_rec, scene_view, camera, prepared):
         return {"image_pre": _shade(vis, shade_rec, scene_view, camera, prepared)}
+
+    def shade_shadowed(vis, shade_rec, scene_view, camera, prepared, shadow):
+        return {"image_pre": _shade(vis, shade_rec, scene_view, camera, prepared,
+                                    shadow_maps=shadow)}
 
     def shade_rt(vis, shade_rec, scene_view, camera, prepared):
         """Ray-traced shadows: per-light caster expansion, light-space
@@ -151,9 +225,21 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         Pass("prepare", ("scene_view", "camera"), ("prepared",), prepare),
         Pass("cull", ("scene_view", "prepared"), ("soup", "shade_rec"), cull),
         Pass("raster", ("soup",), ("vis",), raster),
-        Pass("shade_rt", shade_reads, ("image_pre",), shade_rt) if rt
-        else Pass("shade", shade_reads, ("image_pre",), shade),
-        Pass("present", ("image_pre",), ("image",), present),
     ]
-    check_plan(passes, outputs)
+    # the JAX plan drops a pass whose writes nobody reads, unless one of
+    # them is persistent: under rt only the cached atlas keeps its pass
+    if shadows and cfg.shadow_cache:
+        passes.append(Pass("shadow_pass", ("scene_view", "prepared"), ("shadow", "shadow_cache"),
+                           shadow_pass, reads_prev=("shadow_cache",)))
+    elif shadows and not rt:
+        passes.append(Pass("shadow_pass", ("scene_view", "prepared"), ("shadow",), shadow_pass))
+    if rt:
+        passes.append(Pass("shade_rt", shade_reads, ("image_pre",), shade_rt))
+    elif shadows:
+        passes.append(Pass("shade_shadowed", shade_reads + ("shadow",), ("image_pre",),
+                           shade_shadowed))
+    else:
+        passes.append(Pass("shade", shade_reads, ("image_pre",), shade))
+    passes.append(Pass("present", ("image_pre",), ("image",), present))
+    check_plan(passes, outputs, state=("shadow_cache",) if cfg.shadow_cache else ())
     return passes

@@ -3,17 +3,18 @@
 
 - ``execute_plan`` runs the plan's passes in order, each inside a
   ``torch.profiler`` range named ``forward.<pass>``.
-- Runtime switches (``RuntimeConfig``, so far ``rt``) with the two-frame
-  latch: ``set_config`` edits a pending copy that the next frame takes
-  up; ``apply_config_now`` takes it up at once. One plan per switch set,
-  built on first use and kept.
+- Runtime switches (``RuntimeConfig``: ``shadows``, ``rt``) with the
+  two-frame latch: ``set_config`` edits a pending copy that the next frame
+  takes up; ``apply_config_now`` takes it up at once. One plan per switch
+  set, built on first use and kept.
 - Light specialization, read once at construction: shading loops over the
-  scene's live light count, and the ray-traced shadows trace only the
+  scene's live light count, and shadows (maps or rays) cover only the
   shadow slots that hold a light, each with its kind (directional or
   point) fixed. A scene passed to ``render`` later must keep both.
-- Nothing else persists between frames yet: the resources the JAX package
-  keeps (frozen draw list, last viewproj, last depth) are read only by
-  passes that are not ported.
+- Persistent state (``Renderer.state``): the cached shadow atlas
+  (``shadow_cache``), which a frame reads as the previous frame left it and
+  writes back. The other resources the JAX package keeps (frozen draw
+  list, last viewproj, last depth) are read only by passes not ported.
 """
 
 from __future__ import annotations
@@ -26,14 +27,16 @@ from typing import Optional
 import torch
 
 from renderer_tpu_torch.mathx.camera import Camera
-from renderer_tpu_torch.passes.pipeline import PipelineConfig, build_forward_plan
+from renderer_tpu_torch.passes.pipeline import PipelineConfig, build_forward_plan, initial_state
 from renderer_tpu_torch.scene.types import Scene
 
 
 @dataclasses.dataclass
 class RuntimeConfig:
-    """Runtime switches: ``rt`` traces shadows through the light-space grid."""
+    """Runtime switches: ``shadows`` renders and looks up the shadow-map
+    atlas; ``rt`` traces shadows through the light-space grid instead."""
 
+    shadows: bool = False
     rt: bool = False
 
 
@@ -50,17 +53,22 @@ def _record_pass(name: str):
     return torch.profiler.record_function(f"forward.{name}")
 
 
-def execute_plan(passes, outputs, wrap=_record_pass, **external) -> dict:
-    """Run the passes in order and return the named outputs. ``wrap(name)``
-    gives the context each pass runs in (a profiler range by default)."""
+def execute_plan(passes, outputs, state: dict, wrap=_record_pass, **external):
+    """Run the passes in order. Returns (the named outputs, the new state):
+    a pass reads ``state`` (the previous frame's persistent resources) for
+    its ``reads_prev``, and what it writes of them is the new state.
+    ``wrap(name)`` gives the context each pass runs in (a profiler range by
+    default)."""
     env = dict(external)
     for p in passes:
+        args = {r: env[r] for r in p.reads}
+        args.update({f"{r}_prev": state[r] for r in p.reads_prev})
         with wrap(p.name):
-            result = p.fn(**{r: env[r] for r in p.reads})
+            result = p.fn(**args)
         if set(result) != set(p.writes):
             raise RuntimeError(f"pass {p.name!r} returned {sorted(result)}, claims {sorted(p.writes)}")
         env.update(result)
-    return {o: env[o] for o in outputs}
+    return {o: env[o] for o in outputs}, {k: env.get(k, v) for k, v in state.items()}
 
 
 class Renderer:
@@ -83,6 +91,7 @@ class Renderer:
         self._pending_config = RuntimeConfig()
         self._plans = {}
         self.scene = scene
+        self.state = initial_state(self.cfg, self.device)
         self.stats = {"frames": 0, "last_ms": 0.0}
 
     # -- switches (two-frame latch) -----------------------------------------
@@ -119,7 +128,8 @@ class Renderer:
                 self._check_light_contract(scene)
             self.scene = scene
         t0 = time.perf_counter()
-        outputs = execute_plan(self.passes, self.outputs, **self._external(camera))
+        outputs, self.state = execute_plan(self.passes, self.outputs, self.state,
+                                           **self._external(camera))
         self.stats["last_ms"] = (time.perf_counter() - t0) * 1e3
         self.stats["frames"] += 1
         if self.config != self._pending_config:  # the latch: next frame's switches
@@ -147,7 +157,8 @@ class Renderer:
 
     def pass_timings(self, camera: Camera, iters: int = 5) -> dict:
         """Mean device milliseconds of each pass, from CUDA events around
-        the pass over ``iters`` runs (not counted as frames)."""
+        the pass over ``iters`` runs (not counted as frames; the state is
+        not advanced)."""
         if self.device.type != "cuda":
             raise RuntimeError("pass timings need a CUDA device")
         pairs: dict[str, list] = {}
@@ -163,6 +174,7 @@ class Renderer:
             pairs.setdefault(name, []).append((start, end))
 
         for _ in range(iters):
-            execute_plan(self.passes, self.outputs, wrap=timed, **self._external(camera))
+            execute_plan(self.passes, self.outputs, self.state, wrap=timed,
+                         **self._external(camera))
         torch.cuda.synchronize(self.device)
         return {n: sum(s.elapsed_time(e) for s, e in v) / len(v) for n, v in pairs.items()}

@@ -19,10 +19,11 @@ from renderer_tpu_torch.passes.pipeline import PipelineConfig
 from renderer_tpu_torch.runtime import Renderer
 from renderer_tpu_torch.scene import SceneLimits
 r = Renderer(textured_scene(SceneLimits.tiny(), 32, device="cpu"),
-             PipelineConfig(width=128, height=64, tri_capacity=2048, aa="edge"))
+             PipelineConfig(width=128, height=64, tri_capacity=2048, aa="edge",
+                            shade_rate="checkerboard", shadow_size=128))
 cam = Camera.create([0.0, 1.2, 4.0], fov_y=0.9, aspect=2.0, device="cpu")
-for rt in (False, True):
-    r.set_config(rt=rt)
+for shadows, rt in ((False, False), (False, True), (True, False)):
+    r.set_config(shadows=shadows, rt=rt)
     r.apply_config_now()
     img = r.render(cam)["image"].numpy()
     assert img.shape == (64, 128, 3) and np.isfinite(img).all()
@@ -50,7 +51,8 @@ def test_no_jax_import_in_port_sources():
     paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_ab.py"),
              os.path.join(ROOT, "tests", "torch_raster_cases.py"),
              os.path.join(ROOT, "tests", "torch_occlusion_cases.py"),
-             os.path.join(ROOT, "tests", "test_torch_kernels.py")]
+             os.path.join(ROOT, "tests", "test_torch_kernels.py"),
+             os.path.join(ROOT, "tests", "test_torch_sync.py")]
     for d, dirs, files in os.walk(os.path.join(ROOT, "renderer_tpu_torch")):
         dirs[:] = [x for x in dirs if x != "_build"]  # build outputs, not sources
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]

@@ -8,7 +8,9 @@ Without a CUDA device every test here skips. Gates: the raster kernel
 equals the plain version bit for bit (tri_id, depth, barycentrics) on the
 whole image and on a row band of it (y0, as the shadow atlas renders),
 and on the hot-tile case with every other tile's bin list emptied, and
-both pass the float64-reference gate of torch_raster_gate; the occlusion
+both pass the float64-reference gate of torch_raster_gate; two-sided and
+depth-only at the shadow atlas's view shapes (512x512 slot, 512x32 band,
+256x128 cube face); the occlusion
 kernel's plane equals its plain version's on every occlusion case (the CPU
 tests hold the plain version to JAX and a float64 brute force), at the
 default segment length and at one-block segments, so segments of a tile
@@ -28,7 +30,7 @@ from renderer_tpu_torch.ops.raster_cuda import (TILE_H, TILE_W, raster_inputs, r
 from renderer_tpu_torch.ops.raster_spec import NO_TRIANGLE
 from renderer_tpu_torch.ops.rt_grid import occlusion_inputs
 from torch_occlusion_cases import CASES as OCCLUSION_CASES
-from torch_raster_cases import CASES, HOT_TILE
+from torch_raster_cases import CASES, HOT_TILE, random_soup
 from torch_raster_gate import reference_gate
 
 
@@ -88,6 +90,25 @@ def test_raster_kernel_on_one_hot_tile(with_bary, cuda_device):
     assert (got[1][rows, cols] >= 0).sum() > 500
     got[1][rows, cols] = NO_TRIANGLE
     assert (got[1] == NO_TRIANGLE).all()
+
+
+ATLAS_SHAPES = {"slot": (512, 512), "band": (512, 32), "face": (256, 128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(ATLAS_SHAPES))
+def test_raster_kernel_at_atlas_shapes(shape, cuda_device):
+    """The shadow atlas's views: two-sided, depth only, 4096 casters."""
+    w, h = ATLAS_SHAPES[shape]
+    clip, valid = random_soup(11, 4096)
+    args = raster_inputs(torch.from_numpy(clip).to(cuda_device),
+                         torch.from_numpy(valid).to(cuda_device), w, h, cull_backface=False)
+    got = raster_kernel(*args, False)
+    want = raster_tiles_plain(*args, False)
+    torch.cuda.synchronize()
+    for name, g, p in zip(("depth", "tri_id", "b0", "b1"), got, want):
+        assert torch.equal(g, p), name
+    assert (got[1] >= 0).float().mean() > 0.5
 
 
 @pytest.mark.gpu
