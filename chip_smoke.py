@@ -55,7 +55,7 @@ code is non-zero:
 14. the shadow atlas's raster views at the bench camera (slot 0, the sun, a
     512x512 slot and its 512x32 band of most casters): caster demand
     against capacity, bin-list entries, kernel against plain version (depth
-    and ids identical), the kernel's time;
+    and ids identical), the kernel's time and its bound;
 15. bench.py's timed tiers besides phase 7's: base checkerboard+fix,
     shadowed static exact and checkerboard+fix, and shadowed dynamic
     (checkerboard+fix, budget 1, 16 bands, one scripted moving caster, 65
@@ -71,10 +71,36 @@ code is non-zero:
     every pixel the fix changed equal the exact frame bit for bit;
 18. the shadowed checkerboard+fix frame with the plain raster in both the
     camera and the atlas pass: image identical;
-19. the profile of phase 9 over the shadowed checkerboard+fix frame.
+19. the profile of phase 9 over the shadowed checkerboard+fix frame;
+20. the city canyon (city_scene(20), scripts/prof_scale.py's street walk
+    of 20 frames after one warm-up, PBR without normal maps, edge AA,
+    bilinear): frustum culling at tri_capacity 2^18 and occlusion culling
+    at 2^16 (or the smallest power of two whose expansion holds the
+    steady demand): per frame the expansion demand and soup.count,
+    ms/frame, and the profile of phase 9 over each;
+21. held pose: one pose of the walk rendered twice with occlusion culling
+    against once without, at a capacity that holds its demand: the same
+    visible (instance, library triangle) on >= 99.9% of pixels and
+    display-clamped PSNR >= 50 dB; the raster kernel at that occluded
+    soup against its plain version, timed, with its bound;
+22. freeze culling on the bench frame: frozen after one culled frame, the
+    frozen frame at the freeze pose has the unfrozen frame's tri_id and
+    PSNR >= 50 dB against it; soup.count constant over the orbit,
+    ms/frame, the profile of phase 9;
+23. the debug-AABB view on the bench frame: 12 box triangles per visible
+    instance, the raster kernel with barycentrics at that unsorted soup
+    against its plain version on a band of rows, timed, with its bound;
+    ms/frame;
+24. cluster culling on the bench frame: coverage identical to the frame
+    without it and the image within 2e-6 (the JAX package's gate), the
+    share of clusters culled, ms/frame in turns against the plain frame.
 
-Then one JSON line listing every kernel, the card's name and power limit,
-and, last, the JSON result line.
+Every main path runs with every kernel's launch count set to 0 just
+before it and read just after (the raster kernel once per frame and per
+atlas view, the occlusion kernel once per rt frame and traced slot, the
+kernels of no path never). Then a line of the raster kernel's launches
+per path, one JSON line listing every kernel, the card's name and power
+limit, and, last, the JSON result line.
 """
 
 import bisect
@@ -94,13 +120,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
-from renderer_tpu_torch.mathx import orbit_camera  # noqa: E402
-from renderer_tpu_torch.models import sponza_like_scene  # noqa: E402
+from renderer_tpu_torch.mathx import Camera, orbit_camera  # noqa: E402
+from renderer_tpu_torch.models import city_scene, sponza_like_scene  # noqa: E402
 from renderer_tpu_torch.ops import cuda_build, geometry, occlusion_cuda as oc  # noqa: E402
 from renderer_tpu_torch.ops import probe_cuda, raster_cuda as rc, rt_grid as trt  # noqa: E402
 from renderer_tpu_torch.ops import shadow as tshadow  # noqa: E402
 from renderer_tpu_torch.ops.pbr import fix_capacity  # noqa: E402
 from renderer_tpu_torch.ops.shadow import directional_light_matrices  # noqa: E402
+from renderer_tpu_torch.passes import pipeline as pipeline_module  # noqa: E402
 from renderer_tpu_torch.passes.pipeline import PipelineConfig  # noqa: E402
 from renderer_tpu_torch.runtime import Renderer  # noqa: E402
 from renderer_tpu_torch.utils.image import psnr, read_png, write_png  # noqa: E402
@@ -134,6 +161,13 @@ SHADOW_PROGRESSIVE = 16  # bands per directional slot, dynamic tier
 SHADOW_BAND_CAPACITY = 131072  # casters per band render, dynamic tier
 MOVER_INSTANCE = 1  # the dynamic tier's scripted moving caster
 UPDATE_FRAMES = 8  # frames over which shadow updates per frame are counted
+# scripts/prof_scale.py's city: the grid, the walk's frames, the capacities it
+# pairs with frustum and with occlusion culling
+CITY_GRID = 20
+CITY_FRAMES = 20
+CITY_CAPACITY = 1 << 18
+CITY_OCC_CAPACITY = 1 << 16
+DEBUG_BAND_ROWS = 16  # rows of the box soup on which the plain raster is compared
 GOLDEN_DIR = os.path.join(ROOT, "assets", "golden")
 # every kernel wrapper's launcher (launches are counted there)
 KERNELS = (rc.RASTER_TILES, oc.OCCLUSION_TILES, probe_cuda.ADD_ONE, probe_cuda.TRANSPOSE)
@@ -362,16 +396,22 @@ def occlusion_bound(args):
     return bound(n_bytes, pairs * OPS_PER_PAIR), pairs, int(hits.sum())
 
 
-def traced_window(renderer, dev, activities):
-    """Render PROFILE_FRAMES orbit frames under torch.profiler. Returns the
-    profile and the window's host-clock ms per frame."""
+def bench_camera(k, dev):
+    """Frame k of the bench orbit."""
+    return orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev)
+
+
+def traced_window(renderer, dev, activities, cam_at=bench_camera):
+    """Render PROFILE_FRAMES frames (frame k at ``cam_at(k, dev)``) under
+    torch.profiler. Returns the profile and the window's host-clock ms per
+    frame."""
     from torch.profiler import profile
 
     with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for k in range(PROFILE_FRAMES):
-            renderer.render(orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev))
+            renderer.render(cam_at(k, dev))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_FRAMES
     return prof, wall_ms
@@ -409,7 +449,7 @@ def pass_device_ms(events, n_frames: int):
     return per_pass, other
 
 
-def profile_main_path(name, renderer, dev, card: str) -> None:
+def profile_main_path(name, renderer, dev, card: str, cam_at=bench_camera) -> dict:
     """Device busy time against wall time in one traced window, and per-pass
     device and host time in a second window that also traces the host. A
     pass's device time is that of the work launched inside its range
@@ -418,7 +458,7 @@ def profile_main_path(name, renderer, dev, card: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    prof, wall_ms = traced_window(renderer, dev, [ProfilerActivity.CUDA])
+    prof, wall_ms = traced_window(renderer, dev, [ProfilerActivity.CUDA], cam_at)
     device_ops = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and not e.key.startswith("forward.")]
     busy_ms = sum(e.self_device_time_total for e in device_ops) / 1e3 / PROFILE_FRAMES
@@ -432,7 +472,8 @@ def profile_main_path(name, renderer, dev, card: str) -> None:
                      for e in top))
     else:
         share = "device time not measured (the profiler saw no device activity)"
-    prof, wall_ms = traced_window(renderer, dev, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof, wall_ms = traced_window(renderer, dev, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                  cam_at)
     host = {e.key[len("forward."):]: e.cpu_time_total / 1e3 / PROFILE_FRAMES
             for e in prof.key_averages()
             if e.key.startswith("forward.") and e.device_type == DeviceType.CPU}
@@ -444,21 +485,24 @@ def profile_main_path(name, renderer, dev, card: str) -> None:
                 + ", ".join(f"{k} {d:.3f}/{host.get(k, 0.0):.3f}" for k, d in per_pass.items())
                 + f"; passes sum to {sum(per_pass.values()):.3f} + {other:.3f} launched outside "
                 f"any pass = {busy2:.3f} ms/frame of device time")
+    return per_pass
 
 
-def run_orbit(renderer, dev, scene_at=lambda k: None, warmup: int = 1):
-    """``warmup`` frames at the first pose, then FRAMES timed orbit frames;
-    frame k renders ``scene_at(k)`` (None: the renderer's scene), the
-    warm-up frames k = -warmup..-1. Returns (ms per timed frame, last
-    outputs)."""
+def run_orbit(renderer, dev, scene_at=lambda k: None, warmup: int = 1, cam_at=bench_camera,
+              frames: int = None):
+    """``warmup`` frames at the first pose, then ``frames`` (FRAMES) timed
+    frames at ``cam_at(k, dev)`` (the bench orbit); frame k renders
+    ``scene_at(k)`` (None: the renderer's scene), the warm-up frames
+    k = -warmup..-1. Returns (ms per timed frame, last outputs)."""
+    frames = frames or FRAMES
     for w in range(warmup):
-        renderer.render(orbit_camera(0.3, WIDTH / HEIGHT, dev), scene=scene_at(w - warmup))
+        renderer.render(cam_at(0, dev), scene=scene_at(w - warmup))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for k in range(FRAMES):
-        out = renderer.render(orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev), scene=scene_at(k))
+    for k in range(frames):
+        out = renderer.render(cam_at(k, dev), scene=scene_at(k))
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / FRAMES, out
+    return (time.perf_counter() - t0) * 1e3 / frames, out
 
 
 def check_image(out):
@@ -552,11 +596,12 @@ def fmt_db(v: float) -> str:
     return "inf" if math.isinf(v) else f"{v:.2f}"
 
 
-def shadow_phases(scene, prepared, cfg, renderer, frame_ms, kernels, dev, card) -> None:
+def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, card) -> None:
     """Phases 14-19: the shadow atlas's raster, bench.py's checkerboard and
     shadowed tiers, image quality, the checkerboard's exactness, the plain
     raster in the shadowed frame and its profile. ``renderer`` is the base
-    frame's (phase 7), ``frame_ms`` its ms per frame."""
+    frame's (phase 7), ``frame_ms`` its ms per frame; each tier's raster
+    launches go into ``path_launches``."""
     # 14. the shadow atlas's raster at the bench camera (slot 0, the sun) -------
     size, k_bands = cfg.shadow_size, SHADOW_PROGRESSIVE
     slots = trt.slot_lights(renderer.light_casts, cfg.shadow_slots)
@@ -593,12 +638,16 @@ def shadow_phases(scene, prepared, cfg, renderer, frame_ms, kernels, dev, card) 
         if not (torch.equal(got[0], want[0][0]) and torch.equal(got[1], want[0][1])):
             raise AssertionError(f"atlas {what}: depth or ids differ between kernel and plain")
         a_ms = cuda_ms(lambda: rc.raster_kernel(*a_args, False), 20)
+        _, _, pairs, listed = raster_work(a_args)
+        a_bound, a_by = raster_bound(a_args, pairs, listed)
         atlas_lines.append(
             f"{what} {w}x{h}: casters wanted {demand} against capacity {cfg.caster_capacity} "
             f"({'truncated' if demand > cfg.caster_capacity else 'not truncated'}), "
             f"{int(valid.sum())} "
             f"expanded, {int(a_args[3].sum())} bin-list entries over {a_args[3].numel()} tiles; "
-            f"kernel {a_ms:.4f} ms, plain {p_ms:.1f} ms, depth and ids identical")
+            f"kernel {a_ms:.4f} ms, plain {p_ms:.1f} ms, depth and ids identical; {pairs} pixel "
+            f"pairs, {listed} triangles listed: bound {a_bound:.4f} ms by {a_by} = "
+            f"{100 * a_bound / a_ms:.1f}% of the kernel's time")
     phase("atlas", "; ".join(atlas_lines) + f"; band demands {[d for d, _ in band_demands]} ({card})")
 
     # 15. bench.py's timed tiers: checkerboard+fix, shadowed static, dynamic ----
@@ -642,7 +691,7 @@ def shadow_phases(scene, prepared, cfg, renderer, frame_ms, kernels, dev, card) 
                 raise AssertionError(f"{tier}: {updates} shadow updates per frame")
             tier_launches[tier]["shadow_updates_per_frame"] = updates
         tier_renderers[tier] = r
-    kernels["raster_tiles"]["launches"] = tier_launches["shadowed_checkerboard"][rc.RASTER_TILES.symbol]
+    path_launches.update({t: n[rc.RASTER_TILES.symbol] for t, n in tier_launches.items()})
     write_png(os.path.join(cuda_build.BUILD_DIR, "chip_smoke_shadowed_frame.png"),
               np.clip(out["image"].cpu().numpy(), 0.0, 1.0))
     phase("tiers", "; ".join(
@@ -710,6 +759,240 @@ def shadow_phases(scene, prepared, cfg, renderer, frame_ms, kernels, dev, card) 
 
     # 19. profile of the shadowed checkerboard+fix frame -------------------------
     profile_main_path("shadow_profile", tier_renderers["shadowed_checkerboard"], dev, card)
+
+
+def city_camera(k, dev):
+    """Frame k of scripts/prof_scale.py's street walk through the city."""
+    return Camera.create((0.0, 2.0, 70.0 - 1.5 * k), None, fov_y=0.9, aspect=WIDTH / HEIGHT,
+                         near=0.1, far=400.0, device=dev)
+
+
+def pow2_at_least(n: int) -> int:
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+def truncation(demands, counts, cap) -> str:
+    """Whether frames of these demands and soup counts were cut off by the
+    expansion (2 cap) or the soup (cap)."""
+    return ("truncated" if max(demands) > 2 * cap or max(counts) >= cap else "not truncated")
+
+
+def city_counts(renderer, dev):
+    """The walk's warm-up frame and CITY_FRAMES frames: per frame the
+    expansion demand of the visible set the cull expands (after the
+    occlusion test, when on) and soup.count."""
+    counts = []
+    with Recorder(geometry, "build_draw_stream") as rec:
+        for k in range(-1, CITY_FRAMES):
+            counts.append(renderer.render(city_camera(max(k, 0), dev))["soup"].count)
+    demands = [geometry.expansion_demand(a[0], a[1].visible, a[1].lod) for a, _, _ in rec.calls]
+    return [int(d) for d in demands], [int(c) for c in counts]
+
+
+def visible_identity(out):
+    """(H, W) int64 instance * 2^32 + library triangle, -1 where empty."""
+    tri = out["vis"].tri_id.long()
+    safe = tri.clamp(min=0)
+    soup = out["soup"]
+    return torch.where(tri >= 0, (soup.instance[safe] << 32) + soup.tri_idx[safe], -1)
+
+
+def kernel_at_soup(name, clip, valid, with_bary, card, band_rows=None):
+    """Kernel 1 at a main-path soup: against its plain version (on the
+    whole image, or on ``band_rows`` rows from the middle when the plain
+    version would take too long), its time and its bound. Returns (line,
+    kernel ms, bound ms, bound by)."""
+    args = rc.raster_inputs(clip, valid, WIDTH, HEIGHT)
+    got = rc.raster_kernel(*args, with_bary)
+    if band_rows is None:
+        want = [None]
+        p_ms = host_ms(lambda: want.__setitem__(0, rc.raster_tiles_plain(*args, with_bary)))
+        err, where = compare(got, want[0]), "the whole image"
+    else:
+        y0 = HEIGHT // 2 - band_rows // 2
+        band = rc.raster_inputs(clip, valid, WIDTH, band_rows, y0=y0, full_height=HEIGHT)
+        want = [None]
+        p_ms = host_ms(lambda: want.__setitem__(0, rc.raster_tiles_plain(*band, with_bary)))
+        err = compare(rc.raster_kernel(*band, with_bary), want[0])
+        if not all(torch.equal(b, g[y0:y0 + band_rows])
+                   for b, g in zip(rc.raster_kernel(*band, with_bary), got)):
+            raise AssertionError(f"{name}: the kernel's row band differs from its whole image")
+        where = f"rows {y0}..{y0 + band_rows - 1} ({band_rows * WIDTH // (rc.TILE_H * rc.TILE_W)} tiles)"
+    k_ms = cuda_ms(lambda: rc.raster_kernel(*args, with_bary), 10)
+    _, _, pairs, listed = raster_work(args)
+    r_bound, r_by = raster_bound(args, pairs, listed)
+    counts = args[3]
+    return (f"{name}: {int(valid.sum())} valid triangles, bins mean "
+            f"{counts.float().mean().item():.1f} max {int(counts.max())} blocks/tile; kernel "
+            f"(bary {'on' if with_bary else 'off'}) {k_ms:.4f} ms; against the plain version on "
+            f"{where}: tri_id identical, max float err {err:.1e}, plain {p_ms:.1f} ms; {pairs} "
+            f"pixel pairs, {listed} triangles listed: bound {r_bound:.4f} ms by {r_by} = "
+            f"{100 * r_bound / k_ms:.1f}% of the kernel's time ({card})", k_ms, r_bound, r_by)
+
+
+def launches_of(run, want: int, what: str):
+    """Run ``run()`` with every kernel's count at 0; the raster kernel must
+    launch ``want`` times and no other kernel at all. Returns run()'s
+    result."""
+    for kernel in KERNELS:
+        kernel.launches = 0
+    result = run()
+    got = {kn.symbol: kn.launches for kn in KERNELS}
+    expect = {kn.symbol: 0 for kn in KERNELS}
+    expect[rc.RASTER_TILES.symbol] = want
+    if got != expect:
+        raise AssertionError(f"{what}: launches {got}, want {expect}")
+    return result
+
+
+def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launches, dev,
+                   card) -> None:
+    """Phases 20-24: the culling switches. The city canyon with and without
+    occlusion culling, the held-pose check, freeze culling, the debug-AABB
+    view and cluster culling on the bench frame. ``renderer`` is the base
+    frame's (phase 7), ``camera_kernel_ms`` kernel 1's time at its soup;
+    each path's raster launches go into ``path_launches``."""
+    # 20. the city canyon: frustum culling at 2^18, occlusion culling at 2^16 -----
+    t0 = time.perf_counter()
+    city = city_scene(CITY_GRID, device=dev)
+    torch.cuda.synchronize()
+    t_city = time.perf_counter() - t0
+    cfg_city = PipelineConfig(width=WIDTH, height=HEIGHT, tri_capacity=CITY_CAPACITY,
+                              enable_normal_maps=False, aa="edge", trilinear=False)
+
+    def city_renderer(capacity, occlusion):
+        r = Renderer(city, dataclasses.replace(cfg_city, tri_capacity=capacity),
+                     outputs=("image", "vis", "soup"), device=dev)
+        r.set_config(occlusion_culling=occlusion)
+        r.apply_config_now()
+        return r
+
+    runs = {}
+    for mode, cap, occ in (("frustum", CITY_CAPACITY, False), ("occlusion", CITY_OCC_CAPACITY, True)):
+        tried = []
+        while True:
+            demand, count = city_counts(city_renderer(cap, occ), dev)
+            # the steady frames (after the warm-up) expand and keep all they ask for
+            if not occ or (max(demand[1:]) <= 2 * cap and max(count[1:]) < cap):
+                break
+            tried.append(f"capacity {cap} truncates the steady frames (demand per frame {demand}, "
+                         f"soup.count {count})")
+            cap *= 2  # the smallest power of two that holds the steady frames
+        line = "; ".join(tried + [f"capacity {cap} (expansion {2 * cap})"])
+        r = city_renderer(cap, occ)
+        ms, out = launches_of(lambda: run_orbit(r, dev, cam_at=city_camera, frames=CITY_FRAMES),
+                              CITY_FRAMES + 1, f"city {mode}")
+        path_launches[f"city_{mode}"] = CITY_FRAMES + 1
+        check_image(out)
+        runs[mode] = dict(cap=cap, demand=demand, count=count, ms=ms, renderer=r, line=line)
+        phase(f"city_{mode}", f"city_scene({CITY_GRID}) built in {t_city:.1f} s, "
+                              f"{int(city.instances.count)} instances, street walk of "
+                              f"{CITY_FRAMES} frames after 1 warm-up; {line}; expansion demand "
+                              f"per frame (warm-up first) {demand}; soup.count per frame {count}; "
+                              f"warm-up frame {truncation(demand[:1], count[:1], cap)}, steady "
+                              f"frames {truncation(demand[1:], count[1:], cap)}; "
+                              f"{ms:.2f} ms/frame = {1e3 / ms:.2f} FPS ({card})")
+    for mode, run in runs.items():
+        profile_main_path(f"city_{mode}_profile", run["renderer"], dev, card, cam_at=city_camera)
+
+    # 21. held pose: the second occluded frame against the unoccluded one --------
+    # both at a capacity that holds the pose's frustum demand, so that the
+    # first occluded frame (no previous depth) is complete
+    held = city_camera(CITY_FRAMES // 2, dev)
+    held_prep = geometry.prepare_frame_columns(city, held)
+    frustum_demand = int(geometry.expansion_demand(city, held_prep.visible, held_prep.lod))
+    cap_ref = max(CITY_CAPACITY, pow2_at_least(-(-frustum_demand // 2)))
+    r_occ = city_renderer(cap_ref, True)
+    r_occ.render(held)
+    with Recorder(pipeline_module, "rasterize_cuda") as ras:
+        occluded = r_occ.render(held)
+    plain = city_renderer(cap_ref, False).render(held)
+    same = float((visible_identity(occluded) == visible_identity(plain)).float().mean())
+    held_psnr = psnr(np.clip(occluded["image"].cpu().numpy(), 0, 1),
+                     np.clip(plain["image"].cpu().numpy(), 0, 1))
+    if same < 0.999 or held_psnr < 50.0:
+        raise AssertionError(f"held pose: visible triangle equal on {100 * same:.3f}% of pixels, "
+                             f"PSNR {held_psnr:.2f} dB")
+    city_line, *_ = kernel_at_soup("city soup (occlusion on, held pose, second frame)",
+                                   ras.calls[0][0][0], ras.calls[0][0][1], False, card)
+    phase("city_held", f"pose {CITY_FRAMES // 2} of the walk (frustum demand {frustum_demand}, "
+                       f"capacity {cap_ref}) rendered twice with occlusion culling: soup.count "
+                       f"{int(occluded['soup'].count)}, against once without: soup.count "
+                       f"{int(plain['soup'].count)}; visible "
+                       f"(instance, triangle) equal on {100 * same:.4f}% of pixels (gate 99.9%), "
+                       f"display-clamped PSNR {fmt_db(held_psnr)} dB (gate 50); " + city_line)
+
+    # 22. freeze culling on the bench frame -----------------------------------------
+    cam0 = bench_camera(0, dev)
+    r = Renderer(scene, cfg, outputs=("image", "vis", "soup"), device=dev)
+    unfrozen = r.render(cam0)
+    r.set_config(freeze_culling=True)
+    r.apply_config_now()
+    frozen = r.render(cam0)
+    frozen_psnr = psnr(np.clip(frozen["image"].cpu().numpy(), 0, 1),
+                       np.clip(unfrozen["image"].cpu().numpy(), 0, 1))
+    if not torch.equal(frozen["vis"].tri_id, unfrozen["vis"].tri_id) or frozen_psnr < 50.0:
+        raise AssertionError(f"frozen frame at the freeze pose: tri_id equal "
+                             f"{torch.equal(frozen['vis'].tri_id, unfrozen['vis'].tri_id)}, "
+                             f"PSNR {frozen_psnr:.2f} dB")
+    freeze_ms, out = launches_of(lambda: run_orbit(r, dev), FRAMES + 1, "freeze")
+    path_launches["freeze"] = FRAMES + 1
+    counts = {int(unfrozen["soup"].count), int(frozen["soup"].count), int(out["soup"].count)}
+    if len(counts) != 1:
+        raise AssertionError(f"freeze: soup.count changed {counts}")
+    check_image(out)
+    phase("freeze", f"frozen at bench pose 0 after one culled frame: tri_id identical to the "
+                    f"unfrozen frame, display-clamped PSNR {fmt_db(frozen_psnr)} dB (gate 50); "
+                    f"soup.count {counts.pop()} on every frame of the orbit; {freeze_ms:.2f} "
+                    f"ms/frame = {1e3 / freeze_ms:.2f} FPS over {FRAMES} frames ({card})")
+    profile_main_path("freeze_profile", r, dev, card)
+
+    # 23. the debug-AABB view on the bench frame --------------------------------
+    r = Renderer(scene, cfg, outputs=("image", "vis", "soup"), device=dev)
+    r.set_config(debug_aabbs=True)
+    r.apply_config_now()
+    with Recorder(pipeline_module, "rasterize_cuda") as ras:
+        boxes = r.render(cam0)
+    n_boxes, n_visible = int(boxes["soup"].count), int(prepared.visible.sum())
+    if n_boxes != min(12 * n_visible, cfg.tri_capacity):
+        raise AssertionError(f"box soup count {n_boxes} against {n_visible} visible instances")
+    (clip, valid, *_), kw, _ = ras.calls[0]
+    box_line, *_ = kernel_at_soup("box soup", clip, valid, kw["with_bary"], card,
+                                  band_rows=DEBUG_BAND_ROWS)
+    debug_ms, out = launches_of(lambda: run_orbit(r, dev), FRAMES + 1, "debug_aabbs")
+    path_launches["debug_aabbs"] = FRAMES + 1
+    check_image(out)
+    phase("debug_aabbs", f"{n_boxes} box triangles = 12 x {n_visible} visible instances (capacity "
+                         f"{cfg.tri_capacity}), compacted, not sorted; {box_line}; kernel at the "
+                         f"camera soup (bary off, phase 6) {camera_kernel_ms:.4f} ms; "
+                         f"{debug_ms:.2f} ms/frame = {1e3 / debug_ms:.2f} FPS over {FRAMES} frames")
+
+    # 24. cluster culling on the bench frame -------------------------------------
+    cfg_cl = dataclasses.replace(cfg, cluster_cull=True)
+    r_cl = Renderer(scene, cfg_cl, outputs=("image", "vis", "soup"), device=dev)
+    with Recorder(geometry, "_slot_map_counts") as maps:
+        clustered = r_cl.render(cam0)
+    listed, kept = int(maps.calls[0][0][0].sum()), int((maps.calls[1][0][0] > 0).sum())
+    flat = Renderer(scene, cfg, outputs=("image", "vis", "soup"), device=dev).render(cam0)
+    img_err = (clustered["image"] - flat["image"]).abs().max().item()
+    if not torch.equal(clustered["vis"].tri_id >= 0, flat["vis"].tri_id >= 0) or img_err > 2e-6:
+        raise AssertionError(f"cluster cull: coverage differs or image error {img_err}")
+    demand = int(geometry.expansion_demand(scene, prepared.visible, prepared.lod))
+    turns = {"plain": [], "cluster": []}
+    for name in ("plain", "cluster", "cluster", "plain"):
+        rr = renderer if name == "plain" else r_cl
+        ms, _ = launches_of(lambda: run_orbit(rr, dev), FRAMES + 1, f"cluster cull ({name})")
+        turns[name].append(ms)
+    path_launches["cluster_cull"] = 2 * (FRAMES + 1)
+    phase("cluster_cull", f"bench pose 0: {listed} clusters listed, {kept} kept = "
+                          f"{100 * (1 - kept / max(1, listed)):.2f}% culled; triangles expanded "
+                          f"{int(maps.calls[1][2][2].sum())} of demand {demand} (expansion "
+                          f"capacity {cfg.expand_capacity}); soup.count "
+                          f"{int(clustered['soup'].count)} against {int(flat['soup'].count)}; "
+                          f"coverage identical, image max abs difference {img_err:.1e} (gate 2e-6); "
+                          f"ms/frame in turns plain, cluster, cluster, plain: plain "
+                          f"{[round(v, 2) for v in turns['plain']]}, cluster "
+                          f"{[round(v, 2) for v in turns['cluster']]} ({card})")
 
 
 def main() -> int:
@@ -869,7 +1152,7 @@ def main() -> int:
     frames = FRAMES + 1
     if launches != frames or oc.OCCLUSION_TILES.launches:
         raise AssertionError(f"launches for {frames} frames of the base path: {base_launches}")
-    kernels["raster_tiles"]["launches"] = launches
+    path_launches = {"base": launches}
     img_base, coverage, brightness = check_image(out)
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
     write_png(os.path.join(cuda_build.BUILD_DIR, "chip_smoke_frame.png"), np.clip(img_base, 0.0, 1.0))
@@ -984,6 +1267,7 @@ def main() -> int:
     if ras_launches != frames:
         raise AssertionError(f"raster kernel launched {ras_launches} times for {frames} rt frames")
     kernels["occlusion_tiles"]["launches"] = occ_launches
+    path_launches["rt"] = ras_launches
     img_rt, coverage, brightness = check_image(rt_out)
     darker = (img_base - img_rt).mean(axis=-1) > 0.05
     covered = (rt_out["vis"].tri_id >= 0).cpu().numpy()
@@ -1032,7 +1316,11 @@ def main() -> int:
     # 13. rt profile ------------------------------------------------------------
     profile_main_path("rt_profile", rt_renderer, dev, card)
 
-    shadow_phases(scene, prepared, cfg, renderer, frame_ms, kernels, dev, card)
+    shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, card)
+    culling_phases(scene, prepared, cfg, renderer, kernel_ms, path_launches, dev, card)
+    kernels["raster_tiles"]["launches"] = sum(path_launches.values())
+    phase("launches", f"raster kernel launches per main path, each counted from 0: "
+                      f"{json.dumps(path_launches)}, {sum(path_launches.values())} in all")
 
     print(json.dumps({"kernels": [kernels[k] for k in
                                   ("raster_tiles", "occlusion_tiles", "add_one", "transpose")]}))

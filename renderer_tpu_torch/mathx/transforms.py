@@ -37,3 +37,20 @@ def quat_to_mat3(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def transform_aabb(m: torch.Tensor, aabb_min: torch.Tensor, aabb_max: torch.Tensor):
+    """AABBs through affine maps, centre/extent form with the |linear| part
+    (the exact bound): (..., 4, 4), (..., 3), (..., 3) -> (world min,
+    world max), each (..., 3). The 3x3 products are column multiply-adds,
+    summed left to right."""
+    center = (aabb_min + aabb_max) * 0.5
+    extent = (aabb_max - aabb_min) * 0.5
+    lin = m[..., :3, :3]
+    t = m[..., :3, 3]
+    new_center = (lin[..., 0] * center[..., None, 0] + lin[..., 1] * center[..., None, 1]
+                  + lin[..., 2] * center[..., None, 2] + t)
+    a = lin.abs()
+    new_extent = (a[..., 0] * extent[..., None, 0] + a[..., 1] * extent[..., None, 1]
+                  + a[..., 2] * extent[..., None, 2])
+    return new_center - new_extent, new_center + new_extent

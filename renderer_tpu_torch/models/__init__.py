@@ -1,6 +1,7 @@
 """Scene families (``renderer_tpu.models``)."""
 
 from renderer_tpu_torch.models.scenes import (  # noqa: F401
+    city_scene,
     sponza_like_scene,
     textured_scene,
 )

@@ -120,3 +120,46 @@ def sponza_like_scene(
     b.add_light(position=(0.4, -1.0, 0.2), directional=True, intensity=2.5, shadow_slot=0)
     b.add_light(position=(0.0, 20.0, 0.0), intensity=300.0)
     return b.build(texture_slots=texture_slots, device=device)
+
+
+def city_scene(grid: int = 20, seed: int = 0, segments: int = 12,
+               limits: SceneLimits = None, device=None) -> Scene:
+    """City blocks, the occlusion-culling design point: a ground plane and a
+    grid x grid field of dense buildings of one height, so that from the
+    street the front rows hide the blocks behind them. Host data comes from
+    ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    limits = limits or SceneLimits(
+        max_instances=4096, max_vertices=1 << 16, max_triangles=1 << 16,
+        max_materials=32, max_lights=4,
+    )
+    b = SceneBuilder(limits)
+    ground = b.add_mesh(primitives.plane(size=grid * 8.0 * 1.2))
+    height = 3.0
+    building = b.add_mesh(primitives.subdivided_box(segments=segments, height=height))
+    mats = [
+        b.add_material(
+            base_color=tuple(rng.uniform(0.35, 0.8, 3)) + (1.0,),
+            roughness=float(rng.uniform(0.5, 0.95)),
+        )
+        for _ in range(12)
+    ]
+    b.add_instance(ground, b.add_material(base_color=(0.3, 0.3, 0.32, 1.0), roughness=0.95),
+                   translation=(0, 0, 0))
+    pitch = 8.0
+    half = grid * pitch / 2.0
+    for gx in range(grid):
+        for gz in range(grid):
+            x = -half + pitch * (gx + 0.5) + rng.uniform(-0.5, 0.5)
+            z = -half + pitch * (gz + 0.5) + rng.uniform(-0.5, 0.5)
+            s = rng.uniform(2.6, 3.0)
+            rng.integers(0, 3)  # drawn and unused: keeps the layout of the random stream
+            b.add_instance(
+                building,
+                mats[int(rng.integers(0, len(mats)))],
+                translation=(x, 0.5 * height * s, z),  # the mesh spans +-height/2
+                scale=float(s),
+            )
+    b.add_light(position=(0.3, -1.0, 0.15), directional=True, intensity=2.5, shadow_slot=0)
+    b.add_light(position=(0.0, 60.0, 0.0), intensity=2500.0)
+    return b.build(device=device)

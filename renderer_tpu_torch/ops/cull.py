@@ -1,4 +1,5 @@
-"""Morton keys for the draw-stream sort (``renderer_tpu.ops.cull``)."""
+"""Draw-stream compaction and the Morton keys of its sort
+(``renderer_tpu.ops.cull``)."""
 
 from __future__ import annotations
 
@@ -20,3 +21,26 @@ def _morton2d(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return v
 
     return spread(x) | (spread(y) << 1)
+
+
+def scatter_kept(dest: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
+    """Rows of x to rows ``dest`` of an (n, ...) zero tensor; rows whose
+    ``dest`` is n are dropped (they land in a trash row past the end)."""
+    out = torch.zeros((n + 1,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    out[dest] = x
+    return out[:n]
+
+
+def compact_soup(soup):
+    """Stable-compact the valid triangles of a TriangleSoup to its front:
+    same capacity, a tight count, the tail zeroed (degenerate)."""
+    valid = soup.valid
+    capacity = valid.shape[0]
+    pos = torch.cumsum(valid, 0) - 1  # the target slot of each valid entry
+    count = (pos[-1] + 1).to(torch.int32)
+    dest = torch.where(valid, pos, capacity)
+    moved = {f: scatter_kept(dest, getattr(soup, f), capacity)
+             for f in soup._fields
+             if f not in ("valid", "count") and getattr(soup, f) is not None}
+    return soup._replace(valid=torch.arange(capacity, device=valid.device) < count,
+                         count=count, **moved)

@@ -6,8 +6,9 @@ Quantities are computed as flat per-instance or per-triangle columns with
 the JAX package's expressions, term by term and in its order. The port
 leaves out the TPU layout devices of the reference (transposing identity
 dots, integer ids packed into float columns): plain gathers and stacks
-take their place. Only the ``tri_rec`` fast path without cluster culling
-is ported (the bench frame's path).
+take their place. The ``tri_rec`` fast path is ported, with and without
+cluster culling, and so is the re-expansion of a frozen draw list; the
+per-corner path of scenes without ``tri_rec`` is not.
 """
 
 from __future__ import annotations
@@ -17,15 +18,20 @@ from typing import NamedTuple
 import torch
 
 from renderer_tpu_torch.ops.raster_spec import FRONT_DET_SIGN
-from renderer_tpu_torch.mathx.camera import Camera, camera_matrices, frustum_planes
-from renderer_tpu_torch.ops.cull import INVALID_KEY, _morton2d
-from renderer_tpu_torch.scene.types import TR_NRM, TR_POS, TR_TAN, TR_UV, Scene
+from renderer_tpu_torch.mathx.camera import Camera, _cross3, camera_matrices, frustum_planes
+from renderer_tpu_torch.ops.cull import INVALID_KEY, _morton2d, scatter_kept
+from renderer_tpu_torch.scene.types import (
+    CL_AXIS, CL_CENTER, CL_COS, CL_COUNT, CL_RADIUS, CL_SIN, CLUSTER, TR_NRM, TR_POS, TR_TAN,
+    TR_UV, Scene,
+)
 
 
 class TriangleSoup(NamedTuple):
-    """Fixed-capacity post-cull triangle stream (the raster input). The
-    surviving triangles are the sorted prefix ``[0, count)``; the shading
-    attributes live in the shade records, row for row.
+    """Fixed-capacity triangle stream (the raster input). After the cull the
+    surviving triangles are the sorted prefix ``[0, count)`` and the shading
+    attributes live in the shade records, row for row; the corner
+    attributes are None there. A frozen draw list's soup and the debug box
+    soup carry them (the JAX package's ``want_soup_attrs``).
 
     clip:     (T, 3, 4) clip-space corners
     instance: (T,) owning instance id (int64)
@@ -33,6 +39,9 @@ class TriangleSoup(NamedTuple):
     count:    () live slots
     tri_idx:  (T,) library-global triangle index (int64)
     tex_lod:  (T,) per-triangle base texture LOD
+    normal:   (T, 3, 3) world-space corner normals, or None
+    uv:       (T, 3, 2) corner uvs, or None
+    tangent:  (T, 3, 4) world-space corner tangents (xyz) + handedness (w), or None
     """
 
     clip: torch.Tensor
@@ -41,6 +50,33 @@ class TriangleSoup(NamedTuple):
     count: torch.Tensor
     tri_idx: torch.Tensor
     tex_lod: torch.Tensor
+    normal: torch.Tensor = None
+    uv: torch.Tensor = None
+    tangent: torch.Tensor = None
+
+
+class DrawList(NamedTuple):
+    """Which (instance, library triangle) pairs draw: the cull's result
+    without the camera, kept as persistent state. Freeze culling renders
+    the kept list under the live camera.
+
+    owner:   (T,) instance id (int64)
+    tri_idx: (T,) library-global triangle index (int64)
+    valid:   (T,) bool
+    count:   () int32
+    """
+
+    owner: torch.Tensor
+    tri_idx: torch.Tensor
+    valid: torch.Tensor
+    count: torch.Tensor
+
+    @staticmethod
+    def empty(capacity: int, device) -> "DrawList":
+        zeros = torch.zeros((capacity,), dtype=torch.int64, device=device)
+        return DrawList(owner=zeros, tri_idx=zeros.clone(),
+                        valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
+                        count=torch.zeros((), dtype=torch.int32, device=device))
 
 
 class Prepared(NamedTuple):
@@ -54,6 +90,7 @@ class Prepared(NamedTuple):
     vp_inv: torch.Tensor     # (4, 4)
     scene_min: torch.Tensor  # (3,) world AABB of the alive instances
     scene_max: torch.Tensor  # (3,)
+    camera_pos: torch.Tensor  # (3,) the eye (cluster culling's cone test)
 
 
 # Shade-record columns: one 64-float row per surviving triangle holds all a
@@ -168,7 +205,8 @@ def prepare_frame_columns(scene: Scene, camera: Camera) -> Prepared:
     model = torch.stack(m[0] + m[1] + m[2] + [zero, zero, zero, one], dim=-1)
     clip_mats = torch.stack(clip_cols, dim=-1)
     vp_inv = torch.linalg.inv_ex(vp).inverse
-    return Prepared(model, vp, clip_mats, visible, lod, vp_inv, scene_min, scene_max)
+    return Prepared(model, vp, clip_mats, visible, lod, vp_inv, scene_min, scene_max,
+                    camera.position)
 
 
 def _slot_map_starts(counts: torch.Tensor, capacity: int):
@@ -191,6 +229,90 @@ def _slot_map_starts(counts: torch.Tensor, capacity: int):
     start = run & ((1 << bits_s) - 1)
     slots = torch.arange(capacity, device=dev)
     return owner, start, slots, slots < total, total
+
+
+def _slot_map_counts(counts: torch.Tensor, base_i: torch.Tensor, capacity: int):
+    """The slot map with each slot's source index base_i[owner] + local (0
+    past the total). Returns (owner, idx, valid, total)."""
+    owner, start, slots, valid, total = _slot_map_starts(counts, capacity)
+    return owner, torch.where(valid, base_i.long()[owner] + (slots - start), 0), valid, total
+
+
+def _lod_tri_counts(scene: Scene, visible: torch.Tensor, lod: torch.Tensor) -> torch.Tensor:
+    """(N,) triangles each instance expands at its LOD, 0 when not visible."""
+    mesh_id = scene.instances.mesh_id.long()
+    return torch.where(visible, scene.meshes.lod_tri_count[mesh_id, lod], 0)
+
+
+def expansion_demand(scene: Scene, visible: torch.Tensor, lod: torch.Tensor) -> torch.Tensor:
+    """() the triangles the visible set asks to expand this frame, before the
+    expansion's capacity cuts them off."""
+    return _lod_tri_counts(scene, visible, lod).sum()
+
+
+def cluster_budget_overflow(scene: Scene, visible: torch.Tensor, lod: torch.Tensor,
+                            expand_capacity: int) -> torch.Tensor:
+    """() the clusters past ``_cluster_slot_map``'s pre-cull list (2x the
+    expansion capacity in clusters); they are dropped unseen."""
+    ci = (_lod_tri_counts(scene, visible, lod) + CLUSTER - 1) // CLUSTER
+    return torch.clamp(ci.sum() - 2 * (expand_capacity // CLUSTER), min=0)
+
+
+def _cluster_slot_map(scene: Scene, visible, lod, expand_capacity: int, model, camera_pos, vp,
+                      cull_backface: bool):
+    """Two-level expansion with culling at cluster grain. Level 1 maps
+    slots to the visible instances' 32-triangle clusters (a list with 2x
+    headroom) and culls whole clusters: bounding sphere against the
+    frustum, and, with ``cull_backface``, the normal cone against the eye
+    for spheres wholly past the near plane. Level 2 expands the surviving
+    clusters by their real (unpadded) triangle counts. Returns (owner,
+    tri_idx, valid), owner and tri_idx 0 past the total."""
+    inst = scene.instances
+    lib = scene.meshes
+    n = inst.mesh_id.shape[0]
+    if expand_capacity % CLUSTER:
+        raise ValueError(f"cluster culling needs expand_capacity % {CLUSTER} == 0")
+    n_cc = 2 * (expand_capacity // CLUSTER)
+    mesh_id = inst.mesh_id.long()
+    ci = (_lod_tri_counts(scene, visible, lod) + CLUSTER - 1) // CLUSTER
+    base_c = lib.lod_index_offset[mesh_id, lod] // CLUSTER
+    owner_c, cl_idx, keep, _ = _slot_map_counts(ci, base_c, n_cc)
+
+    cdt = lib.cluster_data[cl_idx].T  # (CL_COLS, n_cc)
+    # the real prefix of each cluster: padding slots are dropped by count
+    real_count = cdt[CL_COUNT].long()
+    mt = model[owner_c].T  # (16, n_cc)
+    sc = inst.scale[owner_c]
+    c0, c1, c2 = cdt[CL_CENTER], cdt[CL_CENTER + 1], cdt[CL_CENTER + 2]
+    cw = [mt[4 * i] * c0 + mt[4 * i + 1] * c1 + mt[4 * i + 2] * c2 + mt[4 * i + 3]
+          for i in range(3)]
+    r_w = cdt[CL_RADIUS] * sc
+    planes = frustum_planes(vp)
+    for p in range(6):
+        d = planes[p, 0] * cw[0] + planes[p, 1] * cw[1] + planes[p, 2] * cw[2] + planes[p, 3]
+        keep = keep & ~(d < -r_w)
+        if p == 4:
+            d_near = d
+    if cull_backface:
+        a0, a1, a2 = cdt[CL_AXIS], cdt[CL_AXIS + 1], cdt[CL_AXIS + 2]
+        # the axis through the model's linear part has length `scale`, so the
+        # cone test is multiplied through by it:
+        #   cos*dot(axis_s, u) + s*sin*|u| + s*r_w < 0   (u = eye - centre)
+        aw = [mt[4 * i] * a0 + mt[4 * i + 1] * a1 + mt[4 * i + 2] * a2 for i in range(3)]
+        u = [camera_pos[k] - cw[k] for k in range(3)]
+        ulen = torch.sqrt(u[0] * u[0] + u[1] * u[1] + u[2] * u[2])
+        dot_au = aw[0] * u[0] + aw[1] * u[1] + aw[2] * u[2]
+        backfacing = cdt[CL_COS] * dot_au + sc * cdt[CL_SIN] * ulen + sc * r_w < 0
+        # a sphere reaching the eye plane may hold w-crossing triangles whose
+        # clip-space facing differs from the world-space test
+        keep = keep & ~(backfacing & (d_near > r_w))
+
+    dest = torch.where(keep, torch.cumsum(keep, 0) - 1, n_cc)
+    c_slot, idx, valid, _ = _slot_map_counts(scatter_kept(dest, real_count, n_cc),
+                                             scatter_kept(dest, cl_idx * CLUSTER, n_cc),
+                                             expand_capacity)
+    owner = torch.where(valid, scatter_kept(dest, owner_c, n_cc)[c_slot], 0)
+    return torch.clamp(owner, 0, n - 1), idx, valid
 
 
 def _clip_cols(rt: torch.Tensor, mt: torch.Tensor) -> list:
@@ -216,11 +338,9 @@ def expand_clip_only(scene: Scene, visible: torch.Tensor, lod: torch.Tensor,
         raise NotImplementedError(
             "scene without a tri_rec table: the per-corner expansion is not ported"
         )
-    mesh_id = scene.instances.mesh_id.long()
-    tc = torch.where(visible, lib.lod_tri_count[mesh_id, lod], 0)
-    base_i = lib.lod_index_offset[mesh_id, lod].long()
-    owner, start, slots, valid, total = _slot_map_starts(tc, capacity)
-    tri_idx = torch.where(valid, base_i[owner] + (slots - start), 0)
+    base_i = lib.lod_index_offset[scene.instances.mesh_id.long(), lod]
+    owner, tri_idx, valid, total = _slot_map_counts(_lod_tri_counts(scene, visible, lod),
+                                                    base_i, capacity)
     positions = lib.tri_rec[:, : TR_POS + 9]  # the corner positions only
     cc = _clip_cols(positions[tri_idx].T.contiguous(),
                     mats44(clip_mats).reshape(-1, 16)[owner].T.contiguous())
@@ -236,9 +356,12 @@ def build_draw_stream(
     width: int,
     height: int,
     cull_backface: bool = True,
+    cluster_cull: bool = False,
 ):
     """Expansion + per-triangle frustum/backface cull + Morton sort +
     shade-record build. Returns (TriangleSoup, (T, SR_COLS) shade records).
+    With ``cluster_cull`` the expansion culls whole clusters first
+    (``_cluster_slot_map``).
 
     Survivors sort by the Morton code of their screen-bbox centre, ties by
     expansion slot (a stable sort), so the order is the JAX package's."""
@@ -248,11 +371,14 @@ def build_draw_stream(
             "scene without a tri_rec table: the per-corner expansion is not ported"
         )
     inst = scene.instances
-    mesh_id = inst.mesh_id.long()
-    tc = torch.where(prepared.visible, lib.lod_tri_count[mesh_id, prepared.lod], 0)
-    base_i = lib.lod_index_offset[mesh_id, prepared.lod].long()
-    owner, start, slots, valid, _ = _slot_map_starts(tc, expand_capacity)
-    tri_idx = torch.where(valid, base_i[owner] + (slots - start), 0)
+    if cluster_cull:
+        owner, tri_idx, valid = _cluster_slot_map(
+            scene, prepared.visible, prepared.lod, expand_capacity, prepared.model,
+            prepared.camera_pos, prepared.vp, cull_backface)
+    else:
+        tc = _lod_tri_counts(scene, prepared.visible, prepared.lod)
+        base_i = lib.lod_index_offset[inst.mesh_id.long(), prepared.lod]
+        owner, tri_idx, valid, _ = _slot_map_counts(tc, base_i, expand_capacity)
     cc = _clip_cols(lib.tri_rec[tri_idx].T.contiguous(),
                     prepared.clip_mats[owner].T.contiguous())
     x = [cc[0], cc[4], cc[8]]
@@ -373,6 +499,82 @@ def build_draw_stream(
     soup = TriangleSoup(clip=clip_s, instance=owner_s, valid=out_valid,
                         count=count, tri_idx=tri_s, tex_lod=tex_lod)
     return soup, shade_rec
+
+
+def _corner_map(v: torch.Tensor, m: torch.Tensor, translate: bool) -> torch.Tensor:
+    """(T, K, 3) vectors through per-row (T, 4, 4) matrices:
+    out[t, n, i] = sum_j m[t, i, j] v[t, n, j] (+ m[t, i, 3]), i < 4 with
+    ``translate`` (clip corners), else i < 3 (normals, tangents)."""
+    rows = 4 if translate else 3
+    out = (v[..., 0, None] * m[:, None, :rows, 0] + v[..., 1, None] * m[:, None, :rows, 1]
+           + v[..., 2, None] * m[:, None, :rows, 2])
+    return out + m[:, None, :rows, 3] if translate else out
+
+
+def soup_from_draw_list(scene: Scene, dl: DrawList, clip_mats: torch.Tensor,
+                        model: torch.Tensor) -> TriangleSoup:
+    """A (frozen) draw list's triangles under the live camera: corner data
+    gathered from the library and transformed, with no cull, compaction or
+    sort; ``tex_lod`` is left 0 for ``finalize_tex_lod``."""
+    lib = scene.meshes
+    vidx = lib.indices[torch.where(dl.valid, dl.tri_idx, 0)].long()  # (T, 3)
+    m_clip = mats44(clip_mats)[dl.owner]
+    lin = mats44(model)[dl.owner]
+    tan = lib.tangents[vidx]
+    wtan = torch.cat([_corner_map(tan[..., :3], lin, False), tan[..., 3:]], dim=-1)
+    return TriangleSoup(
+        clip=_corner_map(lib.positions[vidx], m_clip, True),
+        instance=dl.owner, valid=dl.valid, count=dl.count, tri_idx=dl.tri_idx,
+        tex_lod=torch.zeros(dl.owner.shape, dtype=torch.float32, device=dl.owner.device),
+        normal=_corner_map(lib.normals[vidx], lin, False), uv=lib.uvs[vidx], tangent=wtan,
+    )
+
+
+def _area2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """|twice the signed area| of (T, 3) corner coordinates."""
+    return ((x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0])
+            - (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0])).abs()
+
+
+def finalize_tex_lod(soup: TriangleSoup, width: int, height: int, atlas_size) -> TriangleSoup:
+    """Per-triangle texture LOD 0.5*log2(uv area in texels / screen area in
+    pixels), at least 0; 0 for a triangle with a corner at or behind w = 0."""
+    clip = soup.clip
+    w = clip[..., 3]
+    ok = (w > 1e-9).all(dim=-1)
+    safe_w = torch.where(w.abs() > 1e-9, w, 1e-9)
+    px = (clip[..., 0] / safe_w + 1.0) * (0.5 * width)
+    py = (1.0 - clip[..., 1] / safe_w) * (0.5 * height)
+    a_uv = _area2(soup.uv[..., 0] * atlas_size, soup.uv[..., 1] * atlas_size)
+    ratio = a_uv / torch.clamp(_area2(px, py), min=1e-12)
+    lod = 0.5 * torch.log2(torch.clamp(ratio, min=1e-12))
+    return soup._replace(tex_lod=torch.where(ok, torch.clamp(lod, min=0.0), 0.0))
+
+
+def pixel_homogeneous(clip: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """Clip (..., 4) -> pixel-homogeneous (..., 3): ((x + w) W/2, (w - y) H/2, w)."""
+    x, y, w = clip[..., 0], clip[..., 1], clip[..., 3]
+    return torch.stack([(x + w) * (0.5 * width), (w - y) * (0.5 * height), w], dim=-1)
+
+
+def build_shade_records(soup: TriangleSoup, scene: Scene, render_size) -> torch.Tensor:
+    """(T, SR_COLS) shade records of a soup that carries its corner
+    attributes, with the SR_EDGE columns at ``render_size`` (width,
+    height), from which shading derives barycentrics."""
+    t_cap = soup.instance.shape[0]
+    mat_id = scene.instances.material_id.long()[soup.instance]
+    mats = scene.materials
+    cols = [
+        soup.normal.reshape(t_cap, 9), soup.uv.reshape(t_cap, 6),
+        soup.tangent.reshape(t_cap, 12), soup.tex_lod[:, None], soup.instance[:, None].float(),
+        mats.base_color_factor[mat_id], mats.metallic[mat_id][:, None],
+        mats.roughness[mat_id][:, None], mats.emissive[mat_id],
+        mats.base_color_tex[mat_id][:, None].float(), mats.normal_tex[mat_id][:, None].float(),
+    ]
+    u = pixel_homogeneous(soup.clip, *render_size)  # (T, 3 corners, 3)
+    cols += [_cross3(u[:, 1], u[:, 2]), _cross3(u[:, 2], u[:, 0]), _cross3(u[:, 0], u[:, 1])]
+    rec = torch.cat(cols, dim=-1)
+    return torch.cat([rec, rec.new_zeros((t_cap, SR_COLS - rec.shape[-1]))], dim=-1)
 
 
 def clip_rows(m: torch.Tensor, model16: torch.Tensor) -> torch.Tensor:

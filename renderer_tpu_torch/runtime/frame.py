@@ -3,7 +3,8 @@
 
 - ``execute_plan`` runs the plan's passes in order, each inside a
   ``torch.profiler`` range named ``forward.<pass>``.
-- Runtime switches (``RuntimeConfig``: ``shadows``, ``rt``) with the
+- Runtime switches (``RuntimeConfig``: ``freeze_culling``,
+  ``debug_aabbs``, ``shadows``, ``occlusion_culling``, ``rt``) with the
   two-frame latch: ``set_config`` edits a pending copy that the next frame
   takes up; ``apply_config_now`` takes it up at once. One plan per switch
   set, built on first use and kept.
@@ -11,10 +12,12 @@
   scene's live light count, and shadows (maps or rays) cover only the
   shadow slots that hold a light, each with its kind (directional or
   point) fixed. A scene passed to ``render`` later must keep both.
-- Persistent state (``Renderer.state``): the cached shadow atlas
-  (``shadow_cache``), which a frame reads as the previous frame left it and
-  writes back. The other resources the JAX package keeps (frozen draw
-  list, last viewproj, last depth) are read only by passes not ported.
+- Persistent state (``Renderer.state``): the last cull's draw list
+  (``draw_list``, which freeze culling keeps), the last visibility buffer
+  and viewproj (``vis``, ``prev_vp``, which occlusion culling reads) and
+  the cached shadow atlas (``shadow_cache``). A frame reads them as the
+  previous frame left them; what it writes of them is the next state, the
+  rest is kept.
 """
 
 from __future__ import annotations
@@ -33,10 +36,17 @@ from renderer_tpu_torch.scene.types import Scene
 
 @dataclasses.dataclass
 class RuntimeConfig:
-    """Runtime switches: ``shadows`` renders and looks up the shadow-map
-    atlas; ``rt`` traces shadows through the light-space grid instead."""
+    """Runtime switches: ``freeze_culling`` renders the draw list of the
+    last culled frame under the live camera; ``debug_aabbs`` draws the
+    visible instances' boxes instead of their meshes; ``shadows`` renders
+    and looks up the shadow-map atlas; ``occlusion_culling`` culls against
+    the previous frame's depth; ``rt`` traces shadows through the
+    light-space grid instead of the atlas."""
 
+    freeze_culling: bool = False
+    debug_aabbs: bool = False
     shadows: bool = False
+    occlusion_culling: bool = False
     rt: bool = False
 
 

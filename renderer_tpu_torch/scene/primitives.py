@@ -41,6 +41,48 @@ def box(size=1.0) -> HostMesh:
     )
 
 
+def subdivided_box(size=1.0, segments=8, height=1.0) -> HostMesh:
+    """Box with an (s + 1) x (s + 1) vertex grid per face (12 s^2
+    triangles), ``height`` scaling Y: dense geometry for the city scene's
+    buildings."""
+    s = float(size) / 2.0
+    n_seg = int(segments)
+    face_axes = [
+        (np.array([0, 0, -1.0]), np.array([0, 1.0, 0]), np.array([1.0, 0, 0])),
+        (np.array([0, 0, 1.0]), np.array([0, 1.0, 0]), np.array([-1.0, 0, 0])),
+        (np.array([0, 0, 1.0]), np.array([1.0, 0, 0]), np.array([0, 1.0, 0])),
+        (np.array([0, 0, -1.0]), np.array([1.0, 0, 0]), np.array([0, -1.0, 0])),
+        (np.array([1.0, 0, 0]), np.array([0, 1.0, 0]), np.array([0, 0, 1.0])),
+        (np.array([-1.0, 0, 0]), np.array([0, 1.0, 0]), np.array([0, 0, -1.0])),
+    ]
+    scale = np.array([1.0, float(height), 1.0], np.float32)
+    positions, normals, uvs, tangents, indices = [], [], [], [], []
+    for u, v, n in face_axes:
+        base = len(positions)
+        for j in range(n_seg + 1):
+            for i in range(n_seg + 1):
+                fu = 2.0 * i / n_seg - 1.0
+                fv = 2.0 * j / n_seg - 1.0
+                positions.append((u * fu + v * fv + n) * s * scale)
+                normals.append(n.astype(np.float32))
+                uvs.append([i / n_seg, 1.0 - j / n_seg])
+                tangents.append(list(u) + [1.0])
+        for j in range(n_seg):
+            for i in range(n_seg):
+                a = base + j * (n_seg + 1) + i
+                b = a + 1
+                c = a + (n_seg + 1)
+                d = c + 1
+                indices += [[a, b, d], [a, d, c]]
+    return HostMesh(
+        positions=np.array(positions, np.float32),
+        normals=np.array(normals, np.float32),
+        uvs=np.array(uvs, np.float32),
+        tangents=np.array(tangents, np.float32),
+        indices=np.array(indices, np.int32),
+    )
+
+
 def plane(size=1.0, segments=1) -> HostMesh:
     """XZ plane centered at the origin, +Y normal."""
     n = segments + 1

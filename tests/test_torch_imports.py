@@ -22,11 +22,17 @@ r = Renderer(textured_scene(SceneLimits.tiny(), 32, device="cpu"),
              PipelineConfig(width=128, height=64, tri_capacity=2048, aa="edge",
                             shade_rate="checkerboard", shadow_size=128))
 cam = Camera.create([0.0, 1.2, 4.0], fov_y=0.9, aspect=2.0, device="cpu")
-for shadows, rt in ((False, False), (False, True), (True, False)):
-    r.set_config(shadows=shadows, rt=rt)
+switch_sets = [dict(shadows=shadows, rt=rt) for shadows, rt in ((False, True), (True, False))]
+switch_sets += [dict(occlusion_culling=True), dict(freeze_culling=True), dict(debug_aabbs=True)]
+for switches in [{}] + switch_sets:
+    r.set_config(**{**{k: False for k in vars(r.config)}, **switches})
     r.apply_config_now()
     img = r.render(cam)["image"].numpy()
     assert img.shape == (64, 128, 3) and np.isfinite(img).all()
+from renderer_tpu_torch.models import city_scene
+city = Renderer(city_scene(3, device="cpu"),
+                PipelineConfig(width=128, height=64, tri_capacity=4096, cluster_cull=True))
+assert np.isfinite(city.render(cam)["image"].numpy()).all()
 import chip_ab, chip_smoke, torch_raster_cases  # noqa: F401
 import renderer_tpu_torch.ops.probe_cuda  # noqa: F401
 loaded = sorted(m for m in sys.modules

@@ -1,5 +1,6 @@
 """The frame makes no blocking host-device synchronization: after warm-up,
-the base, rt, shadowed exact and shadowed checkerboard+fix frames render
+the base, rt, shadowed exact and shadowed checkerboard+fix frames, and
+the occlusion-culled, frozen, debug-AABB and cluster-culled ones, render
 under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
 operation that waits for the card (a blocking copy between host and card,
 ``.item()``, ``nonzero``, a stream synchronization). The cameras are made
@@ -28,6 +29,10 @@ FRAMES = {  # name -> (config changes, switches)
     "shadowed_checkerboard_fix": (dict(shade_rate="checkerboard"), dict(shadows=True)),
     "shadowed_progressive": (dict(shade_rate="checkerboard", shadow_update_budget=1,
                                   shadow_progressive=4), dict(shadows=True)),
+    "occlusion": ({}, dict(occlusion_culling=True)),
+    "freeze": ({}, dict(freeze_culling=True)),
+    "debug_aabbs": ({}, dict(debug_aabbs=True)),
+    "cluster_cull": (dict(cluster_cull=True), {}),
 }
 
 
@@ -41,9 +46,10 @@ def test_frame_makes_no_blocking_sync(name):
     aspect = CFG.width / CFG.height
     r = Renderer(sponza_like_scene(256, device=dev), dataclasses.replace(CFG, **changes),
                  device=dev)
-    r.set_config(**switches)
-    r.apply_config_now()
     for k in range(3):  # warm-up: kernels built, plan and cache state made
+        if k == 1:  # after one frame without them: freezing keeps a culled list
+            r.set_config(**switches)
+            r.apply_config_now()
         r.render(orbit_camera(0.3 + 0.01 * k, aspect, dev))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")

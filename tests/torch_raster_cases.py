@@ -4,7 +4,8 @@ the JAX package).
 The cases are those of tests/test_raster_pallas.py, built with the port's
 camera and meshes: box, sphere+torus, two-sided, near-crossing, empty,
 multi-block, tile-aligned, crowded (the JAX kernel's bin-overflow case)
-and random soups, and hot-tile (the bench soup's heaviest tile in small).
+and random soups, hot-tile (the bench soup's heaviest tile in small) and
+unsorted boxes (the debug-AABB view's soup in small).
 Shared by the CPU tests, the card tests and chip_smoke.py; the
 float64-reference gate is in torch_raster_gate.py.
 """
@@ -12,7 +13,10 @@ float64-reference gate is in torch_raster_gate.py.
 import numpy as np
 
 from renderer_tpu_torch.mathx import Camera, camera_matrices, quat_from_axis_angle
-from renderer_tpu_torch.scene import primitives
+from renderer_tpu_torch.ops.cull import compact_soup
+from renderer_tpu_torch.ops.debug import aabb_soup
+from renderer_tpu_torch.ops.geometry import prepare_frame_columns
+from renderer_tpu_torch.scene import SceneBuilder, SceneLimits, primitives
 
 def soup_from_meshes(meshes, vp, pad_to=256):
     clips = []
@@ -145,6 +149,30 @@ def hot_tile_soup(w=128, h=64):
             np.concatenate([np.ones(t, bool), np.zeros(pad, bool)]))
 
 
+def unsorted_box_soup(n=150, seed=5):
+    """The debug-AABB view's soup in small: the boxes (12 triangles each) of
+    a ground plane and n boxes scattered before a camera, as the view
+    builds them, compacted in instance order and not sorted, so that each
+    64-triangle block spans the image. The ground's box is flat (its side
+    faces degenerate) and reaches behind the eye."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder(SceneLimits(max_vertices=1024, max_triangles=1024, max_meshes=4,
+                                 max_instances=256, max_materials=2, max_lights=1,
+                                 max_textures=1))
+    ground, box = b.add_mesh(primitives.plane(size=60.0)), b.add_mesh(primitives.box())
+    b.add_instance(ground, translation=(0.0, -1.0, 0.0))
+    pos = rng.uniform(-12.0, 12.0, size=(n, 2))
+    for (x, z), s, h in zip(pos, rng.uniform(0.3, 2.0, n), rng.uniform(-0.5, 2.0, n)):
+        b.add_instance(box, translation=(x, h, z), scale=float(s))
+    b.add_light(position=(0.0, 5.0, 0.0))
+    scene = b.build(device="cpu")
+    cam = Camera.create([2.0, 3.0, 14.0], quat_from_axis_angle([1.0, 0.0, 0.0], -0.2, device="cpu"),
+                        fov_y=0.9, aspect=4.0, near=0.1, far=60.0, device="cpu")
+    prep = prepare_frame_columns(scene, cam)
+    soup = compact_soup(aabb_soup(scene, prep.visible, prep.clip_mats, prep.model, 2048))
+    return soup.clip.numpy(), soup.valid.numpy()
+
+
 HOT_TILE = 2  # the tile of hot_tile_soup's pile (tile row 1, column 0)
 
 # name -> (soup builder, width, height, cull_backface)
@@ -164,6 +192,7 @@ CASES = {
     "tile_aligned": (tile_aligned_soup, 256, 64, False),
     "crowded": (crowded_soup, 128, 64, False),
     "hot_tile": (hot_tile_soup, 128, 64, False),
+    "unsorted_boxes": (unsorted_box_soup, 256, 64, True),
     "random_cull": (lambda: random_soup(100), 256, 64, True),
     "random_two_sided": (lambda: random_soup(101), 256, 64, False),
 }
