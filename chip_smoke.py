@@ -93,7 +93,28 @@ code is non-zero:
     ms/frame;
 24. cluster culling on the bench frame: coverage identical to the frame
     without it and the image within 2e-6 (the JAX package's gate), the
-    share of clusters culled, ms/frame in turns against the plain frame.
+    share of clusters culled, ms/frame in turns against the plain frame;
+25. the bench frame with skinning on (the pose pass over the vertex pool,
+    nothing skinned, so the whole cull takes the per-corner path): the
+    pose pass's device ms and peak memory, ms/frame, the raster kernel at
+    the per-corner soup against its plain version (depth and ids
+    identical), the frame with the plain raster swapped in (image
+    identical), the profile of phase 9;
+26. the skinned scene (skinned_scene) at 1920x1088 over 30 frames of its
+    1 s clip: the pose moves and the image changes on every frame;
+27. the quarter shade rate with its fix at the bench: ms/frame, the
+    profile, the minimum over the gate poses of PSNR against exact, and
+    with aa none the shaded (even, even) lattice and every fixed pixel
+    equal to the exact frame bit for bit;
+28. SSAA 2 with aa none at the bench (3840x2176 inside): ms/frame, the
+    profile, the raster kernel at that frame's soup against its plain
+    version on a band of rows;
+29. Lambert shading at the bench: ms/frame, the profile;
+30. the demo (python -m renderer_tpu_torch.demo) in subprocesses, started
+    together: every scene, and --hud, --reference-image, --ssaa 2,
+    --shade-rate quarter, --shadows --rt and --dump-graphs; each exits 0,
+    writes its PNG under renderer_tpu_torch/_build/ and renders its frames
+    after the first under --check-sync (no blocking sync).
 
 Every main path runs with every kernel's launch count set to 0 just
 before it and read just after (the raster kernel once per frame and per
@@ -121,11 +142,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 from renderer_tpu_torch.mathx import Camera, orbit_camera  # noqa: E402
-from renderer_tpu_torch.models import city_scene, sponza_like_scene  # noqa: E402
+from renderer_tpu_torch.models import city_scene, skinned_scene, sponza_like_scene  # noqa: E402
 from renderer_tpu_torch.ops import cuda_build, geometry, occlusion_cuda as oc  # noqa: E402
 from renderer_tpu_torch.ops import probe_cuda, raster_cuda as rc, rt_grid as trt  # noqa: E402
 from renderer_tpu_torch.ops import shadow as tshadow  # noqa: E402
-from renderer_tpu_torch.ops.pbr import fix_capacity  # noqa: E402
+from renderer_tpu_torch.ops.pbr import fix_capacity, quarter_fix_capacity  # noqa: E402
+from renderer_tpu_torch.ops.skin import pose_scene  # noqa: E402
 from renderer_tpu_torch.ops.shadow import directional_light_matrices  # noqa: E402
 from renderer_tpu_torch.passes import pipeline as pipeline_module  # noqa: E402
 from renderer_tpu_torch.passes.pipeline import PipelineConfig  # noqa: E402
@@ -168,6 +190,21 @@ CITY_FRAMES = 20
 CITY_CAPACITY = 1 << 18
 CITY_OCC_CAPACITY = 1 << 16
 DEBUG_BAND_ROWS = 16  # rows of the box soup on which the plain raster is compared
+SSAA = 2
+SSAA_BAND_ROWS = 64  # rows of the SSAA frame on which the plain raster is compared
+SKIN_FRAMES = 30  # frames of the skinned scene's 1 s clip
+DEMO_SIZE = 512
+DEMO_TIMEOUT_S = 300
+DEMO_RUNS = {  # name -> demo arguments besides --size, --out, --frames, --check-sync
+    **{scene: ("--scene", scene) for scene in ("box", "spheres", "mixed", "textured", "skinned",
+                                               "city")},
+    "hud": ("--scene", "textured", "--hud"),
+    "reference_image": ("--scene", "textured", "--reference-image"),
+    "ssaa2": ("--scene", "mixed", "--ssaa", "2"),
+    "quarter": ("--scene", "textured", "--shade-rate", "quarter"),
+    "shadows_rt": ("--scene", "mixed", "--shadows", "--rt"),
+    "dump_graphs": ("--scene", "box", "--dump-graphs"),
+}
 GOLDEN_DIR = os.path.join(ROOT, "assets", "golden")
 # every kernel wrapper's launcher (launches are counted there)
 KERNELS = (rc.RASTER_TILES, oc.OCCLUSION_TILES, probe_cuda.ADD_ONE, probe_cuda.TRANSPOSE)
@@ -797,27 +834,32 @@ def visible_identity(out):
     return torch.where(tri >= 0, (soup.instance[safe] << 32) + soup.tri_idx[safe], -1)
 
 
-def kernel_at_soup(name, clip, valid, with_bary, card, band_rows=None):
-    """Kernel 1 at a main-path soup: against its plain version (on the
-    whole image, or on ``band_rows`` rows from the middle when the plain
-    version would take too long), its time and its bound. Returns (line,
-    kernel ms, bound ms, bound by)."""
-    args = rc.raster_inputs(clip, valid, WIDTH, HEIGHT)
+def kernel_at_soup(name, clip, valid, with_bary, card, band_rows=None, size=(WIDTH, HEIGHT),
+                   exact=False):
+    """Kernel 1 at a main-path soup of a ``size`` (width, height) frame:
+    against its plain version (on the whole image, or on ``band_rows`` rows
+    from the middle when the plain version would take too long; with
+    ``exact`` the floats must be equal too), its time and its bound.
+    Returns (line, kernel ms, bound ms, bound by)."""
+    width, height = size
+    args = rc.raster_inputs(clip, valid, width, height)
     got = rc.raster_kernel(*args, with_bary)
     if band_rows is None:
         want = [None]
         p_ms = host_ms(lambda: want.__setitem__(0, rc.raster_tiles_plain(*args, with_bary)))
         err, where = compare(got, want[0]), "the whole image"
     else:
-        y0 = HEIGHT // 2 - band_rows // 2
-        band = rc.raster_inputs(clip, valid, WIDTH, band_rows, y0=y0, full_height=HEIGHT)
+        y0 = height // 2 - band_rows // 2
+        band = rc.raster_inputs(clip, valid, width, band_rows, y0=y0, full_height=height)
         want = [None]
         p_ms = host_ms(lambda: want.__setitem__(0, rc.raster_tiles_plain(*band, with_bary)))
         err = compare(rc.raster_kernel(*band, with_bary), want[0])
         if not all(torch.equal(b, g[y0:y0 + band_rows])
                    for b, g in zip(rc.raster_kernel(*band, with_bary), got)):
             raise AssertionError(f"{name}: the kernel's row band differs from its whole image")
-        where = f"rows {y0}..{y0 + band_rows - 1} ({band_rows * WIDTH // (rc.TILE_H * rc.TILE_W)} tiles)"
+        where = f"rows {y0}..{y0 + band_rows - 1} ({band_rows * width // (rc.TILE_H * rc.TILE_W)} tiles)"
+    if exact and err != 0.0:
+        raise AssertionError(f"{name}: kernel and plain floats differ by {err}")
     k_ms = cuda_ms(lambda: rc.raster_kernel(*args, with_bary), 10)
     _, _, pairs, listed = raster_work(args)
     r_bound, r_by = raster_bound(args, pairs, listed)
@@ -993,6 +1035,189 @@ def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launch
                           f"ms/frame in turns plain, cluster, cluster, plain: plain "
                           f"{[round(v, 2) for v in turns['plain']]}, cluster "
                           f"{[round(v, 2) for v in turns['cluster']]} ({card})")
+
+
+def pose_cost(scene, dev):
+    """The pose pass alone on ``scene``: (device ms by CUDA events, peak
+    bytes allocated above what was live before it)."""
+    t = torch.full((), 0.25, device=dev)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    posed = pose_scene(scene, t)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - live
+    del posed
+    return cuda_ms(lambda: pose_scene(scene, t), 10), peak
+
+
+def swapped_plain_image(make_image):
+    """``make_image()`` with the plain raster version swapped in for kernel 1."""
+    kernel_fn = rc.raster_kernel
+    rc.raster_kernel = rc.raster_tiles_plain  # the plain version on CUDA tensors
+    try:
+        return make_image()
+    finally:
+        rc.raster_kernel = kernel_fn
+
+
+def run_demos(card) -> str:
+    """Phase 30: the demo's runs, all started together, each in its own
+    process; each must exit 0 and write its PNG. Returns the phase line."""
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = {}
+    for name, args in DEMO_RUNS.items():
+        out = os.path.join(cuda_build.BUILD_DIR, f"demo_{name}.png")
+        if os.path.exists(out):
+            os.remove(out)
+        cmd = [sys.executable, "-m", "renderer_tpu_torch.demo", "--size", str(DEMO_SIZE),
+               "--out", out, "--frames", "3", "--check-sync", *args]
+        procs[name] = (out, subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    results, failed = [], []
+    for name, (out, proc) in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=max(1.0, DEMO_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        steady = [line for line in log.splitlines() if line.startswith("steady-state")]
+        if proc.returncode != 0 or not os.path.exists(out):
+            failed.append(f"{name} (exit {proc.returncode}): {log[-2000:]}")
+            continue
+        img = read_png(out)
+        if img.shape != (DEMO_SIZE, DEMO_SIZE, 3) or img.std() < 2.0:
+            failed.append(f"{name}: PNG {img.shape}, std {img.std():.2f}")
+        results.append(f"{name} {steady[0].split(': ')[1] if steady else '?'}")
+    if failed:
+        raise AssertionError("demo runs failed: " + " | ".join(failed))
+    return (f"{len(results)} runs at {DEMO_SIZE}x{DEMO_SIZE}, 3 frames after the first, all "
+            f"under --check-sync, exit 0, PNGs in {os.path.relpath(cuda_build.BUILD_DIR, ROOT)}/ "
+            f"in {time.perf_counter() - t0:.1f} s: " + "; ".join(results) + f" ({card})")
+
+
+def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> None:
+    """Phases 25-30: skinning with the per-corner cull, the skinned scene
+    animated, the quarter shade rate, SSAA, Lambert and the demo.
+    ``renderer`` is the base exact frame's (phase 7); each path's raster
+    launches go into ``path_launches``."""
+    outputs = ("image", "vis", "soup")
+    cam0 = bench_camera(0, dev)
+
+    # 25. skinning on at the bench: the pose pass and the per-corner cull ----------
+    pose_ms, pose_peak = pose_cost(scene, dev)
+    posed = pose_scene(scene, torch.full((), 0.25, device=dev))
+    if posed.meshes.tri_rec is not None or not torch.equal(posed.meshes.positions,
+                                                          scene.meshes.positions):
+        raise AssertionError("pose pass: the bench scene has no skin, its vertices must stay")
+    cfg_sk = dataclasses.replace(cfg, skinning=True)
+    r_sk = Renderer(scene, cfg_sk, outputs=outputs, device=dev)
+    sk_ms, out = launches_of(lambda: run_orbit(r_sk, dev), FRAMES + 1, "skinned")
+    path_launches["skinned"] = FRAMES + 1
+    check_image(out)
+    with Recorder(pipeline_module, "rasterize_cuda") as ras:
+        sk_frame = r_sk.render(cam0)
+    flat = renderer.render(cam0)
+    (clip, valid, *_), _, _ = ras.calls[0]
+    soup_line, *_ = kernel_at_soup("per-corner soup", clip, valid, False, card, exact=True)
+    ref = Renderer(scene, cfg_sk, device=dev).render(cam0)["image"]
+    plain = swapped_plain_image(lambda: Renderer(scene, cfg_sk, device=dev).render(cam0)["image"])
+    if not torch.equal(ref, plain):
+        raise AssertionError("skinned frame differs between kernel and plain raster")
+    same = float((sk_frame["vis"].tri_id == flat["vis"].tri_id).float().mean())
+    phase("skinned", f"sponza_like_scene({N_INSTANCES}) with skinning on: pose pass alone "
+                     f"{pose_ms:.3f} ms by events, peak {pose_peak / 2**20:.1f} MiB above the "
+                     f"live {scene.meshes.positions.shape[0]}-vertex scene; {sk_ms:.2f} ms/frame = "
+                     f"{1e3 / sk_ms:.2f} FPS over {FRAMES} frames (base {frame_ms:.2f}); soup.count "
+                     f"{int(sk_frame['soup'].count)} per-corner against {int(flat['soup'].count)} "
+                     f"from tri_rec, tri_id equal on {100 * same:.4f}% of pixels; {soup_line}; "
+                     "the frame with the plain raster swapped in: image identical")
+    profile_main_path("skinned_profile", r_sk, dev, card)
+
+    # 26. the skinned scene animated over its clip --------------------------------
+    sk_scene = skinned_scene(device=dev)
+    r_anim = Renderer(sk_scene, PipelineConfig(width=WIDTH, height=HEIGHT, tri_capacity=16384,
+                                               skinning=True, aa="edge"), device=dev)
+    cam = Camera.create((0.0, 1.2, 4.0), fov_y=0.9, aspect=WIDTH / HEIGHT, near=0.1, far=50.0,
+                        device=dev)
+
+    def animate():
+        return [r_anim.render(cam, time_s=k / SKIN_FRAMES)["image"] for k in range(SKIN_FRAMES)]
+
+    with Recorder(pipeline_module, "pose_scene") as poses:
+        images = launches_of(animate, SKIN_FRAMES, "skinned scene")
+    path_launches["skinned_scene"] = SKIN_FRAMES
+    pos = [c[2].meshes.positions for c in poses.calls]
+    moved = min(float((pos[k] - pos[k - 1]).abs().max()) for k in range(1, SKIN_FRAMES))
+    changed = min(int((images[k] != images[k - 1]).any(dim=-1).sum()) for k in range(1, SKIN_FRAMES))
+    if moved <= 1e-4 or changed == 0 or not all(bool(torch.isfinite(i).all()) for i in images):
+        raise AssertionError(f"skinned scene: least vertex move {moved}, least pixels changed "
+                             f"{changed} between frames")
+    write_png(os.path.join(cuda_build.BUILD_DIR, "chip_smoke_skinned_frame.png"),
+              np.clip(images[-1].cpu().numpy(), 0.0, 1.0))
+    phase("skinned_scene", f"skinned_scene at {WIDTH}x{HEIGHT}, {SKIN_FRAMES} frames over its 1 s "
+                           f"clip: between consecutive frames the vertices move at least "
+                           f"{moved:.4f} and at least {changed} pixels change")
+
+    # 27. the quarter shade rate with its fix ----------------------------------------
+    cfg_q = dataclasses.replace(cfg, shade_rate="quarter")
+    r_q = Renderer(scene, cfg_q, outputs=outputs, device=dev)
+    q_ms, out = launches_of(lambda: run_orbit(r_q, dev), FRAMES + 1, "quarter")
+    path_launches["quarter"] = FRAMES + 1
+    check_image(out)
+    q_psnr = psnr_min(gate_frames(renderer, dev), gate_frames(r_q, dev))
+    cfg_none = dataclasses.replace(cfg, aa="none")
+    gate_cam = orbit_camera(GATE_ANGLES[0], WIDTH / HEIGHT, dev)
+    bit = {name: Renderer(scene, c, device=dev).render(gate_cam)["image"] for name, c in (
+        ("exact", cfg_none), ("q", dataclasses.replace(cfg_none, shade_rate="quarter",
+                                                        shade_fix=False)),
+        ("q_fix", dataclasses.replace(cfg_none, shade_rate="quarter")))}
+    yy = torch.arange(HEIGHT, device=dev)[:, None]
+    xx = torch.arange(WIDTH, device=dev)[None, :]
+    lattice = (xx % 2 == 0) & (yy % 2 == 0)
+    changed = (bit["q_fix"] != bit["q"]).any(dim=-1)
+    if not torch.equal(bit["q"][lattice], bit["exact"][lattice]):
+        raise AssertionError("quarter: the shaded lattice differs from the exact frame")
+    if not torch.equal(bit["q_fix"][changed], bit["exact"][changed]) or changed[lattice].any():
+        raise AssertionError("quarter: a pixel the fix re-shaded differs from the exact frame")
+    phase("quarter", f"quarter+fix: {q_ms:.2f} ms/frame = {1e3 / q_ms:.2f} FPS over {FRAMES} "
+                     f"frames (base exact {frame_ms:.2f}); min over the gate poses {GATE_ANGLES} "
+                     f"of display-clamped PSNR against exact {fmt_db(q_psnr)} dB; aa none, pose "
+                     f"{GATE_ANGLES[0]}: the {int(lattice.sum())} shaded lattice pixels and the "
+                     f"{int(changed.sum())} pixels the fix changed equal the exact frame bit for "
+                     f"bit (fix capacity {quarter_fix_capacity(HEIGHT * WIDTH)}) ({card})")
+    profile_main_path("quarter_profile", r_q, dev, card)
+
+    # 28. SSAA 2 with aa none --------------------------------------------------------
+    cfg_ss = dataclasses.replace(cfg, ssaa=SSAA, aa="none")
+    size_ss = cfg_ss.render_size
+    r_ss = Renderer(scene, cfg_ss, outputs=outputs, device=dev)
+    ss_ms, out = launches_of(lambda: run_orbit(r_ss, dev), FRAMES + 1, "ssaa")
+    path_launches["ssaa2"] = FRAMES + 1
+    check_image(out)
+    with Recorder(pipeline_module, "rasterize_cuda") as ras:
+        r_ss.render(cam0)
+    (clip, valid, *_), _, _ = ras.calls[0]
+    ss_line, *_ = kernel_at_soup(f"SSAA {SSAA} soup ({size_ss[0]}x{size_ss[1]})", clip, valid,
+                                 False, card, band_rows=SSAA_BAND_ROWS, size=size_ss, exact=True)
+    phase("ssaa", f"SSAA {SSAA}, aa none: {ss_ms:.2f} ms/frame = {1e3 / ss_ms:.2f} FPS over "
+                  f"{FRAMES} frames; {ss_line}")
+    profile_main_path("ssaa_profile", r_ss, dev, card)
+
+    # 29. Lambert --------------------------------------------------------------------
+    r_l = Renderer(scene, dataclasses.replace(cfg, shading="lambert", aa="none"), outputs=outputs,
+                   device=dev)
+    l_ms, out = launches_of(lambda: run_orbit(r_l, dev), FRAMES + 1, "lambert")
+    path_launches["lambert"] = FRAMES + 1
+    check_image(out)
+    phase("lambert", f"Lambert: {l_ms:.2f} ms/frame = {1e3 / l_ms:.2f} FPS over {FRAMES} frames "
+                     f"(base PBR {frame_ms:.2f}) ({card})")
+    profile_main_path("lambert_profile", r_l, dev, card)
+
+    # 30. the demo ---------------------------------------------------------------------
+    phase("demo", run_demos(card))
 
 
 def main() -> int:
@@ -1318,6 +1543,7 @@ def main() -> int:
 
     shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, card)
     culling_phases(scene, prepared, cfg, renderer, kernel_ms, path_launches, dev, card)
+    tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card)
     kernels["raster_tiles"]["launches"] = sum(path_launches.values())
     phase("launches", f"raster kernel launches per main path, each counted from 0: "
                       f"{json.dumps(path_launches)}, {sum(path_launches.values())} in all")

@@ -17,6 +17,8 @@ from renderer_tpu_torch.mathx.camera import (  # noqa: F401
 )
 from renderer_tpu_torch.mathx.transforms import (  # noqa: F401
     quat_from_axis_angle,
+    quat_mul,
     quat_to_mat3,
     transform_aabb,
+    trs_matrix,
 )

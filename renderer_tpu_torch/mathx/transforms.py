@@ -22,6 +22,18 @@ def quat_from_axis_angle(axis, angle, device=None) -> torch.Tensor:
     return torch.cat([w, axis * math.sin(half)], dim=-1)
 
 
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b (b's rotation, then a's)."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
 def quat_to_mat3(q: torch.Tensor) -> torch.Tensor:
     """Rotation matrix from a unit quaternion: (..., 4) -> (..., 3, 3)."""
     w, x, y, z = q.unbind(-1)
@@ -54,3 +66,14 @@ def transform_aabb(m: torch.Tensor, aabb_min: torch.Tensor, aabb_max: torch.Tens
     new_extent = (a[..., 0] * extent[..., None, 0] + a[..., 1] * extent[..., None, 1]
                   + a[..., 2] * extent[..., None, 2])
     return new_center - new_extent, new_center + new_extent
+
+
+def trs_matrix(translation: torch.Tensor, rotation: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """4x4 matrices T @ R @ S from (..., 3) translations, (..., 4)
+    quaternions and (...,) uniform scales."""
+    rs = quat_to_mat3(rotation) * scale[..., None, None]
+    top = torch.cat([rs, translation[..., :, None]], dim=-1)  # (..., 3, 4)
+    bottom = torch.zeros(top.shape[:-2] + (1, 4), dtype=top.dtype, device=top.device)
+    bottom[..., 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)

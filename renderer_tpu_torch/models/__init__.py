@@ -2,6 +2,8 @@
 
 from renderer_tpu_torch.models.scenes import (  # noqa: F401
     city_scene,
+    make_skinned_arm,
+    skinned_scene,
     sponza_like_scene,
     textured_scene,
 )

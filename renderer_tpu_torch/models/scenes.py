@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from renderer_tpu_torch.scene import Scene, SceneBuilder, SceneLimits, primitives
+from renderer_tpu_torch.scene import HostMesh, Scene, SceneBuilder, SceneLimits, primitives
 
 
 def textured_scene(limits: SceneLimits = None, atlas_size: int = 256,
@@ -29,6 +29,69 @@ def textured_scene(limits: SceneLimits = None, atlas_size: int = 256,
     b.add_instance(box, shiny, translation=(0, -0.1, -1.6))
     b.add_light(position=(3.0, 5.0, 4.0), intensity=30.0)
     b.add_light(position=(-0.5, -1.0, -0.3), directional=True, intensity=0.35, shadow_slot=0)
+    return b.build(device=device)
+
+
+def make_skinned_arm(segments: int = 16, joints: int = 4, length: float = 2.0,
+                     radius: float = 0.15):
+    """A skinned tube along +Y with a joint chain and smooth two-joint
+    weights. Returns (HostMesh, joints (V, 4), weights (V, 4), parents,
+    inverse_bind, joint heights)."""
+    sides = 12
+    ys = np.linspace(0.0, length, segments + 1, dtype=np.float32)
+    theta = np.linspace(0, 2 * np.pi, sides + 1, dtype=np.float32)[:-1]
+    positions, normals, uvs = [], [], []
+    for y in ys:
+        for t in theta:
+            positions.append([radius * np.cos(t), y, radius * np.sin(t)])
+            normals.append([np.cos(t), 0.0, np.sin(t)])
+            uvs.append([t / (2 * np.pi), y / length])
+    positions = np.asarray(positions, np.float32)
+    idx = []
+    for i in range(segments):
+        for j in range(sides):
+            a = i * sides + j
+            b = i * sides + (j + 1) % sides
+            idx += [[a, b, a + sides], [b, b + sides, a + sides]]
+    mesh = HostMesh(positions=positions, normals=np.asarray(normals, np.float32),
+                    uvs=np.asarray(uvs, np.float32), indices=np.asarray(idx, np.int32))
+    joint_y = np.linspace(0.0, length, joints, dtype=np.float32)
+    parents = np.arange(-1, joints - 1, dtype=np.int32)
+    inverse_bind = np.tile(np.eye(4, dtype=np.float32), (joints, 1, 1))
+    for j in range(joints):
+        inverse_bind[j, 1, 3] = -joint_y[j]
+    jids = np.zeros((len(positions), 4), np.int32)
+    wts = np.zeros((len(positions), 4), np.float32)
+    seg = (joints - 1) * positions[:, 1] / length
+    j0 = np.clip(np.floor(seg).astype(np.int32), 0, joints - 2)
+    f = seg - j0
+    jids[:, 0], jids[:, 1] = j0, j0 + 1
+    wts[:, 0], wts[:, 1] = 1.0 - f, f
+    return mesh, jids, wts, parents, inverse_bind, joint_y
+
+
+def skinned_scene(limits: SceneLimits = None, device=None) -> Scene:
+    """An animated skinned arm swaying on a floor: one LINEAR clip of 9 keys
+    over 1 s, each joint turning about Z with its own phase."""
+    b = SceneBuilder(limits or SceneLimits.tiny())
+    mesh, jids, wts, parents, inv_bind, joint_y = make_skinned_arm()
+    joints = len(parents)
+    times = np.linspace(0.0, 1.0, 9, dtype=np.float32)
+    key_t = np.zeros((9, joints, 3), np.float32)
+    key_r = np.zeros((9, joints, 4), np.float32)
+    key_r[..., 0] = 1.0
+    for k, t in enumerate(times):
+        for j in range(joints):
+            key_t[k, j, 1] = joint_y[j] - (joint_y[j - 1] if j > 0 else 0.0)
+            if j > 0:
+                angle = 0.6 * np.sin(2 * np.pi * t + j)
+                key_r[k, j] = [np.cos(angle / 2), 0.0, 0.0, np.sin(angle / 2)]
+    mid = b.add_skinned_mesh(mesh, jids, wts, parents, inv_bind, times, key_t, key_r)
+    plane = b.add_mesh(primitives.plane(size=8.0))
+    b.add_instance(plane, b.add_material(base_color=(0.6, 0.6, 0.62, 1), roughness=0.9))
+    b.add_instance(mid, b.add_material(base_color=(0.9, 0.7, 0.5, 1.0), roughness=0.6))
+    b.add_light(position=(2.0, 4.0, 3.0), intensity=25.0)
+    b.add_light(position=(-0.4, -1.0, -0.2), directional=True, intensity=0.5, shadow_slot=0)
     return b.build(device=device)
 
 

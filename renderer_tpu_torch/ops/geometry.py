@@ -6,9 +6,10 @@ Quantities are computed as flat per-instance or per-triangle columns with
 the JAX package's expressions, term by term and in its order. The port
 leaves out the TPU layout devices of the reference (transposing identity
 dots, integer ids packed into float columns): plain gathers and stacks
-take their place. The ``tri_rec`` fast path is ported, with and without
-cluster culling, and so is the re-expansion of a frozen draw list; the
-per-corner path of scenes without ``tri_rec`` is not.
+take their place. Both draw-stream builds are ported: the ``tri_rec``
+fast path, with and without cluster culling, and the per-corner two-phase
+build that a posed (skinned) scene takes; so is the re-expansion of a
+frozen draw list.
 """
 
 from __future__ import annotations
@@ -334,57 +335,25 @@ def expand_clip_only(scene: Scene, visible: torch.Tensor, lod: torch.Tensor,
     with no cull, sort or attributes (a light's caster stream). Triangles
     past ``capacity`` are cut off, as in the JAX package."""
     lib = scene.meshes
-    if lib.tri_rec is None:
-        raise NotImplementedError(
-            "scene without a tri_rec table: the per-corner expansion is not ported"
-        )
     base_i = lib.lod_index_offset[scene.instances.mesh_id.long(), lod]
     owner, tri_idx, valid, total = _slot_map_counts(_lod_tri_counts(scene, visible, lod),
                                                     base_i, capacity)
-    positions = lib.tri_rec[:, : TR_POS + 9]  # the corner positions only
-    cc = _clip_cols(positions[tri_idx].T.contiguous(),
-                    mats44(clip_mats).reshape(-1, 16)[owner].T.contiguous())
-    clip = torch.stack(cc, dim=1).reshape(capacity, 3, 4)
+    if lib.tri_rec is None:  # per-corner: the posed vertex pool
+        clip = _corner_map(lib.positions[lib.indices[tri_idx].long()],
+                           mats44(clip_mats)[owner], True)
+    else:
+        positions = lib.tri_rec[:, : TR_POS + 9]  # the corner positions only
+        cc = _clip_cols(positions[tri_idx].T.contiguous(),
+                        mats44(clip_mats).reshape(-1, 16)[owner].T.contiguous())
+        clip = torch.stack(cc, dim=1).reshape(capacity, 3, 4)
     return clip, valid, torch.clamp(total, max=capacity).to(torch.int32)
 
 
-def build_draw_stream(
-    scene: Scene,
-    prepared: Prepared,
-    expand_capacity: int,
-    out_capacity: int,
-    width: int,
-    height: int,
-    cull_backface: bool = True,
-    cluster_cull: bool = False,
-):
-    """Expansion + per-triangle frustum/backface cull + Morton sort +
-    shade-record build. Returns (TriangleSoup, (T, SR_COLS) shade records).
-    With ``cluster_cull`` the expansion culls whole clusters first
-    (``_cluster_slot_map``).
-
-    Survivors sort by the Morton code of their screen-bbox centre, ties by
-    expansion slot (a stable sort), so the order is the JAX package's."""
-    lib = scene.meshes
-    if lib.tri_rec is None:
-        raise NotImplementedError(
-            "scene without a tri_rec table: the per-corner expansion is not ported"
-        )
-    inst = scene.instances
-    if cluster_cull:
-        owner, tri_idx, valid = _cluster_slot_map(
-            scene, prepared.visible, prepared.lod, expand_capacity, prepared.model,
-            prepared.camera_pos, prepared.vp, cull_backface)
-    else:
-        tc = _lod_tri_counts(scene, prepared.visible, prepared.lod)
-        base_i = lib.lod_index_offset[inst.mesh_id.long(), prepared.lod]
-        owner, tri_idx, valid, _ = _slot_map_counts(tc, base_i, expand_capacity)
-    cc = _clip_cols(lib.tri_rec[tri_idx].T.contiguous(),
-                    prepared.clip_mats[owner].T.contiguous())
-    x = [cc[0], cc[4], cc[8]]
-    y = [cc[1], cc[5], cc[9]]
-    z = [cc[2], cc[6], cc[10]]
-    w = [cc[3], cc[7], cc[11]]
+def _cull_and_keys(x: list, y: list, z: list, w: list, valid: torch.Tensor,
+                   cull_backface: bool):
+    """Per-triangle frustum and backface test and Morton sort key from the
+    clip columns of the three corners: (kept mask, key, INVALID_KEY where
+    dropped)."""
 
     def all3(f):
         return f(0) & f(1) & f(2)
@@ -419,7 +388,86 @@ def build_draw_stream(
          + torch.maximum(torch.maximum(py[0], py[1]), py[2])) * -0.25 + 0.5, 0.0, 1.0)
     gx = torch.where(all_front, (cx * 1023).long(), 0)
     gy = torch.where(all_front, (cy * 1023).long(), 0)
-    key = torch.where(mask, _morton2d(gx, gy), INVALID_KEY)
+    return mask, torch.where(mask, _morton2d(gx, gy), INVALID_KEY)
+
+
+def expand_cull_sort_two_phase(scene: Scene, prepared: Prepared, expand_capacity: int,
+                               out_capacity: int, width: int, height: int,
+                               cull_backface: bool = True) -> TriangleSoup:
+    """The per-corner draw-stream build for a scene without ``tri_rec``.
+    Phase A expands clip positions only, gathered per corner from the
+    vertex pool, at ``expand_capacity`` and culls and sorts them as the
+    fast path does; phase B gathers the survivors' corner attributes at
+    ``out_capacity``. Returns the soup with its corner attributes and
+    ``tex_lod``."""
+    lib = scene.meshes
+    inst = scene.instances
+    tc = _lod_tri_counts(scene, prepared.visible, prepared.lod)
+    base_i = lib.lod_index_offset[inst.mesh_id.long(), prepared.lod]
+    owner, tri_idx, valid, _ = _slot_map_counts(tc, base_i, expand_capacity)
+    clip = _corner_map(lib.positions[lib.indices[tri_idx].long()],
+                       mats44(prepared.clip_mats)[owner], True)  # (E, 3, 4)
+    x, y, z, w = ([clip[:, c, k] for c in range(3)] for k in range(4))
+    mask, key = _cull_and_keys(x, y, z, w, valid, cull_backface)
+    count = torch.clamp(mask.sum(), max=out_capacity).to(torch.int32)
+    perm = torch.sort(key, stable=True).indices[:out_capacity]
+
+    owner_s, tri_s = owner[perm], tri_idx[perm]
+    vidx = lib.indices[tri_s].long()
+    lin = mats44(prepared.model)[owner_s]
+    tan = lib.tangents[vidx]
+    soup = TriangleSoup(
+        clip=clip[perm], instance=owner_s,
+        valid=torch.arange(out_capacity, device=count.device) < count, count=count,
+        tri_idx=tri_s, tex_lod=torch.zeros((out_capacity,), dtype=torch.float32,
+                                           device=count.device),
+        normal=_corner_map(lib.normals[vidx], lin, False), uv=lib.uvs[vidx],
+        tangent=torch.cat([_corner_map(tan[..., :3], lin, False), tan[..., 3:]], dim=-1))
+    return finalize_tex_lod(soup, width, height, scene.atlas.level_size[0])
+
+
+def build_draw_stream(
+    scene: Scene,
+    prepared: Prepared,
+    expand_capacity: int,
+    out_capacity: int,
+    width: int,
+    height: int,
+    cull_backface: bool = True,
+    cluster_cull: bool = False,
+    want_soup_attrs: bool = False,
+):
+    """Expansion + per-triangle frustum/backface cull + Morton sort +
+    shade-record build. Returns (TriangleSoup, (T, SR_COLS) shade records).
+    With ``cluster_cull`` the expansion culls whole clusters first
+    (``_cluster_slot_map``).
+
+    Survivors sort by the Morton code of their screen-bbox centre, ties by
+    expansion slot (a stable sort), so the order is the JAX package's. A
+    scene without ``tri_rec`` (posed by skinning) takes the per-corner
+    build, ``expand_cull_sort_two_phase``, without cluster culling (its
+    cluster bounds are the rest pose's), as in the JAX package. With
+    ``want_soup_attrs`` the soup also carries its corner attributes (the
+    Lambert shading reads them); the per-corner build always does."""
+    lib = scene.meshes
+    if lib.tri_rec is None:
+        soup = expand_cull_sort_two_phase(scene, prepared, expand_capacity, out_capacity,
+                                          width, height, cull_backface=cull_backface)
+        return soup, build_shade_records(soup, scene, render_size=(width, height))
+    inst = scene.instances
+    if cluster_cull:
+        owner, tri_idx, valid = _cluster_slot_map(
+            scene, prepared.visible, prepared.lod, expand_capacity, prepared.model,
+            prepared.camera_pos, prepared.vp, cull_backface)
+    else:
+        tc = _lod_tri_counts(scene, prepared.visible, prepared.lod)
+        base_i = lib.lod_index_offset[inst.mesh_id.long(), prepared.lod]
+        owner, tri_idx, valid, _ = _slot_map_counts(tc, base_i, expand_capacity)
+    cc = _clip_cols(lib.tri_rec[tri_idx].T.contiguous(),
+                    prepared.clip_mats[owner].T.contiguous())
+    mask, key = _cull_and_keys([cc[0], cc[4], cc[8]], [cc[1], cc[5], cc[9]],
+                               [cc[2], cc[6], cc[10]], [cc[3], cc[7], cc[11]], valid,
+                               cull_backface)
     count = torch.clamp(mask.sum(), max=out_capacity).to(torch.int32)
     out_valid = torch.arange(out_capacity, device=count.device) < count
     perm = torch.sort(key, stable=True).indices[:out_capacity]
@@ -498,6 +546,10 @@ def build_draw_stream(
     shade_rec[:, : len(cols)] = torch.stack(cols, dim=1)
     soup = TriangleSoup(clip=clip_s, instance=owner_s, valid=out_valid,
                         count=count, tri_idx=tri_s, tex_lod=tex_lod)
+    if want_soup_attrs:
+        soup = soup._replace(normal=torch.stack(wn_cols, dim=1).reshape(out_capacity, 3, 3),
+                             uv=torch.stack(uv_cols, dim=1).reshape(out_capacity, 3, 2),
+                             tangent=torch.stack(tan_cols, dim=1).reshape(out_capacity, 3, 4))
     return soup, shade_rec
 
 

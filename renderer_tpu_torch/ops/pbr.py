@@ -8,9 +8,9 @@ full frame, the packed checkerboard lattice and the sparse batch of the
 checkerboard fix. Ported: barycentrics re-derived from the shade records'
 edge columns, base-colour textures, normal maps with the Toksvig roughness
 term, edge AA, shadow maps (``ops/shadow.py``), ray-traced shadows through
-the light-space grid (``ops/rt_grid.py``), and the checkerboard shade rate
-with its fix. The quarter shade rate and the brute-force ray caster are
-later work.
+the light-space grid (``ops/rt_grid.py``), and the checkerboard and
+quarter shade rates with their fixes. The brute-force ray caster is later
+work.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from renderer_tpu_torch.ops.texture import sample_atlas_cf, srgb_to_linear
 NM_LOD_BIAS = 1.5  # normal maps sample ~one mip softer than colour
 FIX_TAU = 0.04  # the fix re-shades suspects whose neighbour spread exceeds this
 FIX_K_DIV = 16  # fix capacity: K = P / FIX_K_DIV suspects (P: the lattice's pixels)
+QFIX_K_DIV = 8  # quarter fix: K = P / QFIX_K_DIV (P: the frame's pixels; 3/4 are rebuilt)
 
 # Record columns gathered per pixel, grouped as the JAX package groups them:
 # the 8 interpolated attributes of each corner, then per-triangle constants.
@@ -126,12 +127,23 @@ def shade_pbr(
     # shade the (x + y) even half-lattice packed to (H, W/2) and rebuild the
     # rest from same-triangle neighbours (_checkerboard_expand)
     checkerboard: bool = False,
-    # with checkerboard: exactly re-shade the worst rebuilt pixels
-    # (_checkerboard_fix); skipped under rt_grid, whose screen tiles need
-    # the full lattice
+    # shade the (even x, even y) lattice packed to (H/2, W/2) and rebuild
+    # the three other classes from their shaded neighbours (_quarter_expand)
+    quarter: bool = False,
+    # with checkerboard or quarter: exactly re-shade the worst rebuilt
+    # pixels (_checkerboard_fix, _quarter_fix); skipped under rt_grid, whose
+    # screen tiles need the full lattice
     shade_fix: bool = True,
+    # False: interpolate with the visibility buffer's barycentrics (the
+    # reference view's independent raster) instead of re-deriving them from
+    # the records' edge columns; full rate only
+    bary_from_records: bool = True,
 ) -> torch.Tensor:
     """Shade a visibility buffer -> (H, W, 3) linear HDR colour."""
+    if checkerboard and quarter:
+        raise ValueError("checkerboard and quarter are exclusive")
+    if not bary_from_records and (checkerboard or quarter):
+        raise ValueError("barycentrics from the visibility buffer need the full shade rate")
     fh_, fw_ = vis.depth.shape
     dev = vis.depth.device
     full_height = full_height if full_height is not None else fh_
@@ -139,9 +151,10 @@ def shade_pbr(
     bg = torch.stack([torch.full((1, 1), float(c), dtype=torch.float32, device=dev)
                       for c in background])
 
-    def run(depth_in, tri_in, px, py):
+    def run(depth_in, tri_in, px, py, bary=None):
         """The per-sample shading core on a 2D grid of samples at the
-        absolute pixel centres (px, py) (None: the full frame's)."""
+        absolute pixel centres (px, py) (None: the full frame's), with
+        barycentrics from the records (``bary`` None) or given (3, h, w)."""
         h_, w_ = depth_in.shape
         p_ = h_ * w_
         covered = tri_in != NO_TRIANGLE
@@ -169,6 +182,8 @@ def shade_pbr(
         lsum = lam0 + lam1 + lam2
         inv = 1.0 / torch.where(lsum != 0.0, lsum, 1.0)
         b0, b1, b2 = (lam0 * inv)[None], (lam1 * inv)[None], (lam2 * inv)[None]
+        if bary is not None:
+            b0, b1, b2 = (bary[k].reshape(1, p_) for k in range(3))
 
         attrs = b0 * cols_t[0:8] + b1 * cols_t[8:16] + b2 * cols_t[16:24]
         n_geom = _normalize_cf(attrs[0:3].reshape(3, h_, w_))
@@ -248,7 +263,18 @@ def shade_pbr(
             color = color + torch.where(lights.alive[li], contrib, 0.0)
         return torch.where(covered[None], color, bg)
 
-    if checkerboard:
+    if quarter:
+        # the shaded (even x, even y) lattice packed to (H/2, W/2)
+        h2, w2 = fh_ // 2, fw_ // 2
+        px = (2.0 * torch.arange(w2, dtype=torch.float32, device=dev)[None, :] + 0.5).expand(h2, w2)
+        py = (2.0 * torch.arange(h2, dtype=torch.float32, device=dev)[:, None]
+              + float(y0) + 0.5).expand(h2, w2)
+        tri_s = vis.tri_id[0::2, 0::2]
+        shaded = run(vis.depth[0::2, 0::2], tri_s, px, py)
+        color, scores = _quarter_expand(shaded, vis.tri_id, tri_s, tri_s != NO_TRIANGLE, bg)
+        if shade_fix and rt_grid is None:
+            color = _quarter_fix(color, scores, vis, y0, run)
+    elif checkerboard:
         # the shaded half-lattice ((x + y) even) packed to (H, W/2):
         # x = 2j + ((y + y0) & 1), shaded at its true pixel centres
         rowpar = ((torch.arange(fh_, device=dev) + y0) & 1)[:, None]
@@ -270,7 +296,7 @@ def shade_pbr(
         if shade_fix and rt_grid is None:
             color = _checkerboard_fix(color, score, tri_u, vis, rowpar, y0, run)
     else:
-        color = run(vis.depth, vis.tri_id, None, None)
+        color = run(vis.depth, vis.tri_id, None, None, None if bary_from_records else vis.bary)
     if aa:
         color = edge_aa(color, vis.tri_id)
     return color.permute(1, 2, 0)
@@ -305,47 +331,47 @@ def _checkerboard_fix(color, score, tri_u, vis, rowpar, y0: int, run):
     t_k = torch.where(good, tri_u.reshape(p2)[idx], NO_TRIANGLE)
     yk, jk = idx // w_, idx % w_
     xk = 2 * jk + (1 - ((yk + y0) & 1))  # the complement: x = 2j + 1 - parity
-    px_k = xk.to(torch.float32) + 0.5
-    py_k = yk.to(torch.float32) + float(y0) + 0.5
+    return _reshade(color, run, d_k, t_k, xk, yk, y0, good)
+
+
+def _reshade(color, run, d_k, t_k, xk, yk, y0: int, good):
+    """The K pixels (xk, yk) with depth d_k and triangle t_k shaded through
+    the closure ``run`` on an (8, K/8) batch at their pixel centres, and
+    written into the (3, H, W) frame where ``good`` (the others into a
+    trash column)."""
+    k = d_k.shape[0]
     shape2 = (8, k // 8)
-    color_k = run(d_k.reshape(shape2), t_k.reshape(shape2), px_k.reshape(shape2),
-                  py_k.reshape(shape2)).reshape(3, k)
+    color_k = run(d_k.reshape(shape2), t_k.reshape(shape2),
+                  (xk.to(torch.float32) + 0.5).reshape(shape2),
+                  (yk.to(torch.float32) + float(y0) + 0.5).reshape(shape2)).reshape(3, k)
     fw_ = color.shape[-1]
-    p_full = h_ * fw_
+    p_full = color.shape[1] * fw_
     out = torch.cat([color.reshape(3, p_full), color.new_zeros((3, 1))], dim=1)
     out.index_copy_(1, torch.where(good, yk * fw_ + xk, p_full), color_k)
     return out[:, :p_full].reshape(color.shape)
 
 
-def _checkerboard_expand(shaded, tri_full, tri_s, cov_s, rowpar, bg):
-    """(3, H, W/2) shaded half-lattice -> the complement lattice rebuilt,
-    (3, H, W/2), its suspect score (H, W/2) and its triangle ids.
+def _rebuild(shaded, tri_s, cov_s, tri_u, shifts, bg):
+    """One class of rebuilt pixels (triangle ids ``tri_u``) from its shaded
+    neighbours: ``shifts`` take the shaded lattice's planes (colour
+    (3, h, w), ids, coverage) to each neighbour's. Returns (colour (3, h,
+    w), suspect score (h, w)).
 
-    Each missing pixel ((x + y) odd) averages its four cardinal neighbours,
-    all shaded, weighted by same-triangle membership, so edges never bleed
-    across surfaces; with all four on its triangle, the per-channel trimmed
-    mean (drop min and max: exact for linear colour, and a one-neighbour
-    specular spike stays out). Without a same-triangle neighbour, the
-    covered-neighbour mean, then the background; uncovered pixels take the
-    background. The score is the same-triangle neighbours' colour spread
-    (1e9 for a covered pixel with none, -1 for uncovered)."""
-    par0 = rowpar == 0
-    tri_u = torch.where(par0, tri_full[:, 1::2], tri_full[:, 0::2])
+    The neighbours on the pixel's triangle are averaged, or with four of
+    them the per-channel trimmed mean (drop min and max: exact for linear
+    colour, and a one-neighbour specular spike stays out); so edges never
+    bleed across surfaces. Without one, the covered neighbours' mean, then
+    the background; uncovered pixels take the background. The score is the
+    same-triangle neighbours' colour spread summed over the channels (1e9
+    for a covered pixel with none, -1 for an uncovered one)."""
     cov_u = tri_u != NO_TRIANGLE
-
-    def left(a):  # (y, x-1): packed j on parity-0 rows, j-1 on parity-1
-        return torch.where(par0, a, torch.cat([a[..., :, :1], a[..., :, :-1]], dim=-1))
-
-    def right(a):
-        return torch.where(par0, torch.cat([a[..., :, 1:], a[..., :, -1:]], dim=-1), a)
-
     num = torch.zeros_like(shaded)
     den = torch.zeros(tri_u.shape, dtype=torch.float32, device=shaded.device)
     numc = torch.zeros_like(shaded)
     denc = torch.zeros_like(den)
     nb_min = torch.full_like(shaded, math.inf)
     nb_max = torch.full_like(shaded, -math.inf)
-    for sh in (_up, _dn, left, right):
+    for sh in shifts:
         nb_t, nb_cov, nb_c = sh(tri_s), sh(cov_s), sh(shaded)
         w_same = ((nb_t == tri_u) & nb_cov).to(torch.float32)
         num = num + nb_c * w_same[None]
@@ -365,7 +391,25 @@ def _checkerboard_expand(shaded, tri_full, tri_s, cov_s, rowpar, bg):
     recon = torch.where(cov_u[None], recon, bg)
     spread = torch.where((den > 0)[None], nb_max - nb_min, 0.0)
     spread = spread[0] + spread[1] + spread[2]
-    score = torch.where(cov_u, torch.where(den == 0.0, 1e9, spread), -1.0)
+    return recon, torch.where(cov_u, torch.where(den == 0.0, 1e9, spread), -1.0)
+
+
+def _checkerboard_expand(shaded, tri_full, tri_s, cov_s, rowpar, bg):
+    """(3, H, W/2) shaded half-lattice -> the complement lattice rebuilt,
+    (3, H, W/2), its suspect score (H, W/2) and its triangle ids.
+
+    Each missing pixel ((x + y) odd) is rebuilt from its four cardinal
+    neighbours, all shaded (``_rebuild``)."""
+    par0 = rowpar == 0
+    tri_u = torch.where(par0, tri_full[:, 1::2], tri_full[:, 0::2])
+
+    def left(a):  # (y, x-1): packed j on parity-0 rows, j-1 on parity-1
+        return torch.where(par0, a, torch.cat([a[..., :, :1], a[..., :, :-1]], dim=-1))
+
+    def right(a):
+        return torch.where(par0, torch.cat([a[..., :, 1:], a[..., :, -1:]], dim=-1), a)
+
+    recon, score = _rebuild(shaded, tri_s, cov_s, tri_u, (_up, _dn, left, right), bg)
     return recon, score, tri_u
 
 
@@ -375,3 +419,74 @@ def _cb_interleave(shaded, recon, rowpar):
     even = torch.where(par0, shaded, recon)
     odd = torch.where(par0, recon, shaded)
     return torch.stack([even, odd], dim=-1).reshape(shaded.shape[0], shaded.shape[1], -1)
+
+
+def _interleave_last(a, b):
+    """(..., W/2) a at even columns, b at odd -> (..., W)."""
+    return torch.stack([a, b], dim=-1).reshape(a.shape[:-1] + (2 * a.shape[-1],))
+
+
+def _interleave_rows(a, b):
+    """(..., H/2, W) a at even rows, b at odd -> (..., H, W)."""
+    return torch.stack([a, b], dim=-2).reshape(a.shape[:-2] + (2 * a.shape[-2], a.shape[-1]))
+
+
+def _quarter_expand(shaded, tri_full, tri_s, cov_s, bg):
+    """(3, H/2, W/2) shaded (even x, even y) lattice -> ((3, H, W) frame,
+    (3, H/2, W/2) suspect scores, one plane per rebuilt class).
+
+    H (odd x, even y) is rebuilt from its left and right shaded
+    neighbours, V (even x, odd y) from its upper and lower ones, D (odd x,
+    odd y) from its four diagonal ones (``_rebuild``); the last row and
+    column clamp to the edge."""
+    tri_h, tri_v, tri_d = tri_full[0::2, 1::2], tri_full[1::2, 0::2], tri_full[1::2, 1::2]
+
+    def right(a):
+        return torch.cat([a[..., :, 1:], a[..., :, -1:]], dim=-1)
+
+    def down(a):
+        return torch.cat([a[..., 1:, :], a[..., -1:, :]], dim=-2)
+
+    def down_right(a):
+        return down(right(a))
+
+    def ident(a):
+        return a
+
+    recons, scores = zip(*(_rebuild(shaded, tri_s, cov_s, tri_u, nbs, bg) for tri_u, nbs in (
+        (tri_h, (ident, right)), (tri_v, (ident, down)),
+        (tri_d, (ident, right, down, down_right)))))
+    frame = _interleave_rows(_interleave_last(shaded, recons[0]),
+                             _interleave_last(recons[1], recons[2]))
+    return frame, torch.stack(scores)
+
+
+def quarter_fix_capacity(p_full: int) -> int:
+    """Suspects the quarter fix re-shades for a P-pixel frame: P /
+    QFIX_K_DIV, at least 2048, a multiple of 8, at most the 3P/4 rebuilt."""
+    p_u = 3 * (p_full // 4)
+    return min(p_u - p_u % 8, max(2048, -(-p_full // QFIX_K_DIV) // 8 * 8))
+
+
+def _quarter_fix(color, scores, vis, y0: int, run):
+    """Exactly re-shade the worst quarter-rebuilt pixels: up to K =
+    quarter_fix_capacity(P) suspects over all three classes at once by
+    score, those above FIX_TAU, through the frame's own closure ``run`` on
+    an (8, K/8) batch, scattered into the (3, H, W) frame (the others into
+    a trash column)."""
+    _, h2, w2 = scores.shape
+    p_u = h2 * w2
+    fh_, fw_ = vis.depth.shape
+    p_full = fh_ * fw_
+    k = quarter_fix_capacity(p_full)
+    vals, idx = torch.topk(scores.reshape(3 * p_u), k)
+    idx, perm = torch.sort(idx)
+    good = vals[perm] > FIX_TAU
+    cls, rem = idx // p_u, idx % p_u
+    # class -> pixel: H (0) = (2j + 1, 2i), V (1) = (2j, 2i + 1), D (2) = (2j + 1, 2i + 1)
+    xx = 2 * (rem % w2) + (cls != 1).long()
+    yy = 2 * (rem // w2) + (cls != 0).long()
+    flat_pix = yy * fw_ + xx
+    d_k = vis.depth.reshape(p_full)[flat_pix]
+    t_k = torch.where(good, vis.tri_id.reshape(p_full)[flat_pix], NO_TRIANGLE)
+    return _reshade(color, run, d_k, t_k, xx, yy, y0, good)

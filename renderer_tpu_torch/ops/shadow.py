@@ -152,6 +152,43 @@ def lod_by_distance(scene, model: torch.Tensor, point: torch.Tensor, bias: float
     return torch.clamp(lod, 0, lib.lod_tri_count.shape[1] - 1).long()
 
 
+def shadow_caster_truncation(scene, model: torch.Tensor, lod: torch.Tensor,
+                             light_mats: torch.Tensor, n_slots: int, caster_capacity: int,
+                             slot_size: int = 4096, scene_min=None,
+                             scene_max=None) -> torch.Tensor:
+    """(n_slots,) int64: the shadow casters each slot's expansion drops this
+    frame (its demand past ``caster_capacity``; a point light's worst
+    face), with the render path's caster LOD picks. ``light_mats`` is
+    ``light_matrices_cube``'s (L, 6, 4, 4). For the HUD, between frames."""
+    lights = scene.lights
+    mesh_id = scene.instances.mesh_id.long()
+
+    def demand(visible, lod_pick):
+        return torch.where(visible, scene.meshes.lod_tri_count[mesh_id, lod_pick], 0).sum()
+
+    out = []
+    for slot in range(n_slots):
+        match = (lights.shadow_slot == slot) & lights.alive
+        li = torch.argmax(match.to(torch.int32))
+        active = match.any()
+        is_point = active & ~lights.directional[li]
+        vis_d = coarse_cull(scene, model, light_mats[li, 0]) & active
+        if scene_min is not None:
+            center, radius = _scene_sphere(scene_min, scene_max)
+            pos = lights.position[li]
+            eye = center - pos / torch.clamp(_norm3(pos), min=1e-8) * (radius * 2.0)
+            lod_d = lod_by_distance(scene, model, eye, bias=shadow_lod_bias(slot_size))
+        else:
+            lod_d = lod
+        lod_l = lod_by_distance(scene, model, lights.position[li],
+                                bias=shadow_lod_bias(slot_size))
+        worst = torch.stack([demand(coarse_cull(scene, model, light_mats[li, f]) & active, lod_l)
+                             for f in range(6)]).max()
+        d = torch.where(is_point, worst, demand(vis_d, lod_d))
+        out.append(torch.clamp(d - caster_capacity, min=0))
+    return torch.stack(out)
+
+
 def shadow_lod_bias(slot_size: int) -> float:
     """Resolution-aware caster LOD bias for a slot_size^2 atlas slot: 0 at
     the reference's 4096^2 slots, one level coarser per halving."""

@@ -1,20 +1,26 @@
 """The forward frame (``renderer_tpu.passes.pipeline``) as an ordered plan of
 passes, each declaring the resources it reads and writes.
 
-Plan order: pose (identity: no skinning yet) -> prepare -> cull |
-cull_occluded | transform_frozen | aabb_soup -> raster | raster_dbg ->
-[shadow_pass] -> shade | shade_shadowed | shade_rt | shade_debug ->
-present. The JAX package builds a plan per set of runtime switches; the
-port has the switches whose passes are ported, with the JAX conditions:
+Plan order: pose -> prepare -> cull | cull_occluded | transform_frozen |
+aabb_soup -> raster | raster_dbg -> [shadow_pass] -> shade |
+shade_shadowed | shade_rt | shade_debug -> [resolve] -> present |
+reference_view | overlay_pass. The JAX package builds a plan per set of
+runtime switches; the port has them all, with the JAX conditions:
 ``occlusion_culling`` (``cull_occluded`` refines the coarse cull against
 the previous frame's depth), ``freeze_culling`` (``transform_frozen``
 renders the kept draw list under the live camera), ``debug_aabbs`` (the
 instances' boxes in flat colours; no shadows), ``shadows`` (the shadow-map
-atlas and ``shade_shadowed``) and ``rt`` (``shade_rt``, ray-traced
-shadows, which wins over ``shadows``). A pass may read a persistent
-resource as the previous frame left it (``reads_prev``, the JAX package's
-resource of the same name): ``vis`` and ``prev_vp`` (the last depth and
-viewproj), ``draw_list`` (the last cull's list) and the cached atlas's
+atlas and ``shade_shadowed``), ``rt`` (``shade_rt``, ray-traced shadows,
+which wins over ``shadows``), ``reference_image`` (``reference_view``:
+the same soup through the independent scan rasterizer at a quarter of
+the size, a diff heat map over the frame) and ``hud`` (``overlay_pass``:
+the 2D overlay blended over the frame). With ``PipelineConfig.skinning``
+the pose pass poses the skinned vertices at the ``time`` external; with
+``ssaa`` > 1 the frame renders at ssaa times the size and ``resolve``
+box-filters it down. A pass may read a persistent resource as the
+previous frame left it (``reads_prev``, the JAX package's resource of
+the same name): ``vis`` and ``prev_vp`` (the last depth and viewproj),
+``draw_list`` (the last cull's list) and the cached atlas's
 ``shadow_cache``.
 """
 
@@ -29,32 +35,45 @@ from renderer_tpu_torch.ops import geometry
 from renderer_tpu_torch.ops.cull import compact_soup
 from renderer_tpu_torch.ops.debug import aabb_soup
 from renderer_tpu_torch.ops.occlusion import LEVELS, occlusion_cull
+from renderer_tpu_torch.ops.overlay import (
+    Overlay, build_font_atlas, compose_overlay, host_to_device,
+)
 from renderer_tpu_torch.ops.pbr import shade_pbr
 from renderer_tpu_torch.ops.raster_cuda import (
     BLOCK, TILE_H, TILE_W, VisibilityBuffer, rasterize_cuda,
 )
+from renderer_tpu_torch.ops.raster_scan import rasterize_scan
 from renderer_tpu_torch.ops.raster_spec import DEPTH_CLEAR, NO_TRIANGLE
-from renderer_tpu_torch.ops.shading import shade_flat_instance
+from renderer_tpu_torch.ops.shading import shade_flat_instance, shade_lambert
+from renderer_tpu_torch.ops.skin import pose_scene
 from renderer_tpu_torch.ops.rt_grid import RtGrid, slot_lights
 from renderer_tpu_torch.ops.shadow import (
     ShadowMaps, directional_light_matrices, initial_cache, light_matrices_cube,
     render_shadow_atlas_cached, render_shadow_atlas_per_light, signature_weights,
 )
 
-EXTERNAL = ("scene", "camera")  # given to every frame by the Renderer
+# given to every frame by the Renderer: the scene, the camera, the
+# animation clock (a () tensor, under skinning) and the 2D overlay tables
+EXTERNAL = ("scene", "camera", "time", "overlay")
+REFERENCE_SCALE = 4  # the reference view renders at 1/4 of the width and height
+REFERENCE_TINT_AT = 0.08  # mean abs difference over which a reference cell is tinted
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """The fields of the JAX ``PipelineConfig`` that the ported frame reads.
-    Shading is PBR (metallic-roughness), the only mode ported."""
+    """The fields of the JAX ``PipelineConfig`` that the ported frame reads."""
 
     width: int = 256
     height: int = 256
     tri_capacity: int = 16384
-    aa: str = "none"  # "edge": edge-aware AA on triangle-id edges
+    # supersampling: the frame renders at (ssaa * width, ssaa * height) and
+    # the resolve pass box-filters it down
+    ssaa: int = 1
+    aa: str = "none"  # "edge": edge-aware AA on triangle-id edges (PBR only)
     cull_backface: bool = True
     background: tuple = (0.05, 0.05, 0.08)
+    shading: str = "pbr"  # "pbr" (GGX metallic-roughness) or "lambert"
+    skinning: bool = False  # the pose pass: skinned vertices posed at `time`
     enable_textures: bool = True
     enable_normal_maps: bool = True
     trilinear: bool = True  # False = bilinear at the nearest-below mip
@@ -77,9 +96,10 @@ class PipelineConfig:
     # K horizontal bands, one unit per frame
     shadow_progressive: int = 1
     # "full" shades every pixel; "checkerboard" shades the (x + y) even
-    # half-lattice and rebuilds the rest (ops/pbr.py); "quarter" is not ported
+    # half-lattice and rebuilds the rest, "quarter" the (even x, even y)
+    # lattice and rebuilds three of four pixels (ops/pbr.py); PBR only
     shade_rate: str = "full"
-    shade_fix: bool = True  # checkerboard: re-shade the worst rebuilt pixels
+    shade_fix: bool = True  # checkerboard, quarter: re-shade the worst rebuilt pixels
     # cull whole 32-triangle clusters (bounding sphere, normal cone) before
     # the per-triangle cull (geometry._cluster_slot_map)
     cluster_cull: bool = False
@@ -94,13 +114,20 @@ class PipelineConfig:
         """Per-light caster expansion capacity."""
         return self.shadow_tri_capacity or self.tri_capacity
 
+    @property
+    def render_size(self) -> tuple:
+        """(width, height) of the frame as rendered, before the resolve."""
+        return self.width * self.ssaa, self.height * self.ssaa
+
     def __post_init__(self):
-        if self.aa not in ("none", "edge"):
-            raise ValueError(f"aa={self.aa!r}")
-        if self.shade_rate == "quarter":
-            raise NotImplementedError('shade_rate="quarter" is not ported')
-        if self.shade_rate not in ("full", "checkerboard"):
+        if self.aa not in ("none", "edge") or self.shading not in ("pbr", "lambert"):
+            raise ValueError(f"aa={self.aa!r}, shading={self.shading!r}")
+        if self.shade_rate not in ("full", "checkerboard", "quarter"):
             raise ValueError(f"shade_rate={self.shade_rate!r}")
+        if self.ssaa < 1:
+            raise ValueError(f"ssaa={self.ssaa}")
+        if self.shading != "pbr" and (self.aa != "none" or self.shade_rate != "full"):
+            raise ValueError("edge AA and the shade-rate tiers need PBR shading")
         if self.tri_capacity % BLOCK or self.width % TILE_W or self.height % TILE_H:
             raise ValueError(
                 f"need tri_capacity % {BLOCK} == 0, width % {TILE_W} == 0 and "
@@ -122,19 +149,20 @@ class PipelineConfig:
 
 def initial_state(cfg: PipelineConfig, device) -> dict:
     """The persistent resources before frame 1: an empty draw list, an
-    all-far visibility buffer, a zero viewproj and the cached atlas's state
-    when ``cfg.shadow_cache``. Under the zero viewproj every AABB corner has
-    w = 0, which occlusion culling never culls: frame 1 culls nothing. (The
-    JAX package starts from the identity, under which an instance whose
-    world AABB lies wholly at z > 1 is culled against the all-far depth.)"""
-    h, w = cfg.height, cfg.width
+    all-far visibility buffer at the render size, the identity viewproj
+    and the cached atlas's state when ``cfg.shadow_cache``, as in the JAX
+    package. Under the identity, occlusion culling on frame 1 culls the
+    instances whose world AABB lies wholly at z > 1 against the all-far
+    depth (a fault shared with the JAX package, whose resource note says
+    nothing can be culled on frame 1)."""
+    w, h = cfg.render_size
     state = {
         "draw_list": geometry.DrawList.empty(cfg.tri_capacity, device),
         "vis": VisibilityBuffer(
             depth=torch.full((h, w), DEPTH_CLEAR, dtype=torch.float32, device=device),
             tri_id=torch.full((h, w), NO_TRIANGLE, dtype=torch.int32, device=device),
             bary=torch.zeros((3, h, w), dtype=torch.float32, device=device)),
-        "prev_vp": torch.zeros((4, 4), dtype=torch.float32, device=device),
+        "prev_vp": torch.eye(4, dtype=torch.float32, device=device),
     }
     if cfg.shadow_cache:
         state["shadow_cache"] = initial_cache(cfg.shadow_slots, cfg.shadow_size,
@@ -173,18 +201,20 @@ def check_plan(passes, outputs, state=()) -> None:
 
 def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tuple = (),
                        shadows: bool = False, rt: bool = False, freeze_culling: bool = False,
-                       debug_aabbs: bool = False, occlusion_culling: bool = False) -> list:
+                       debug_aabbs: bool = False, occlusion_culling: bool = False,
+                       hud: bool = False, reference_image: bool = False) -> list:
     """The ordered passes of one frame for the switch set, the JAX plan's
     passes. ``light_casts``, (shadow_slot, directional) per shaded light
     with slot -1 for none, picks the lights that shadow and that
     ``shade_rt`` traces."""
-    w, h = cfg.width, cfg.height
+    w, h = cfg.render_size
     if occlusion_culling and not freeze_culling and not debug_aabbs and (w | h) % (1 << LEVELS):
-        raise ValueError(f"occlusion culling's {LEVELS}-level depth pyramid needs width and "
-                         f"height divisible by {1 << LEVELS}")
+        raise ValueError(f"occlusion culling's {LEVELS}-level depth pyramid needs the render "
+                         f"width and height divisible by {1 << LEVELS}")
+    lambert = cfg.shading == "lambert"
 
-    def pose(scene):
-        return {"scene_view": scene}
+    def pose(scene, time=None):
+        return {"scene_view": pose_scene(scene, time) if cfg.skinning else scene}
 
     def prepare(scene_view, camera):
         prepared = geometry.prepare_frame_columns(scene_view, camera)
@@ -194,6 +224,7 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         soup, rec = geometry.build_draw_stream(
             scene_view, prepared, cfg.expand_capacity, cfg.tri_capacity, w, h,
             cull_backface=cfg.cull_backface, cluster_cull=cfg.cluster_cull,
+            want_soup_attrs=lambert,
         )
         draw_list = geometry.DrawList(soup.instance, soup.tri_idx, soup.valid, soup.count)
         return {"soup": soup, "shade_rec": rec, "draw_list": draw_list}
@@ -219,9 +250,9 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
                                                prepared.model, cfg.tri_capacity))}
 
     # PBR shading re-derives barycentrics from the records' edge columns,
-    # so the raster kernel stores depth and id only; the debug view
-    # interpolates the soup's normals through the raster's barycentrics
-    def raster(soup, with_bary=False):
+    # so the raster kernel stores depth and id only; Lambert and the debug
+    # view interpolate the soup's normals through the raster's barycentrics
+    def raster(soup, with_bary=lambert):
         return {"vis": rasterize_cuda(soup.clip, soup.valid, w, h,
                                       cull_backface=cfg.cull_backface, with_bary=with_bary)}
 
@@ -251,24 +282,29 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
             weights=sig_weights[n])
         return {"shadow": ShadowMaps(atlas, mats, light_casts), "shadow_cache": cache}
 
-    def _shade(vis, shade_rec, scene, camera, prepared, rt_grid=None, shadow_maps=None):
+    img_res = "image_hires" if cfg.ssaa > 1 else "image_pre"
+
+    def _shade(vis, soup, shade_rec, scene, camera, prepared, rt_grid=None, shadow_maps=None):
+        if lambert:
+            return shade_lambert(vis, soup, scene, camera.position, prepared.vp_inv,
+                                 background=cfg.background)
         return shade_pbr(
             vis, shade_rec, scene, camera.position, prepared.vp_inv,
             background=cfg.background, enable_textures=cfg.enable_textures,
             enable_normal_maps=cfg.enable_normal_maps, trilinear=cfg.trilinear,
             light_slots=cfg.shade_light_slots, aa=(cfg.aa == "edge"), rt_grid=rt_grid,
             shadow=shadow_maps, checkerboard=(cfg.shade_rate == "checkerboard"),
-            shade_fix=cfg.shade_fix,
+            quarter=(cfg.shade_rate == "quarter"), shade_fix=cfg.shade_fix,
         )
 
-    def shade(vis, shade_rec, scene_view, camera, prepared):
-        return {"image_pre": _shade(vis, shade_rec, scene_view, camera, prepared)}
+    def shade(vis, soup, shade_rec, scene_view, camera, prepared):
+        return {img_res: _shade(vis, soup, shade_rec, scene_view, camera, prepared)}
 
-    def shade_shadowed(vis, shade_rec, scene_view, camera, prepared, shadow):
-        return {"image_pre": _shade(vis, shade_rec, scene_view, camera, prepared,
-                                    shadow_maps=shadow)}
+    def shade_shadowed(vis, soup, shade_rec, scene_view, camera, prepared, shadow):
+        return {img_res: _shade(vis, soup, shade_rec, scene_view, camera, prepared,
+                                shadow_maps=shadow)}
 
-    def shade_rt(vis, shade_rec, scene_view, camera, prepared):
+    def shade_rt(vis, soup, shade_rec, scene_view, camera, prepared):
         """Ray-traced shadows: per-light caster expansion, light-space
         binning and the occlusion walk (ops/rt_grid.py)."""
         smin, smax = prepared.scene_min, prepared.scene_max
@@ -279,24 +315,59 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
             prepared.model, radius, cfg.caster_capacity, light_casts, cfg.shadow_slots,
             cfg.rt_scale,
         )
-        return {"image_pre": _shade(vis, shade_rec, scene_view, camera, prepared, rt_grid)}
+        return {img_res: _shade(vis, soup, shade_rec, scene_view, camera, prepared, rt_grid)}
 
     def shade_debug(vis, soup):
-        return {"image_pre": shade_flat_instance(vis, soup, background=cfg.background)}
+        return {img_res: shade_flat_instance(vis, soup, background=cfg.background)}
+
+    def resolve(image_hires):
+        """The SSAA box resolve: the mean of each ssaa x ssaa block."""
+        k = cfg.ssaa
+        return {"image_pre": image_hires.reshape(h // k, k, w // k, k, 3).mean(dim=(1, 3))}
 
     def present(image_pre):
         return {"image": image_pre}
 
+    def reference_view(image_pre, soup, shade_rec, scene_view, camera, prepared):
+        """The same soup through the independent scan rasterizer at 1/4 of
+        the output size, shaded with its barycentrics; cells whose mean
+        difference from the frame (averaged down to that grid) passes
+        REFERENCE_TINT_AT are tinted magenta."""
+        k = REFERENCE_SCALE
+        wlo, hlo = cfg.width // k, cfg.height // k
+        vis_lo = rasterize_scan(soup.clip, soup.valid, wlo, hlo, cull_backface=cfg.cull_backface)
+        ref = shade_pbr(vis_lo, shade_rec, scene_view, camera.position, prepared.vp_inv,
+                        background=cfg.background, enable_textures=cfg.enable_textures,
+                        enable_normal_maps=cfg.enable_normal_maps, trilinear=cfg.trilinear,
+                        bary_from_records=False)
+        main = image_pre
+        mlo = main[: hlo * k, : wlo * k].reshape(hlo, k, wlo, k, 3).mean(dim=(1, 3))
+        heat = (mlo - ref).abs().mean(dim=-1)
+        heat_up = heat.repeat_interleave(k, 0).repeat_interleave(k, 1)
+        heat_up = torch.nn.functional.pad(heat_up, (0, main.shape[1] - wlo * k,
+                                                    0, main.shape[0] - hlo * k))
+        tint = torch.stack([torch.full((), c, device=main.device) for c in (1.0, 0.0, 1.0)])
+        return {"image": torch.where((heat_up > REFERENCE_TINT_AT)[..., None],
+                                     0.35 * main + 0.65 * tint, main)}
+
+    fonts = {}  # the font atlas per device, copied at the first HUD frame
+
+    def overlay_pass(image_pre, overlay):
+        dev = image_pre.device
+        if dev not in fonts:
+            fonts[dev] = host_to_device(build_font_atlas(), dev)
+        return {"image": compose_overlay(image_pre, overlay or Overlay.empty(), fonts[dev])}
+
     geo_reads = ("scene_view", "prepared")
     culled = ("soup", "shade_rec", "draw_list")
     passes = [
-        Pass("pose", ("scene",), ("scene_view",), pose),
+        Pass("pose", ("scene", "time") if cfg.skinning else ("scene",), ("scene_view",), pose),
         Pass("prepare", ("scene_view", "camera"), ("prepared", "prev_vp"), prepare),
     ]
     if debug_aabbs:
         passes += [Pass("aabb_soup", geo_reads, ("soup",), aabb),
                    Pass("raster_dbg", ("soup",), ("vis",), raster_dbg),
-                   Pass("shade_debug", ("vis", "soup"), ("image_pre",), shade_debug)]
+                   Pass("shade_debug", ("vis", "soup"), (img_res,), shade_debug)]
     else:
         if freeze_culling:
             passes.append(Pass("transform_frozen", geo_reads, ("soup", "shade_rec"),
@@ -314,14 +385,24 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
                                shadow_pass, reads_prev=("shadow_cache",)))
         elif shadows and not rt:
             passes.append(Pass("shadow_pass", geo_reads, ("shadow",), shadow_pass))
-        shade_reads = ("vis", "shade_rec", "scene_view", "camera", "prepared")
+        shade_reads = ("vis", "soup", "shade_rec", "scene_view", "camera", "prepared")
         if rt:
-            passes.append(Pass("shade_rt", shade_reads, ("image_pre",), shade_rt))
+            passes.append(Pass("shade_rt", shade_reads, (img_res,), shade_rt))
         elif shadows:
-            passes.append(Pass("shade_shadowed", shade_reads + ("shadow",), ("image_pre",),
+            passes.append(Pass("shade_shadowed", shade_reads + ("shadow",), (img_res,),
                                shade_shadowed))
         else:
-            passes.append(Pass("shade", shade_reads, ("image_pre",), shade))
-    passes.append(Pass("present", ("image_pre",), ("image",), present))
+            passes.append(Pass("shade", shade_reads, (img_res,), shade))
+    if cfg.ssaa > 1:
+        passes.append(Pass("resolve", ("image_hires",), ("image_pre",), resolve))
+    if hud:
+        passes.append(Pass("overlay_pass", ("image_pre", "overlay"), ("image",), overlay_pass))
+    elif reference_image:
+        if not debug_aabbs:  # as in the JAX plan: no shade records to view
+            passes.append(Pass("reference_view", ("image_pre", "soup", "shade_rec",
+                                                  "scene_view", "camera", "prepared"),
+                               ("image",), reference_view))
+    else:
+        passes.append(Pass("present", ("image_pre",), ("image",), present))
     check_plan(passes, outputs, state=state_names(cfg))
     return passes

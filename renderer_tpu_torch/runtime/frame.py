@@ -4,8 +4,8 @@
 - ``execute_plan`` runs the plan's passes in order, each inside a
   ``torch.profiler`` range named ``forward.<pass>``.
 - Runtime switches (``RuntimeConfig``: ``freeze_culling``,
-  ``debug_aabbs``, ``shadows``, ``occlusion_culling``, ``rt``) with the
-  two-frame latch: ``set_config`` edits a pending copy that the next frame
+  ``debug_aabbs``, ``shadows``, ``occlusion_culling``, ``rt``, ``hud``,
+  ``reference_image``) with the two-frame latch: ``set_config`` edits a pending copy that the next frame
   takes up; ``apply_config_now`` takes it up at once. One plan per switch
   set, built on first use and kept.
 - Light specialization, read once at construction: shading loops over the
@@ -18,6 +18,9 @@
   the cached shadow atlas (``shadow_cache``). A frame reads them as the
   previous frame left them; what it writes of them is the next state, the
   rest is kept.
+- Per-frame externals besides the scene and camera: the animation clock
+  ``time_s`` (under ``PipelineConfig.skinning``, a device fill, not a host
+  copy) and the 2D ``overlay`` tables the ``hud`` switch blends in.
 """
 
 from __future__ import annotations
@@ -41,13 +44,17 @@ class RuntimeConfig:
     visible instances' boxes instead of their meshes; ``shadows`` renders
     and looks up the shadow-map atlas; ``occlusion_culling`` culls against
     the previous frame's depth; ``rt`` traces shadows through the
-    light-space grid instead of the atlas."""
+    light-space grid instead of the atlas; ``hud`` blends the overlay
+    tables into the frame; ``reference_image`` tints where the frame
+    differs from the same soup through the independent scan rasterizer."""
 
     freeze_culling: bool = False
     debug_aabbs: bool = False
     shadows: bool = False
     occlusion_culling: bool = False
     rt: bool = False
+    hud: bool = False
+    reference_image: bool = False
 
 
 def light_casts(lights, k: int) -> tuple:
@@ -126,20 +133,26 @@ class Renderer:
                                                   **vars(self.config))
         return self._plans[key]
 
-    def _external(self, camera: Camera) -> dict:
+    def _external(self, camera: Camera, time_s: float = 0.0, overlay=None) -> dict:
         camera = Camera(*(t.to(self.device) for t in camera))
-        return {"scene": self.scene, "camera": camera}
+        t = (torch.full((), float(time_s), dtype=torch.float32, device=self.device)
+             if self.cfg.skinning else None)
+        return {"scene": self.scene, "camera": camera, "time": t, "overlay": overlay}
 
-    def render(self, camera: Camera, scene: Optional[Scene] = None) -> dict:
+    def render(self, camera: Camera, scene: Optional[Scene] = None, time_s: float = 0.0,
+               overlay=None) -> dict:
         """Render one frame; returns the outputs dict (device tensors). The
-        work is queued on the current stream, not waited for."""
+        work is queued on the current stream, not waited for. ``time_s``
+        drives the skins' clips (``PipelineConfig.skinning``); ``overlay``
+        (``ops.overlay.Overlay``, host tables) is what the ``hud`` switch
+        blends in (None: nothing)."""
         if scene is not None:
             if scene.lights is not self.scene.lights:
                 self._check_light_contract(scene)
             self.scene = scene
         t0 = time.perf_counter()
         outputs, self.state = execute_plan(self.passes, self.outputs, self.state,
-                                           **self._external(camera))
+                                           **self._external(camera, time_s, overlay))
         self.stats["last_ms"] = (time.perf_counter() - t0) * 1e3
         self.stats["frames"] += 1
         if self.config != self._pending_config:  # the latch: next frame's switches
@@ -165,7 +178,8 @@ class Renderer:
                 f"{pattern}; construct a new Renderer for it"
             )
 
-    def pass_timings(self, camera: Camera, iters: int = 5) -> dict:
+    def pass_timings(self, camera: Camera, iters: int = 5, time_s: float = 0.0,
+                     overlay=None) -> dict:
         """Mean device milliseconds of each pass, from CUDA events around
         the pass over ``iters`` runs (not counted as frames; the state is
         not advanced)."""
@@ -185,6 +199,6 @@ class Renderer:
 
         for _ in range(iters):
             execute_plan(self.passes, self.outputs, self.state, wrap=timed,
-                         **self._external(camera))
+                         **self._external(camera, time_s, overlay))
         torch.cuda.synchronize(self.device)
         return {n: sum(s.elapsed_time(e) for s, e in v) / len(v) for n, v in pairs.items()}

@@ -17,8 +17,8 @@ import numpy as np
 
 from renderer_tpu_torch.scene.textures import TextureAtlasBuilder
 from renderer_tpu_torch.scene.types import (
-    CL_COLS, CLUSTER, TR_COLS, TRI_REC_MAX_BYTES, MeshLibrary, Scene,
-    SceneLimits, scene_from_numpy,
+    CL_COLS, CLUSTER, INTERP_CUBICSPLINE, INTERP_LINEAR, INTERP_STEP, TR_COLS,
+    TRI_REC_MAX_BYTES, MeshLibrary, Scene, SceneLimits, empty_skin_tables, scene_from_numpy,
 )
 
 
@@ -132,6 +132,7 @@ class SceneBuilder:
         self._materials: list[dict] = []
         self._instances: list[dict] = []
         self._lights: list[dict] = []
+        self._skins: list[dict] = []
 
     def add_texture(self, img) -> int:
         """Add a texture image; returns its atlas layer id."""
@@ -147,6 +148,94 @@ class SceneBuilder:
             mesh.lods = build_lod_chain(mesh.positions, mesh.indices)
         self._meshes.append(mesh)
         return len(self._meshes) - 1
+
+    def add_skinned_mesh(self, mesh: HostMesh, joints, weights, parents, inverse_bind,
+                         key_times, key_t, key_r, key_s=None, interpolation: str = "LINEAR",
+                         key_t_tangents=None, key_r_tangents=None, key_s_tangents=None) -> int:
+        """A mesh with linear-blend skinning and its first clip: joints (V, 4)
+        and weights (V, 4) per vertex, parents (J,) (-1 a root, each parent
+        before its child), inverse_bind (J, 4, 4); the clip as in
+        ``add_skin_clip``. Returns the mesh id."""
+        lim = self.limits
+        if len(self._skins) >= lim.max_skins:
+            raise ValueError("skin table full")
+        if len(parents) > lim.max_joints:
+            raise ValueError(f"too many joints ({len(parents)} > {lim.max_joints})")
+        if len(key_times) > lim.max_keyframes:
+            raise ValueError(f"too many keyframes ({len(key_times)} > {lim.max_keyframes})")
+        if any(p >= j for j, p in enumerate(np.asarray(parents))):
+            raise ValueError("parents must be topologically ordered (parent < child)")
+        mesh_id = self.add_mesh(mesh)
+        self._skins.append(dict(
+            mesh_id=mesh_id, joints=np.asarray(joints, np.int32),
+            weights=np.asarray(weights, np.float32), parents=np.asarray(parents, np.int32),
+            inverse_bind=np.asarray(inverse_bind, np.float32), clips=[],
+        ))
+        self.add_skin_clip(mesh_id, key_times, key_t, key_r, key_s, interpolation=interpolation,
+                           key_t_tangents=key_t_tangents, key_r_tangents=key_r_tangents,
+                           key_s_tangents=key_s_tangents)
+        return mesh_id
+
+    def add_skin_clip(self, mesh_id: int, key_times, key_t, key_r, key_s=None,
+                      interpolation: str = "LINEAR", key_t_tangents=None, key_r_tangents=None,
+                      key_s_tangents=None) -> int:
+        """Add a clip to a skinned mesh: key_times (K,), key_t (K, J, 3),
+        key_r (K, J, 4) quaternions, key_s (K, J) (ones when None);
+        interpolation LINEAR, STEP or CUBICSPLINE, the last with (in, out)
+        tangent pairs shaped like the keys. Returns the clip index
+        (``ops.skin.set_active_clip`` selects it)."""
+        skin = next((d for d in self._skins if d["mesh_id"] == mesh_id), None)
+        if skin is None:
+            raise ValueError(f"mesh {mesh_id} is not skinned")
+        if len(skin["clips"]) >= self.limits.max_clips:
+            raise ValueError("clip table full")
+        k, j = len(key_times), len(skin["parents"])
+        if k > self.limits.max_keyframes:
+            raise ValueError(f"too many keyframes ({k} > {self.limits.max_keyframes})")
+        mode = {"LINEAR": INTERP_LINEAR, "STEP": INTERP_STEP,
+                "CUBICSPLINE": INTERP_CUBICSPLINE}[interpolation]
+        zero3, zero4 = np.zeros((k, j, 3), np.float32), np.zeros((k, j, 4), np.float32)
+        zero1 = np.zeros((k, j), np.float32)
+        t_in, t_out = key_t_tangents or (zero3, zero3)
+        r_in, r_out = key_r_tangents or (zero4, zero4)
+        s_in, s_out = key_s_tangents or (zero1, zero1)
+        f32 = np.float32
+        skin["clips"].append(dict(
+            key_times=np.asarray(key_times, f32), key_t=np.asarray(key_t, f32),
+            key_r=np.asarray(key_r, f32),
+            key_s=np.ones((k, j), f32) if key_s is None else np.asarray(key_s, f32),
+            key_t_in=np.asarray(t_in, f32), key_t_out=np.asarray(t_out, f32),
+            key_r_in=np.asarray(r_in, f32), key_r_out=np.asarray(r_out, f32),
+            key_s_in=np.asarray(s_in, f32), key_s_out=np.asarray(s_out, f32), interp=mode,
+        ))
+        return len(skin["clips"]) - 1
+
+    def _skin_tables(self, mesh_vertex_offset) -> dict:
+        sk = empty_skin_tables(self.limits)
+        for si, d in enumerate(self._skins):
+            voff = int(mesh_vertex_offset[d["mesh_id"]])
+            v, j = len(d["joints"]), len(d["parents"])
+            sk["joints"][voff : voff + v] = d["joints"]
+            sk["weights"][voff : voff + v] = d["weights"]
+            sk["vertex_skin"][voff : voff + v] = si
+            sk["parents"][si, :j] = d["parents"]
+            sk["inverse_bind"][si, :j] = d["inverse_bind"]
+            sk["joint_count"][si] = j
+            for ci, clip in enumerate(d["clips"]):
+                k = len(clip["key_times"])
+                sk["key_times"][si, ci, :k] = clip["key_times"]
+                sk["key_times"][si, ci, k:] = clip["key_times"][-1]  # clamp pad
+                for name in ("key_t", "key_r", "key_s", "key_t_in", "key_t_out",
+                             "key_r_in", "key_r_out", "key_s_in", "key_s_out"):
+                    sk[name][si, ci, :k, :j] = clip[name]
+                    sk[name][si, ci, k:, :j] = clip[name][-1]
+                sk["key_count"][si, ci] = k
+                sk["duration"][si, ci] = clip["key_times"][-1]
+                sk["interp"][si, ci] = clip["interp"]
+            sk["clip_count"][si] = len(d["clips"])
+            sk["mesh_skin"][d["mesh_id"]] = si
+        sk["count"] = np.int32(len(self._skins))
+        return sk
 
     def add_material(self, base_color=(1.0, 1.0, 1.0, 1.0), metallic=0.0,
                      roughness=0.8, emissive=(0.0, 0.0, 0.0), base_color_tex=-1,
@@ -290,12 +379,14 @@ class SceneBuilder:
                 if "alive" in table:
                     table["alive"][i] = True
             table["count"] = i32(len(rows))
+        lib = self._mesh_tables()
         tree = SimpleNamespace(
-            meshes=SimpleNamespace(**self._mesh_tables()),
+            meshes=SimpleNamespace(**lib),
             instances=SimpleNamespace(**inst),
             materials=SimpleNamespace(**mats),
             lights=SimpleNamespace(**lts),
             atlas=self.atlas.build(preallocate=texture_slots),
+            skins=SimpleNamespace(**self._skin_tables(lib["mesh_vertex_offset"])),
         )
         return scene_from_numpy(tree, device)
 

@@ -2,7 +2,6 @@
 
 Every table is allocated at a fixed capacity with a used count or an alive
 mask, as in the JAX package, and lives as torch tensors on one device.
-Skins are not ported yet (no skinning on the ported path).
 """
 
 from __future__ import annotations
@@ -26,6 +25,10 @@ class SceneLimits(NamedTuple):
     max_materials: int = 256
     max_lights: int = 16
     max_textures: int = 64
+    max_skins: int = 4
+    max_joints: int = 32  # joints per skin
+    max_keyframes: int = 64  # keys per clip
+    max_clips: int = 4  # clips per skin
 
     @staticmethod
     def tiny() -> "SceneLimits":
@@ -33,6 +36,7 @@ class SceneLimits(NamedTuple):
         return SceneLimits(
             max_vertices=4096, max_triangles=4096, max_meshes=16,
             max_instances=64, max_materials=16, max_lights=4, max_textures=4,
+            max_skins=2, max_joints=8, max_keyframes=16, max_clips=2,
         )
 
 
@@ -115,12 +119,73 @@ class Lights(NamedTuple):
     count: torch.Tensor        # () i32
 
 
+# clip interpolation modes (glTF animation.sampler.interpolation)
+INTERP_LINEAR = 0
+INTERP_STEP = 1
+INTERP_CUBICSPLINE = 2
+
+
+class Skins(NamedTuple):
+    """Linear-blend skinning and keyframe clips. Vertex skin attributes run
+    parallel to the vertex pool (zero weights: a rigid vertex). Each skin
+    has a joint hierarchy (parents before children), inverse bind matrices
+    and up to max_clips TRS clips, one of them active. The ``*_in`` /
+    ``*_out`` tangent tables matter only for CUBICSPLINE clips."""
+
+    joints: torch.Tensor        # (V, 4) i32 skin-local joint ids
+    weights: torch.Tensor       # (V, 4) f32
+    vertex_skin: torch.Tensor   # (V,) i32 owning skin, -1 = rigid
+    parents: torch.Tensor       # (S, J) i32, -1 = root
+    inverse_bind: torch.Tensor  # (S, J, 4, 4) f32
+    joint_count: torch.Tensor   # (S,) i32
+    key_times: torch.Tensor     # (S, C, K) f32, padded with the last time
+    key_t: torch.Tensor         # (S, C, K, J, 3)
+    key_t_in: torch.Tensor      # (S, C, K, J, 3)
+    key_t_out: torch.Tensor     # (S, C, K, J, 3)
+    key_r: torch.Tensor         # (S, C, K, J, 4) quat (w,x,y,z)
+    key_r_in: torch.Tensor      # (S, C, K, J, 4)
+    key_r_out: torch.Tensor     # (S, C, K, J, 4)
+    key_s: torch.Tensor         # (S, C, K, J)
+    key_s_in: torch.Tensor      # (S, C, K, J)
+    key_s_out: torch.Tensor     # (S, C, K, J)
+    key_count: torch.Tensor     # (S, C) i32
+    duration: torch.Tensor      # (S, C) f32
+    interp: torch.Tensor        # (S, C) i32 INTERP_*
+    clip_count: torch.Tensor    # (S,) i32
+    active_clip: torch.Tensor   # (S,) i32
+    mesh_skin: torch.Tensor     # (M,) i32 skin per mesh, -1 = rigid
+    count: torch.Tensor         # () i32
+
+
+def empty_skin_tables(limits: SceneLimits) -> dict:
+    """The empty Skins tables as numpy arrays (the JAX ``Skins.empty``)."""
+    v, s, c, j, k, m = (limits.max_vertices, limits.max_skins, limits.max_clips,
+                        limits.max_joints, limits.max_keyframes, limits.max_meshes)
+    f32, i32 = np.float32, np.int32
+    return dict(
+        joints=np.zeros((v, 4), i32), weights=np.zeros((v, 4), f32),
+        vertex_skin=np.full((v,), -1, i32), parents=np.full((s, j), -1, i32),
+        inverse_bind=np.tile(np.eye(4, dtype=f32), (s, j, 1, 1)),
+        joint_count=np.zeros((s,), i32), key_times=np.zeros((s, c, k), f32),
+        key_t=np.zeros((s, c, k, j, 3), f32), key_t_in=np.zeros((s, c, k, j, 3), f32),
+        key_t_out=np.zeros((s, c, k, j, 3), f32),
+        key_r=np.tile(np.array([1, 0, 0, 0], f32), (s, c, k, j, 1)),
+        key_r_in=np.zeros((s, c, k, j, 4), f32), key_r_out=np.zeros((s, c, k, j, 4), f32),
+        key_s=np.ones((s, c, k, j), f32), key_s_in=np.zeros((s, c, k, j), f32),
+        key_s_out=np.zeros((s, c, k, j), f32), key_count=np.zeros((s, c), i32),
+        duration=np.ones((s, c), f32), interp=np.zeros((s, c), i32),
+        clip_count=np.zeros((s,), i32), active_clip=np.zeros((s,), i32),
+        mesh_skin=np.full((m,), -1, i32), count=i32(0),
+    )
+
+
 class Scene(NamedTuple):
     meshes: MeshLibrary
     instances: Instances
     materials: Materials
     lights: Lights
     atlas: TextureAtlas
+    skins: Skins
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -134,8 +199,8 @@ def scene_from_numpy(tree, device=None) -> Scene:
     """A scene whose leaves are numpy arrays -> the port's Scene on
     ``device`` (the CUDA card when None). ``tree`` may be the JAX package's
     Scene pulled to the host with ``renderer_tpu.scene.types.as_numpy_scene``
-    (its skins and texture quad tables are dropped), or the tables
-    ``SceneBuilder`` fills."""
+    (its texture quad tables are dropped), or the tables ``SceneBuilder``
+    fills."""
     device = resolve_device(device)
 
     def table(cls, part):
@@ -151,4 +216,5 @@ def scene_from_numpy(tree, device=None) -> Scene:
         materials=table(Materials, tree.materials),
         lights=table(Lights, tree.lights),
         atlas=table(TextureAtlas, tree.atlas),
+        skins=table(Skins, tree.skins),
     )

@@ -1,5 +1,6 @@
 """Image output and comparison (``renderer_tpu.utils.image``): PNG writing
-and reading with the standard library and numpy only, and PSNR."""
+and reading with the standard library and numpy only, the sRGB encode,
+and PSNR."""
 
 from __future__ import annotations
 
@@ -15,6 +16,13 @@ def to_u8(img: np.ndarray) -> np.ndarray:
     if img.dtype == np.uint8:
         return img
     return np.clip(np.round(np.asarray(img, np.float32) * 255.0), 0, 255).astype(np.uint8)
+
+
+def srgb_encode(linear: np.ndarray) -> np.ndarray:
+    """Linear -> sRGB transfer function, after a clamp to [0, 1]."""
+    linear = np.clip(np.asarray(linear, np.float32), 0.0, 1.0)
+    return np.where(linear <= 0.0031308, linear * 12.92,
+                    1.055 * np.power(linear, 1.0 / 2.4) - 0.055)
 
 
 def write_png(path: str, img: np.ndarray) -> None:

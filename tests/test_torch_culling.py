@@ -145,23 +145,37 @@ def test_frozen_soup_and_shade_records_match_jax():
     assert (np.abs(rec - jrec) <= 1e-6 * scale).all()
 
 
-SWITCHES = ("freeze_culling", "debug_aabbs", "shadows", "occlusion_culling", "rt")
+SWITCHES = ("freeze_culling", "debug_aabbs", "shadows", "occlusion_culling", "rt", "hud",
+            "reference_image")
 
 
 @pytest.mark.parametrize("cache", [True, False])
 def test_plans_match_the_jax_plans(cache):
-    plans = forward_plan_cache(JaxConfig(width=128, height=64, shadow_cache=cache))
-    cfg = PipelineConfig(width=128, height=64, shadow_cache=cache)
-    for values in itertools.product((False, True), repeat=len(SWITCHES)):
-        switches = dict(zip(SWITCHES, values))
-        want = [p.name for p in plans.plan(switches).passes]
-        got = build_forward_plan(cfg, outputs=("image", "vis"), **switches)
-        assert [p.name for p in got] == want, switches
+    """Every switch set, with and without SSAA. The reference view has no
+    shade records under debug_aabbs, so with reference_image on and hud off
+    no pass writes the image: the JAX plan then drops it from the outputs,
+    the port's raises."""
+    for ssaa in (1, 2):
+        plans = forward_plan_cache(JaxConfig(width=128, height=64, shadow_cache=cache, ssaa=ssaa))
+        cfg = PipelineConfig(width=128, height=64, shadow_cache=cache, ssaa=ssaa)
+        for values in itertools.product((False, True), repeat=len(SWITCHES)):
+            switches = dict(zip(SWITCHES, values))
+            want = [p.name for p in plans.plan(switches).passes]
+            if switches["debug_aabbs"] and switches["reference_image"] and not switches["hud"]:
+                assert "shade_debug" not in want
+                with pytest.raises(ValueError, match="written by no pass"):
+                    build_forward_plan(cfg, outputs=("image", "vis"), **switches)
+                continue
+            got = build_forward_plan(cfg, outputs=("image", "vis"), **switches)
+            assert [p.name for p in got] == want, switches
 
 
 def test_unported_switches_still_raise():
+    """Every switch of the JAX package is ported: hud and reference_image
+    are taken, a switch neither package has raises."""
     r = Renderer(scenes("sponza")[1], PipelineConfig(width=128, height=64))
-    for switch in ("hud", "reference_image"):
+    r.set_config(hud=True, reference_image=True)
+    for switch in ("spmd", "watch"):
         with pytest.raises(AttributeError, match="unknown runtime switch"):
             r.set_config(**{switch: True})
 

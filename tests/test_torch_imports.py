@@ -23,7 +23,8 @@ r = Renderer(textured_scene(SceneLimits.tiny(), 32, device="cpu"),
                             shade_rate="checkerboard", shadow_size=128))
 cam = Camera.create([0.0, 1.2, 4.0], fov_y=0.9, aspect=2.0, device="cpu")
 switch_sets = [dict(shadows=shadows, rt=rt) for shadows, rt in ((False, True), (True, False))]
-switch_sets += [dict(occlusion_culling=True), dict(freeze_culling=True), dict(debug_aabbs=True)]
+switch_sets += [dict(occlusion_culling=True), dict(freeze_culling=True), dict(debug_aabbs=True),
+                 dict(reference_image=True), dict(hud=True)]
 for switches in [{}] + switch_sets:
     r.set_config(**{**{k: False for k in vars(r.config)}, **switches})
     r.apply_config_now()
@@ -33,6 +34,15 @@ from renderer_tpu_torch.models import city_scene
 city = Renderer(city_scene(3, device="cpu"),
                 PipelineConfig(width=128, height=64, tri_capacity=4096, cluster_cull=True))
 assert np.isfinite(city.render(cam)["image"].numpy()).all()
+import os, tempfile
+from renderer_tpu_torch import demo
+from renderer_tpu_torch.graph import dot  # noqa: F401
+from renderer_tpu_torch.ops import overlay, skin  # noqa: F401
+from renderer_tpu_torch.runtime import hud  # noqa: F401
+out = os.path.join(tempfile.mkdtemp(), "demo.png")
+demo.main(["--scene", "skinned", "--size", "64", "--out", out, "--device", "cpu", "--hud",
+           "--dump-graphs"])
+assert os.path.exists(out)
 import chip_ab, chip_smoke, torch_raster_cases  # noqa: F401
 import renderer_tpu_torch.ops.probe_cuda  # noqa: F401
 loaded = sorted(m for m in sys.modules

@@ -345,7 +345,7 @@ def test_rt_plan_swaps_shade():
     assert "shade_rt" not in [p.name for p in build_forward_plan(cfg)]
     r = tiny_renderer()
     with pytest.raises(AttributeError, match="unknown runtime switch"):
-        r.set_config(hud=True)
+        r.set_config(spmd=True)
     assert r.light_casts == ((-1, False), (0, True))
 
 

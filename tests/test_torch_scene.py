@@ -1,6 +1,6 @@
 """The port's scene builders against the JAX package's: the same arguments
 give the same tables, array for array and bit for bit (the JAX atlas's quad
-tables and its skins are not part of the port's scene)."""
+tables are not part of the port's scene; its skins are)."""
 
 import pytest
 import torch

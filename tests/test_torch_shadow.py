@@ -350,8 +350,7 @@ def test_renderer_latches_shadows_and_keeps_a_static_atlas():
     r.render(cam(0.3), scene=moved)
     assert not torch.equal(r.state["shadow_cache"][0][0], atlas[0])
     assert not torch.equal(r.state["shadow_cache"][1][0], sig[0])
-    with pytest.raises(NotImplementedError):
-        PipelineConfig(width=128, height=64, shade_rate="quarter")
+    assert PipelineConfig(width=128, height=64, shade_rate="quarter").shade_rate == "quarter"
     for bad in (dict(shadow_size=96), dict(shadow_progressive=4),
                 dict(shadow_size=128, shadow_progressive=16, shadow_update_budget=1),
                 dict(shade_rate="half")):

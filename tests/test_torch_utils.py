@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's jax-free helpers, against
-the originals: raster-spec constants, PNG writing and PSNR (exact); PNG
-reading against PIL (exact)."""
+the originals: raster-spec constants, PNG writing, the sRGB encode and
+PSNR (exact); PNG reading against PIL (exact)."""
 
 import os
 
@@ -13,6 +13,11 @@ from renderer_tpu_torch.ops import raster_spec as tspec
 from renderer_tpu_torch.utils import image as timage
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "..", "assets", "golden")
+
+
+def test_srgb_encode_matches_the_jax_package():
+    x = np.random.default_rng(1).uniform(-0.1, 1.2, (17, 9, 3)).astype(np.float32)
+    assert np.array_equal(timage.srgb_encode(x), jimage.srgb_encode(x))
 
 
 def test_raster_spec_constants_match():
