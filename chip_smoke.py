@@ -111,22 +111,57 @@ code is non-zero:
     version on a band of rows;
 29. Lambert shading at the bench: ms/frame, the profile;
 30. the demo (python -m renderer_tpu_torch.demo) in subprocesses, started
-    together: every scene, and --hud, --reference-image, --ssaa 2,
-    --shade-rate quarter, --shadows --rt and --dump-graphs; each exits 0,
-    writes its PNG under renderer_tpu_torch/_build/ and renders its frames
-    after the first under --check-sync (no blocking sync).
+    together: every scene (colonnade included), glb:assets/colonnade.glb,
+    and --hud, --reference-image, --ssaa 2, --shade-rate quarter, --shadows
+    --rt, --dump-graphs and --watch; each exits 0, writes its PNG under
+    renderer_tpu_torch/_build/ and renders its frames after the first under
+    --check-sync (no blocking sync);
+31. the committed assets/colonnade.glb through load_gltf against its twin
+    colonnade_scene(): every table equal (five rotations within the one ulp
+    of the node-matrix round trip), one pose of the demo's orbit rendered
+    from each (away from those five instances tri_id identical and the
+    image within 1e-6; over the frame the visible triangle equal on
+    >= 99.9% of pixels and PSNR >= 50 dB), the orbit's 30 frames after a
+    warm-up with the profile of phase 9, the frame with the plain raster
+    swapped in (identical), kernel 1 at the colonnade soup;
+32. streaming into the live bench scene (2^18 vertices and triangles, 256
+    meshes, texture slots): a SceneStreamer with a page-locked Arena and
+    budget 8 takes colonnade.glb by path, 23 of its instances by callables,
+    a uv_sphere(64, 96) chunked past CHUNK_VERTS and four 512x512 textures,
+    every pump and frame under sync-debug "error"; uploads and chunks per
+    frame, ms/frame over 10 poses of the orbit against the same poses
+    without a streamer, in turns;
+    each streamed mesh's vertex, index and tri_rec rows and each texture
+    layer read back equal to the host's, streamed instances on screen, no
+    arena block live after close(), the plain raster swapped in
+    (identical), kernel 1 at the streamed soup;
+33. AutoCapacityRenderer over the city walk of phase 20 (three laps,
+    check_every 2, the default ladder): tier, demand and count at each
+    check, the host ms of each blocking check, no frame of the last lap
+    above its tier's expansion capacity, the last lap's ms/frame against
+    phase 20's fixed 2^18 frustum walk;
+34. the bench frame with 32 projectile slots stepped before each frame
+    under sync-debug "error", the camera controller driving 30 frames, the
+    streamed renderer checkpointed and loaded into a fresh one (the next
+    frame identical), and the HUD's fps, arena and streaming lines;
+35. a KernelReloader on the bench renderer: one watched ops module and
+    csrc/raster.cu touched, contents unchanged: poll() swaps, the frame
+    after equals the frame before, kernel 1 counts on in the same
+    CudaKernel; the reload's host ms.
 
 Every main path runs with every kernel's launch count set to 0 just
 before it and read just after (the raster kernel once per frame and per
 atlas view, the occlusion kernel once per rt frame and traced slot, the
 kernels of no path never). Then a line of the raster kernel's launches
-per path, one JSON line listing every kernel, the card's name and power
-limit, and, last, the JSON result line.
+per path, each phase's host seconds, the run's total seconds, one JSON
+line listing every kernel, the card's name and power limit, and, last,
+the JSON result line.
 """
 
 import bisect
 import ctypes
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -141,8 +176,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
-from renderer_tpu_torch.mathx import Camera, orbit_camera  # noqa: E402
-from renderer_tpu_torch.models import city_scene, skinned_scene, sponza_like_scene  # noqa: E402
+from renderer_tpu_torch.demo import no_blocking_sync  # noqa: E402
+from renderer_tpu_torch.mathx import Camera, orbit_camera, quat_from_axis_angle, quat_mul  # noqa: E402
+from renderer_tpu_torch.models import (  # noqa: E402
+    city_scene, colonnade_scene, skinned_scene, sponza_like_scene)
+from renderer_tpu_torch.models.scenes import _colonnade_lights, colonnade_spec  # noqa: E402
 from renderer_tpu_torch.ops import cuda_build, geometry, occlusion_cuda as oc  # noqa: E402
 from renderer_tpu_torch.ops import probe_cuda, raster_cuda as rc, rt_grid as trt  # noqa: E402
 from renderer_tpu_torch.ops import shadow as tshadow  # noqa: E402
@@ -151,8 +189,20 @@ from renderer_tpu_torch.ops.skin import pose_scene  # noqa: E402
 from renderer_tpu_torch.ops.shadow import directional_light_matrices  # noqa: E402
 from renderer_tpu_torch.passes import pipeline as pipeline_module  # noqa: E402
 from renderer_tpu_torch.passes.pipeline import PipelineConfig  # noqa: E402
-from renderer_tpu_torch.runtime import Renderer  # noqa: E402
-from renderer_tpu_torch.utils.image import psnr, read_png, write_png  # noqa: E402
+from renderer_tpu_torch.runtime import AutoCapacityRenderer, KernelReloader, Renderer  # noqa: E402
+from renderer_tpu_torch.runtime.allocator import Arena  # noqa: E402
+from renderer_tpu_torch.runtime.camera_controller import CameraState, InputFrame  # noqa: E402
+from renderer_tpu_torch.runtime.camera_controller import step as controller_step  # noqa: E402
+from renderer_tpu_torch.runtime.camera_controller import to_camera  # noqa: E402
+from renderer_tpu_torch.runtime.checkpoint import load_renderer, save_renderer  # noqa: E402
+from renderer_tpu_torch.runtime.gameplay import ProjectileSystem  # noqa: E402
+from renderer_tpu_torch.runtime.hud import format_hud  # noqa: E402
+from renderer_tpu_torch.runtime.streaming import CHUNK_VERTS, SceneStreamer  # noqa: E402
+from renderer_tpu_torch.scene import SceneBuilder, SceneLimits, primitives  # noqa: E402
+from renderer_tpu_torch.scene.gltf import load_gltf  # noqa: E402
+from renderer_tpu_torch.utils import tree  # noqa: E402
+from renderer_tpu_torch.utils.image import psnr, read_png, resize_bilinear_u8, write_png  # noqa: E402
+from renderer_tpu_torch.utils.profiling import FrameStats  # noqa: E402
 from torch_occlusion_cases import CASES as OCCLUSION_CASES  # noqa: E402
 from torch_raster_cases import CASES  # noqa: E402
 
@@ -160,7 +210,7 @@ WIDTH, HEIGHT = 1920, 1088
 N_INSTANCES = 10000
 TRI_CAPACITY = 1 << 17
 FRAMES = 30
-PROFILE_FRAMES = 10
+PROFILE_FRAMES = 5  # per traced window; the profiler's processing, not the frames, takes the time
 PSNR_GATE_DB = 60.0  # main path, kernel vs plain version (display-clamped)
 DEPTH_TOL = 1e-6  # raster kernel vs plain version (they should agree bit for bit)
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
@@ -204,13 +254,38 @@ DEMO_RUNS = {  # name -> demo arguments besides --size, --out, --frames, --check
     "quarter": ("--scene", "textured", "--shade-rate", "quarter"),
     "shadows_rt": ("--scene", "mixed", "--shadows", "--rt"),
     "dump_graphs": ("--scene", "box", "--dump-graphs"),
+    "colonnade": ("--scene", "colonnade"),
+    "glb": ("--scene", "glb:assets/colonnade.glb"),
+    "watch": ("--scene", "box", "--watch"),
 }
+ASSET = os.path.join(ROOT, "assets", "colonnade.glb")
+COLONNADE_CAPACITY = 1 << 16  # expansion 2^17 holds the asset's 36k triangles
+COLONNADE_FRAMES = 30
+STREAM_LIMITS = dict(max_instances=16384, max_vertices=1 << 18, max_triangles=1 << 18,
+                     max_meshes=256, max_materials=64, max_lights=4, max_textures=64)
+STREAM_BUDGET = 8
+STREAM_FRAMES = 10  # bench poses per turn; the uploads land in the first four
+STREAM_TEXTURES = 4  # 512x512 images, resized to the atlas's 256
+STREAM_ARENA_BYTES = 64 << 20
+STREAM_GLB_INSTANCES = 23  # colonnade_spec instances 1..23, streamed by callables
+AUTOCAP_CHECK_EVERY = 2
+AUTOCAP_LAPS = 3  # the city walk's CITY_FRAMES poses, three times
+PROJECTILES = 32
+CONTROLLER_FRAMES = 30
+RELOAD_MODULE = "renderer_tpu_torch.ops.shading"  # a watched ops module touched in phase 35
 GOLDEN_DIR = os.path.join(ROOT, "assets", "golden")
 # every kernel wrapper's launcher (launches are counted there)
 KERNELS = (rc.RASTER_TILES, oc.OCCLUSION_TILES, probe_cuda.ADD_ONE, probe_cuda.TRANSPOSE)
 
 
+PHASE_SECONDS = {}  # phase -> host seconds from the previous phase's line to its own
+_phase_clock = [time.perf_counter()]
+
+
 def phase(name: str, msg: str) -> None:
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = round(now - _phase_clock[0], 2)
+    _phase_clock[0] = now
     print(f"[{name}] {msg}", flush=True)
 
 
@@ -888,12 +963,13 @@ def launches_of(run, want: int, what: str):
 
 
 def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launches, dev,
-                   card) -> None:
+                   card):
     """Phases 20-24: the culling switches. The city canyon with and without
     occlusion culling, the held-pose check, freeze culling, the debug-AABB
     view and cluster culling on the bench frame. ``renderer`` is the base
     frame's (phase 7), ``camera_kernel_ms`` kernel 1's time at its soup;
-    each path's raster launches go into ``path_launches``."""
+    each path's raster launches go into ``path_launches``. Returns the
+    city scene, its config and the frustum walk's ms/frame."""
     # 20. the city canyon: frustum culling at 2^18, occlusion culling at 2^16 -----
     t0 = time.perf_counter()
     city = city_scene(CITY_GRID, device=dev)
@@ -1035,6 +1111,7 @@ def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launch
                           f"ms/frame in turns plain, cluster, cluster, plain: plain "
                           f"{[round(v, 2) for v in turns['plain']]}, cluster "
                           f"{[round(v, 2) for v in turns['cluster']]} ({card})")
+    return city, cfg_city, runs["frustum"]["ms"]
 
 
 def pose_cost(scene, dev):
@@ -1220,10 +1297,417 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
     phase("demo", run_demos(card))
 
 
+def colonnade_camera(k, dev):
+    """Frame k of the demo's colonnade orbit (radius 14, height 3, angle
+    0.5 + 0.02k, pitch -0.35) at the frame's aspect."""
+    angle = 0.5 + 0.02 * k
+    rot = quat_mul(quat_from_axis_angle((0.0, 1.0, 0.0), angle, device="cpu"),
+                   quat_from_axis_angle((1.0, 0.0, 0.0), -0.35, device="cpu"))
+    return Camera.create((14.0 * math.sin(angle), 3.0, 14.0 * math.cos(angle)), rot.numpy(),
+                         fov_y=0.9, aspect=WIDTH / HEIGHT, near=0.1, far=100.0, device=dev)
+
+
+def clone_scene(scene):
+    """A copy of every table of ``scene`` on its device."""
+    leaves, structure = tree.flatten(scene)
+    return tree.unflatten(structure, [t.clone() for t in leaves])
+
+
+def soup_at(renderer, cam):
+    """(clip, valid, with_bary) of kernel 1's call in one frame of ``renderer``."""
+    with Recorder(pipeline_module, "rasterize_cuda") as ras:
+        renderer.render(cam)
+    (clip, valid, *_), kw, _ = ras.calls[0]
+    return clip, valid, kw["with_bary"]
+
+
+def host_records(mesh) -> np.ndarray:
+    """A mesh's tri_rec rows as the builder gathers them (unsorted order)."""
+    idx = mesh.indices
+    t = len(idx)
+    return np.concatenate([mesh.positions[idx].reshape(t, 9), mesh.normals[idx].reshape(t, 9),
+                           mesh.uvs[idx].reshape(t, 6), mesh.tangents[idx].reshape(t, 12)], axis=1)
+
+
+def streamed_meshes_match(scene, first_mesh, host_meshes) -> int:
+    """Each mesh the streamer added (slots first_mesh..mesh_count-1): its
+    vertex rows, index rows (library-global) and tri_rec rows read back
+    equal to the host mesh with its vertex positions. Returns the count."""
+    lib = scene.meshes
+    count = int(lib.mesh_count)
+    offs = lib.mesh_vertex_offset.tolist()
+    v_counts = lib.mesh_vertex_count.tolist()
+    t_offs = lib.lod_index_offset[:, 0].tolist()
+    t_counts = lib.lod_tri_count[:, 0].tolist()
+    for m in range(first_mesh, count):
+        v0, nv, t0, nt = offs[m], v_counts[m], t_offs[m], t_counts[m]
+        pos = lib.positions[v0:v0 + nv].cpu().numpy()
+        host = next((h for h in host_meshes if len(h.positions) == nv and len(h.indices) == nt
+                     and np.array_equal(h.positions, pos)), None)
+        if host is None:
+            raise AssertionError(f"streamed mesh {m}: vertices match no host mesh")
+        for name, table in (("normals", lib.normals), ("uvs", lib.uvs), ("tangents", lib.tangents)):
+            if not np.array_equal(table[v0:v0 + nv].cpu().numpy(), getattr(host, name)):
+                raise AssertionError(f"streamed mesh {m}: {name} differ")
+        if not np.array_equal(lib.indices[t0:t0 + nt].cpu().numpy(), host.indices + v0):
+            raise AssertionError(f"streamed mesh {m}: indices differ")
+        if not np.array_equal(lib.tri_rec[t0:t0 + nt].cpu().numpy(), host_records(host)):
+            raise AssertionError(f"streamed mesh {m}: tri_rec rows differ")
+    return count - first_mesh
+
+
+def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, card) -> None:
+    """Phases 31-35: the committed glTF asset, streaming into the live bench
+    scene, auto-capacity on the city walk, projectiles, the camera
+    controller, checkpoints, the HUD's runtime lines and kernel reload.
+    ``renderer`` is the base exact frame's (phase 7); ``city`` is phase
+    20's (scene, config, frustum ms/frame)."""
+    outputs = ("image", "vis", "soup")
+
+    # 31. the committed colonnade.glb against its procedural twin --------------------
+    t0 = time.perf_counter()
+    b = load_gltf(ASSET, SceneBuilder(SceneLimits()))
+    _colonnade_lights(b)
+    glb = b.build(device=dev)
+    t_load = time.perf_counter() - t0
+    twin = colonnade_scene(device=dev)
+    rot_rows = 0
+    for part in ("meshes", "instances", "materials", "lights", "atlas", "skins"):
+        for f, x, y in zip(getattr(glb, part)._fields, getattr(glb, part), getattr(twin, part)):
+            if (x is None) != (y is None) or (x is not None and not torch.equal(x, y) and not (
+                    (part, f) == ("instances", "rotation")
+                    and float((x - y).abs().max()) <= 1.2e-7)):
+                raise AssertionError(f"colonnade.glb differs from its twin in {part}.{f}")
+    same_rot = (glb.instances.rotation == twin.instances.rotation).all(dim=1)
+    rot_rows = int((~same_rot[:int(glb.instances.count)]).sum())
+    cfg_col = dataclasses.replace(cfg, tri_capacity=COLONNADE_CAPACITY)
+    cam = colonnade_camera(0, dev)
+    a = Renderer(glb, cfg_col, outputs=outputs, device=dev).render(cam)
+    t = Renderer(twin, cfg_col, outputs=outputs, device=dev).render(cam)
+    tri = a["vis"].tri_id
+
+    def moved(out):
+        """Pixels showing an instance whose rotation the GLB's node matrix
+        moved by an ulp."""
+        tid = out["vis"].tri_id
+        return (tid >= 0) & ~same_rot[out["soup"].instance[tid.clamp(min=0)]]
+
+    # away from those instances, with their 8 neighbours (edge AA blends them)
+    near = (moved(a) | moved(t)).float()[None, None]
+    exact = torch.nn.functional.max_pool2d(near, 3, 1, 1)[0, 0] == 0
+    same_id = float((visible_identity(a) == visible_identity(t)).float().mean())
+    err_exact = (a["image"] - t["image"]).abs().amax(dim=-1)[exact].max().item()
+    err_all = (a["image"] - t["image"]).abs().max().item()
+    col_psnr = psnr(np.clip(a["image"].cpu().numpy(), 0, 1), np.clip(t["image"].cpu().numpy(), 0, 1))
+    if (not torch.equal(tri[exact], t["vis"].tri_id[exact]) or err_exact > 1e-6
+            or same_id < 0.999 or col_psnr < 50.0):
+        raise AssertionError(f"colonnade: away from the moved instances tri_id equal "
+                             f"{torch.equal(tri[exact], t['vis'].tri_id[exact])}, image error "
+                             f"{err_exact}; visible triangle equal on {100 * same_id:.4f}% of "
+                             f"pixels, PSNR {col_psnr:.2f} dB")
+    prep = geometry.prepare_frame_columns(glb, cam)
+    demand = int(geometry.expansion_demand(glb, prep.visible, prep.lod))
+    r_col = Renderer(glb, cfg_col, outputs=outputs, device=dev)
+    col_ms, out = launches_of(lambda: run_orbit(r_col, dev, cam_at=colonnade_camera,
+                                                frames=COLONNADE_FRAMES),
+                              COLONNADE_FRAMES + 1, "colonnade")
+    path_launches["colonnade"] = COLONNADE_FRAMES + 1
+    check_image(out)
+    t0 = time.perf_counter()
+    plain = swapped_plain_image(lambda: Renderer(glb, cfg_col, device=dev).render(cam)["image"])
+    if not torch.equal(plain, Renderer(glb, cfg_col, device=dev).render(cam)["image"]):
+        raise AssertionError("colonnade frame differs between kernel and plain raster")
+    t_swap = time.perf_counter() - t0
+    clip, valid, bary = soup_at(Renderer(glb, cfg_col, outputs=outputs, device=dev), cam)
+    col_line, col_kms, col_bound, _ = kernel_at_soup("colonnade soup", clip, valid, bary, card,
+                                                     band_rows=SSAA_BAND_ROWS, exact=True)
+    phase("colonnade", f"assets/colonnade.glb loaded and built in {t_load:.2f} s: "
+                       f"{int(glb.instances.count)} instances, {int(glb.meshes.tri_count)} library "
+                       f"triangles; every table equals colonnade_scene()'s but the rotation of "
+                       f"{rot_rows} instances, within one ulp (the node matrix round trip); the "
+                       f"demo pose, on the {int(exact.sum())} pixels away from those instances "
+                       f"and their neighbours: tri_id identical, image max abs difference "
+                       f"{err_exact:.1e} (gate 1e-6); over the frame: visible triangle equal on "
+                       f"{100 * same_id:.4f}% of pixels (gate 99.9%), image max abs difference "
+                       f"{err_all:.1e}, display-clamped PSNR {fmt_db(col_psnr)} dB (gate 50); "
+                       f"expansion demand "
+                       f"{demand} (capacity {2 * COLONNADE_CAPACITY}), soup.count "
+                       f"{int(a['soup'].count)}; the demo's orbit: {col_ms:.2f} ms/frame = "
+                       f"{1e3 / col_ms:.2f} FPS over {COLONNADE_FRAMES} frames after 1 warm-up; "
+                       f"the frame with the plain raster swapped in: image identical "
+                       f"({t_swap:.1f} s); {col_line}")
+    profile_main_path("colonnade_profile", r_col, dev, card, cam_at=colonnade_camera)
+
+    # 32. streaming into the live bench scene ------------------------------------------
+    t0 = time.perf_counter()
+    base = sponza_like_scene(N_INSTANCES, limits=SceneLimits(**STREAM_LIMITS),
+                             texture_slots=STREAM_TEXTURES + 4, device=dev)
+    torch.cuda.synchronize()
+    t_base = time.perf_counter() - t0
+    first_mesh, first_inst = int(base.meshes.mesh_count), int(base.instances.count)
+    glb_meshes = load_gltf(ASSET, SceneBuilder(SceneLimits()))._meshes
+    big = primitives.uv_sphere(rings=64, sectors=96)
+    if len(big.positions) <= CHUNK_VERTS:
+        raise AssertionError("the streamed sphere must be chunked")
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (512, 512, 4), dtype=np.uint8) for _ in range(STREAM_TEXTURES)]
+    _, spec_instances, _ = colonnade_spec()
+
+    def request_all(streamer):
+        streamer.request_mesh(ASSET, translation=(0.0, -0.99, 0.0))  # the floor, by path
+        for mesh_idx, _mat, tr, q, sc in spec_instances[1:1 + STREAM_GLB_INSTANCES]:
+            streamer.request_mesh(
+                lambda i=mesh_idx: load_gltf(ASSET, SceneBuilder(SceneLimits()))._meshes[i],
+                translation=tr, rotation=q, scale=sc)
+        streamer.request_mesh(big, translation=(0.0, 2.5, 0.0), scale=3.0)
+        return [streamer.request_texture(img) for img in images]
+
+    def stream_run(stream: bool):
+        live = clone_scene(base)
+        r = Renderer(live, cfg, outputs=outputs, device=dev)
+        streamer = arena = layers = None
+        if stream:
+            arena = Arena(STREAM_ARENA_BYTES, device=dev)
+            streamer = SceneStreamer(live, budget=STREAM_BUDGET, arena=arena)
+            layers = request_all(streamer)
+        r.render(bench_camera(0, dev))  # warm-up
+        torch.cuda.synchronize()
+        per_frame = []
+        t0 = time.perf_counter()
+        with no_blocking_sync(True):
+            for k in range(STREAM_FRAMES):
+                if streamer is not None:
+                    before = (streamer.stats["uploaded"], streamer.stats["chunks"])
+                    streamer.pump()
+                    per_frame.append((streamer.stats["uploaded"] - before[0],
+                                      streamer.stats["chunks"] - before[1]))
+                out = r.render(bench_camera(k, dev))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / STREAM_FRAMES
+        return dict(ms=ms, out=out, renderer=r, scene=live, streamer=streamer, arena=arena,
+                    layers=layers, per_frame=per_frame)
+
+    n_requests = 1 + STREAM_GLB_INSTANCES + 1 + STREAM_TEXTURES
+    turns = {}
+    for mode in ("plain", "stream", "stream", "plain"):
+        run = launches_of(lambda: stream_run(mode == "stream"), STREAM_FRAMES + 1,
+                          f"streaming ({mode})")
+        turns.setdefault(mode, []).append(run)
+        if mode == "stream" and len(turns["stream"]) == 1:
+            run["streamer"].close()
+            run["arena"].close()
+    path_launches["streaming"] = 4 * (STREAM_FRAMES + 1)
+    run = turns["stream"][1]
+    streamer, arena, live = run["streamer"], run["arena"], run["scene"]
+    deadline = time.perf_counter() + 60.0
+    extra_pumps = 0
+    with no_blocking_sync(True):  # uploads still decoding when the timed frames ended
+        while streamer.stats["uploaded"] < n_requests and time.perf_counter() < deadline:
+            streamer.pump()
+            extra_pumps += 1
+            time.sleep(0.01)
+    if streamer.stats["uploaded"] != n_requests:
+        raise AssertionError(f"streaming: {streamer.stats} of {n_requests} requests")
+    cam_last = bench_camera(STREAM_FRAMES - 1, dev)
+    with no_blocking_sync(True):
+        last = run["renderer"].render(cam_last)
+    n_meshes = streamed_meshes_match(live, first_mesh, glb_meshes + [big])
+    for layer, img in zip(run["layers"], images):
+        want = resize_bilinear_u8(img, (256, 256)).reshape(-1, 4).astype(np.uint32)
+        words = want[:, 0] | (want[:, 1] << 8) | (want[:, 2] << 16) | (want[:, 3] << 24)
+        got = live.atlas.packed_u32[layer * 256 * 256:(layer + 1) * 256 * 256].cpu().numpy()
+        if not np.array_equal(got.view(np.uint32), words):
+            raise AssertionError(f"streamed texture layer {layer} differs from its host texels")
+    tri = last["vis"].tri_id
+    inst = last["soup"].instance[tri.clamp(min=0)]
+    streamed_px = int(((tri >= 0) & (inst >= first_inst)).sum())
+    if streamed_px == 0:
+        raise AssertionError("streaming: no pixel of the last frame shows a streamed instance")
+    streamer.close()
+    live_allocs = arena.stats()["live_allocs"]
+    if live_allocs:
+        raise AssertionError(f"streaming: {live_allocs} arena blocks live after close()")
+    t0 = time.perf_counter()
+    plain = swapped_plain_image(lambda: Renderer(live, cfg, device=dev).render(cam_last)["image"])
+    if not torch.equal(plain, Renderer(live, cfg, device=dev).render(cam_last)["image"]):
+        raise AssertionError("streamed frame differs between kernel and plain raster")
+    t_swap = time.perf_counter() - t0
+    clip, valid, bary = soup_at(Renderer(live, cfg, outputs=outputs, device=dev), cam_last)
+    st_line, st_kms, st_bound, _ = kernel_at_soup("streamed soup", clip, valid, bary, card,
+                                                  band_rows=SSAA_BAND_ROWS, exact=True)
+    phase("streaming", f"sponza_like_scene({N_INSTANCES}) with 2^18 vertices and triangles, "
+                       f"256 meshes, texture_slots {STREAM_TEXTURES + 4}, built in {t_base:.1f} s; "
+                       f"{n_requests} requests (colonnade.glb by path, {STREAM_GLB_INSTANCES} of "
+                       f"its instances by callables, uv_sphere(64, 96) of {len(big.positions)} "
+                       f"vertices, {STREAM_TEXTURES} 512x512 textures) through a page-locked "
+                       f"{STREAM_ARENA_BYTES >> 20} MiB arena, budget {STREAM_BUDGET}; every pump "
+                       f"and frame under sync-debug 'error'; (uploads, chunks) per timed frame "
+                       f"{run['per_frame']}, {extra_pumps} more pumps until all {n_requests} "
+                       f"landed; {n_meshes} streamed meshes read back: vertices, indices and "
+                       f"tri_rec rows equal to the host meshes; texture layers {run['layers']} "
+                       f"equal the host's resized texels; {streamed_px} pixels of the last frame "
+                       f"show streamed instances; arena live blocks after close() {live_allocs}; "
+                       f"ms/frame in turns plain, stream, stream, plain: plain "
+                       f"{[round(x['ms'], 2) for x in turns['plain']]}, stream "
+                       f"{[round(x['ms'], 2) for x in turns['stream']]} ({card}); the frame with "
+                       f"the plain raster swapped in: image identical ({t_swap:.1f} s); {st_line}")
+
+    # 33. auto-capacity on the city walk -------------------------------------------------
+    city_scene_, cfg_city, frustum_ms = city
+    ac = AutoCapacityRenderer(city_scene_, cfg_city, check_every=AUTOCAP_CHECK_EVERY,
+                              outputs=outputs, device=dev)
+    checks, check_ms = [], []
+    demand_fn = ac.demand
+
+    def timed_demand(camera):
+        t0 = time.perf_counter()
+        d = demand_fn(camera)
+        check_ms.append((time.perf_counter() - t0) * 1e3)
+        return d
+
+    ac.demand = timed_demand
+    n_frames = AUTOCAP_LAPS * CITY_FRAMES
+    caps, last_ms = [], None
+
+    def walk():
+        nonlocal last_ms
+        for k in range(n_frames):
+            if k == n_frames - CITY_FRAMES:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            caps.append(ac.capacity)
+            ac.render(city_camera(k % CITY_FRAMES, dev))
+            if (k + 1) % AUTOCAP_CHECK_EVERY == 0:
+                checks.append((k, ac.capacity, ac.stats["last_demand"], ac.stats["last_count"]))
+        torch.cuda.synchronize()
+        last_ms = (time.perf_counter() - t0) * 1e3 / CITY_FRAMES
+
+    launches_of(walk, n_frames, "autocap")
+    path_launches["autocap"] = n_frames
+    over = []
+    for k in range(n_frames - CITY_FRAMES, n_frames):
+        cam = city_camera(k % CITY_FRAMES, dev)
+        p = geometry.prepare_frame_columns(city_scene_, cam)
+        d = int(geometry.expansion_demand(city_scene_, p.visible, p.lod))
+        if d > 2 * caps[k]:
+            over.append((k, d, caps[k]))
+    if over:
+        raise AssertionError(f"autocap: the last lap's frames exceed their tier: {over}")
+    phase("autocap", f"AutoCapacityRenderer over city_scene({CITY_GRID})'s walk, {AUTOCAP_LAPS} laps "
+                     f"of {CITY_FRAMES} poses, check_every {AUTOCAP_CHECK_EVERY}, ladder "
+                     f"{ac.ladder}: (frame, tier after the check, demand, draw-list count) "
+                     f"{checks}; host ms of each blocking check "
+                     f"{[round(v, 2) for v in check_ms]}; {ac.stats['tier_switches']} tier switches; "
+                     f"the last lap at tiers {sorted(set(caps[-CITY_FRAMES:]))}, no frame's demand "
+                     f"above its tier's expansion capacity; last lap {last_ms:.2f} ms/frame against "
+                     f"phase 20's fixed 2^18 frustum walk {frustum_ms:.2f} ({card})")
+
+    # 34. projectiles, the camera controller, checkpoints and the HUD ----------------
+    proj_scene = clone_scene(scene)
+    projectiles = ProjectileSystem(proj_scene, mesh_id=1, material_id=0, capacity=PROJECTILES)
+    r_proj = Renderer(proj_scene, cfg, outputs=outputs, device=dev)
+
+    def projectile_run():
+        projectiles.step()
+        r_proj.render(bench_camera(0, dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_blocking_sync(True):
+            for k in range(FRAMES):
+                projectiles.step(spawn_pos=(0.0, 1.0, 0.0), spawn_vel=(2.0, 4.0, 0.0))
+                out = r_proj.render(bench_camera(k, dev))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / FRAMES, out
+
+    proj_ms, out = launches_of(projectile_run, FRAMES + 1, "projectiles")
+    path_launches["projectiles"] = FRAMES + 1
+    check_image(out)
+    alive = projectiles.alive_count()
+    if alive == 0:
+        raise AssertionError("projectiles: none alive after the orbit")
+    state = CameraState(position=np.array([18 * math.sin(0.3), 6.0, 18 * math.cos(0.3)],
+                                          np.float32), yaw=0.3, pitch=-0.3)
+
+    def controller_run():
+        nonlocal state
+        frames = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CONTROLLER_FRAMES):
+            state = controller_step(state, InputFrame(forward=1.0, look_dx=0.01, speed=6.0),
+                                    1 / 30)
+            frames.append(renderer.render(to_camera(state, fov_y=0.9, aspect=WIDTH / HEIGHT,
+                                                    near=0.1, far=200.0, device=dev))["image"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / CONTROLLER_FRAMES, frames
+
+    ctl_ms, frames = launches_of(controller_run, CONTROLLER_FRAMES, "camera controller")
+    path_launches["camera_controller"] = CONTROLLER_FRAMES
+    if not all(bool(torch.isfinite(f).all()) for f in frames) or torch.equal(frames[0], frames[-1]):
+        raise AssertionError("camera controller: frames not finite or not moving")
+    prefix = os.path.join(cuda_build.BUILD_DIR, "chip_smoke_checkpoint")
+    r_stream = run["renderer"]
+    save_renderer(prefix, r_stream)
+    fresh = Renderer(clone_scene(base), cfg, outputs=outputs, device=dev)
+    load_renderer(prefix, fresh)
+    cam_next = bench_camera(FRAMES, dev)
+    a, b = launches_of(lambda: (r_stream.render(cam_next), fresh.render(cam_next)), 2,
+                       "checkpoint")
+    if not (torch.equal(a["image"], b["image"]) and torch.equal(a["vis"].tri_id, b["vis"].tri_id)):
+        raise AssertionError("checkpoint: the loaded renderer's next frame differs")
+    path_launches["checkpoint"] = 2
+    ck_bytes = sum(os.path.getsize(prefix + ext) for ext in (".scene.npz", ".state.npz"))
+    stats = FrameStats()
+    stats.samples = [proj_ms / 1e3] * FRAMES
+    text = format_hud(r_stream, frame_stats=stats, arena=arena, streamer=streamer)
+    runtime_lines = [ln for ln in text.split("\n") if ln.startswith(("fps", "staging arena",
+                                                                       "streaming"))]
+    if len(runtime_lines) != 3:
+        raise AssertionError(f"HUD: runtime lines missing in {text!r}")
+    arena.close()
+    phase("runtime_extras", f"bench frame with {PROJECTILES} projectile slots stepped before each "
+                            f"frame, under sync-debug 'error': {proj_ms:.2f} ms/frame over "
+                            f"{FRAMES} frames (base {frame_ms:.2f}), {alive} alive at the end; the "
+                            f"camera controller drove {CONTROLLER_FRAMES} frames at "
+                            f"{ctl_ms:.2f} ms/frame; the streamed renderer saved "
+                            f"({ck_bytes / 2**20:.1f} MiB of .npz) and loaded into a fresh one: "
+                            f"the next frame identical bit for bit; HUD: "
+                            + " | ".join(runtime_lines) + f" ({card})")
+
+    # 35. kernel reload on the bench renderer ----------------------------------------------
+    reloader = KernelReloader(renderer)
+    cam0 = bench_camera(0, dev)
+    before = renderer.render(cam0)
+    kernel_obj, launches_before = rc.RASTER_TILES, rc.RASTER_TILES.launches
+    for path in (importlib.import_module(RELOAD_MODULE).__file__, rc.LIBRARY.source):
+        st = os.stat(path)
+        os.utime(path, (st.st_atime, st.st_mtime + 1.0))  # contents unchanged
+    t0 = time.perf_counter()
+    swapped = reloader.poll()
+    reload_ms = (time.perf_counter() - t0) * 1e3
+    if not swapped or reloader.stats != {"reloads": 1, "failures": 0}:
+        raise AssertionError(f"reload: poll {swapped}, stats {reloader.stats}, "
+                             f"{reloader.last_error}")
+    after = launches_of(lambda: renderer.render(cam0), 1, "reload")
+    path_launches["reload"] = 1
+    if not (torch.equal(before["image"], after["image"])
+            and torch.equal(before["vis"].tri_id, after["vis"].tri_id)):
+        raise AssertionError("reload: the frame after differs from the frame before")
+    if rc.RASTER_TILES is not kernel_obj or KERNELS[0] is not kernel_obj:
+        raise AssertionError("reload: kernel 1's CudaKernel object was replaced")
+    phase("reload", f"{len(reloader.modules)} modules and {len(reloader.sources)} kernel sources "
+                    f"watched; {RELOAD_MODULE} and {os.path.relpath(rc.LIBRARY.source, ROOT)} "
+                    f"touched (contents unchanged): poll() True in {reload_ms:.1f} ms of host "
+                    f"time, stats {reloader.stats}; the frame after equals the frame before bit "
+                    f"for bit; kernel 1's CudaKernel is the same object and counted the frame's "
+                    f"launch ({launches_before} launches before the reload) ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    t_start = _phase_clock[0] = time.perf_counter()
     dev = torch.device("cuda")
     kernels = {}
 
@@ -1542,12 +2026,16 @@ def main() -> int:
     profile_main_path("rt_profile", rt_renderer, dev, card)
 
     shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, card)
-    culling_phases(scene, prepared, cfg, renderer, kernel_ms, path_launches, dev, card)
+    city = culling_phases(scene, prepared, cfg, renderer, kernel_ms, path_launches, dev, card)
     tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card)
+    runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, card)
     kernels["raster_tiles"]["launches"] = sum(path_launches.values())
     phase("launches", f"raster kernel launches per main path, each counted from 0: "
                       f"{json.dumps(path_launches)}, {sum(path_launches.values())} in all")
 
+    phase("phase_seconds", "host seconds of each phase, from the line before it: "
+                           + json.dumps(PHASE_SECONDS))
+    phase("total", f"chip_smoke ran {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [kernels[k] for k in
                                   ("raster_tiles", "occlusion_tiles", "add_one", "transpose")]}))
     print(card)

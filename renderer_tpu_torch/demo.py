@@ -2,13 +2,16 @@
 
     python -m renderer_tpu_torch.demo --scene textured --size 512 --out frame.png
     python -m renderer_tpu_torch.demo --scene box --size 64 --out box.png --device cpu
+    python -m renderer_tpu_torch.demo --scene glb:assets/colonnade.glb --frames 30 --watch
 
 The frame renders on the CUDA card (kernel 1, ``csrc/raster.cu``, is the
 raster); ``--device cpu`` runs the plain PyTorch versions on the CPU.
-Scenes: box, spheres, mixed, textured, skinned, city. The glTF scenes
-(colonnade, glb:<path>), ``--watch`` and ``--spmd`` are not ported yet
-(ROADMAP.md queue 1, items 11 and 12): the demo exits naming the item
-and renders nothing in their place.
+Scenes: box, spheres, mixed, textured, skinned, city, colonnade (the
+committed ``assets/colonnade.glb``) and glb:<path> (a .glb or .gltf with
+the colonnade's lights). ``--watch`` hot-reloads the ops and passes
+modules and the kernel sources between frames (``runtime.reload``).
+``--spmd`` is not ported yet (ROADMAP.md queue 1, item 12): the demo
+exits naming the item and renders nothing in its place.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import time
 import numpy as np
 import torch
 
-SCENES = ("box", "spheres", "mixed", "textured", "skinned", "city")
+SCENES = ("box", "spheres", "mixed", "textured", "skinned", "city", "colonnade")
+ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
+                     "colonnade.glb")
 NOT_PORTED = "not ported yet: ROADMAP.md queue 1, item {} ({})"
 
 
@@ -44,16 +49,22 @@ def no_blocking_sync(on: bool):
 def build_scene(name: str, device):
     from renderer_tpu_torch.mathx import quat_from_axis_angle
     from renderer_tpu_torch.models import city_scene, skinned_scene
+    from renderer_tpu_torch.models.scenes import _colonnade_lights
     from renderer_tpu_torch.scene import SceneBuilder, SceneLimits, primitives
+    from renderer_tpu_torch.scene.gltf import load_gltf
 
     if name == "colonnade" or name.startswith("glb:"):
-        raise SystemExit(f"--scene {name}: " + NOT_PORTED.format(11, "the glTF loader"))
+        # through the glTF parser (the colonnade's procedural twin is
+        # models.colonnade_scene); a GLB carries no lights
+        b = load_gltf(ASSET if name == "colonnade" else name[4:], SceneBuilder(SceneLimits()))
+        _colonnade_lights(b)
+        return b.build(device=device)
     if name == "skinned":
         return skinned_scene(device=device)
     if name == "city":
         return city_scene(device=device)
     if name not in SCENES:
-        raise SystemExit(f"unknown scene {name!r} (try: {', '.join(SCENES)})")
+        raise SystemExit(f"unknown scene {name!r} (try: {', '.join(SCENES)}, glb:<path>)")
     b = SceneBuilder(SceneLimits())
     if name == "box":
         box = b.add_mesh(primitives.box())
@@ -103,14 +114,16 @@ def build_scene(name: str, device):
 
 
 def make_camera(scene: str, angle: float, device):
-    """The orbit of the small scenes, or the city's street walk."""
+    """The orbit of the small scenes (wider and higher for the colonnade),
+    or the city's street walk."""
     from renderer_tpu_torch.mathx import Camera, quat_from_axis_angle, quat_mul
 
     if scene == "city":
         rot = quat_from_axis_angle((0.0, 1.0, 0.0), 0.15 * math.sin(angle), device="cpu")
         return Camera.create((0.0, 2.0, 70.0 - 20.0 * angle), rot.numpy(), fov_y=0.9, near=0.1,
                              far=400.0, device=device)
-    pos = (4.0 * math.sin(angle), 1.6, 4.0 * math.cos(angle))
+    r, h = (14.0, 3.0) if scene == "colonnade" else (4.0, 1.6)
+    pos = (r * math.sin(angle), h, r * math.cos(angle))
     rot = quat_mul(quat_from_axis_angle((0.0, 1.0, 0.0), angle, device="cpu"),
                    quat_from_axis_angle((1.0, 0.0, 0.0), -0.35, device="cpu"))
     return Camera.create(pos, rot.numpy(), fov_y=0.9, near=0.1, far=100.0, device=device)
@@ -151,15 +164,13 @@ def main(argv=None):
     ap.add_argument("--watch", action="store_true", help="hot-reload kernels between frames")
     ap.add_argument("--spmd", type=int, default=0, metavar="N", help="split the frame over N cards")
     args = ap.parse_args(argv)
-    if args.watch:
-        raise SystemExit("--watch: " + NOT_PORTED.format(11, "kernel reload"))
     if args.spmd > 1:
         raise SystemExit("--spmd: " + NOT_PORTED.format(12, "the split frame"))
 
     from renderer_tpu_torch.graph.dot import dump
     from renderer_tpu_torch.ops.overlay import hud_overlay
     from renderer_tpu_torch.passes.pipeline import PipelineConfig
-    from renderer_tpu_torch.runtime import Renderer
+    from renderer_tpu_torch.runtime import KernelReloader, Renderer
     from renderer_tpu_torch.runtime.hud import format_hud
     from renderer_tpu_torch.utils.image import srgb_encode, write_png
 
@@ -187,10 +198,13 @@ def main(argv=None):
     out = renderer.render(make_camera(args.scene, args.orbit, device), time_s=0.0)
     img = out["image"].cpu()
     print(f"first frame (kernels built on first use): {time.time() - t0:.2f} s on {device}")
+    reloader = KernelReloader(renderer) if args.watch else None
     if args.frames > 1:
         t0 = time.time()
         with no_blocking_sync(check):
             for k in range(args.frames):
+                if reloader is not None and reloader.poll():
+                    print(f"[watch] kernels reloaded at frame {k}")
                 out = renderer.render(make_camera(args.scene, args.orbit + 0.02 * k, device),
                                       time_s=k / 60.0)
         img = out["image"].cpu()

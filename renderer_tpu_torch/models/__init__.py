@@ -1,7 +1,9 @@
 """Scene families (``renderer_tpu.models``)."""
 
 from renderer_tpu_torch.models.scenes import (  # noqa: F401
+    box_scene,
     city_scene,
+    colonnade_scene,
     make_skinned_arm,
     skinned_scene,
     sponza_like_scene,

@@ -9,6 +9,17 @@ import numpy as np
 from renderer_tpu_torch.scene import HostMesh, Scene, SceneBuilder, SceneLimits, primitives
 
 
+def box_scene(limits: SceneLimits = None, device=None) -> Scene:
+    """One box, one material, a point and a directional light."""
+    b = SceneBuilder(limits or SceneLimits.tiny())
+    box = b.add_mesh(primitives.box())
+    m = b.add_material(base_color=(0.8, 0.25, 0.2, 1.0), roughness=0.7)
+    b.add_instance(box, m)
+    b.add_light(position=(2.0, 3.0, 4.0), intensity=20.0)
+    b.add_light(position=(-0.5, -1.0, -0.3), directional=True, intensity=0.4, shadow_slot=0)
+    return b.build(device=device)
+
+
 def textured_scene(limits: SceneLimits = None, atlas_size: int = 256,
                    device=None) -> Scene:
     """Textured PBR spheres, a box and a checkered floor."""
@@ -225,4 +236,65 @@ def city_scene(grid: int = 20, seed: int = 0, segments: int = 12,
             )
     b.add_light(position=(0.3, -1.0, 0.15), directional=True, intensity=2.5, shadow_slot=0)
     b.add_light(position=(0.0, 60.0, 0.0), intensity=2500.0)
+    return b.build(device=device)
+
+
+def colonnade_spec():
+    """The committed asset's spec: an atrium colonnade. Returns (meshes,
+    instances, materials) in ``scene.gltf.write_glb``'s format (instances
+    = [(mesh_idx, mat_idx, translation, rotation wxyz, scale)]), the source
+    of both ``assets/colonnade.glb`` and its procedural twin
+    ``colonnade_scene``. Each mesh has one material (mat_idx == mesh_idx):
+    ``write_glb`` assigns materials per mesh."""
+    meshes = [
+        primitives.plane(size=30.0),                 # 0 floor
+        primitives.box(),                            # 1 column shaft
+        primitives.torus(rings=20, sides=12),        # 2 capital ring
+        primitives.uv_sphere(rings=18, sectors=30),  # 3 ornament
+        primitives.box(),                            # 4 architrave beam
+    ]
+    materials = [
+        dict(base_color=(0.55, 0.53, 0.5, 1.0), roughness=0.9),   # stone floor
+        dict(base_color=(0.82, 0.79, 0.72, 1.0), roughness=0.6),  # marble
+        dict(base_color=(0.72, 0.45, 0.2, 1.0), roughness=0.35, metallic=1.0),  # bronze
+        dict(base_color=(0.6, 0.15, 0.12, 1.0), roughness=0.4),   # red ornament
+        dict(base_color=(0.75, 0.72, 0.66, 1.0), roughness=0.7),  # beam
+    ]
+    instances = [(0, 0, (0.0, -1.0, 0.0), (1.0, 0.0, 0.0, 0.0), 1.0)]
+    n_cols = 14
+    for side in (-1.0, 1.0):
+        for k in range(n_cols):
+            x = -13.0 + 2.0 * k
+            z = side * 4.0
+            # shaft: six touching drums; a torus capital; a sphere on every other
+            for seg in range(6):
+                instances.append((1, 1, (x, -0.775 + 0.45 * seg, z), (1.0, 0.0, 0.0, 0.0), 0.45))
+            instances.append((2, 2, (x, 1.8, z), (1.0, 0.0, 0.0, 0.0), 0.5))
+            if k % 2 == 0:
+                instances.append((3, 3, (x, 2.35, z), (1.0, 0.0, 0.0, 0.0), 0.35))
+        for k in range(n_cols - 1):  # architrave beams along each colonnade
+            instances.append((4, 4, (-12.0 + 2.0 * k, 2.15, side * 4.0),
+                              (1.0, 0.0, 0.0, 0.0), 0.9))
+    for k in range(5):  # central ornaments
+        instances.append((3, 3, (-8.0 + 4.0 * k, 0.1, 0.0),
+                          (0.92387953, 0.0, 0.38268343, 0.0), 0.8))
+    return meshes, instances, materials
+
+
+def _colonnade_lights(b: SceneBuilder) -> None:
+    """The colonnade's lights (a GLB carries none)."""
+    b.add_light(position=(6.0, 12.0, 8.0), intensity=220.0)
+    b.add_light(position=(-0.4, -1.0, -0.25), directional=True, intensity=2.0, shadow_slot=0)
+
+
+def colonnade_scene(limits: SceneLimits = None, device=None) -> Scene:
+    """The procedural twin of ``assets/colonnade.glb`` (``colonnade_spec``)."""
+    meshes, instances, materials = colonnade_spec()
+    b = SceneBuilder(limits or SceneLimits())
+    mesh_ids = [b.add_mesh(m) for m in meshes]
+    mat_ids = [b.add_material(base_color=m["base_color"], roughness=m.get("roughness", 0.8),
+                              metallic=m.get("metallic", 0.0)) for m in materials]
+    for mesh_idx, mat_idx, t, q, s in instances:
+        b.add_instance(mesh_ids[mesh_idx], mat_ids[mat_idx], translation=t, rotation=q, scale=s)
+    _colonnade_lights(b)
     return b.build(device=device)

@@ -9,7 +9,11 @@ Nothing is built when a module is imported. ``start()`` runs nvcc in the
 background, so several sources can build at once (``build_all``).
 
 Every kernel wrapper launches through ``CudaKernel`` and checks its inputs
-with ``check_inputs``: the one launch path of the package.
+with ``check_inputs``: the one launch path of the package. A kernel module
+makes its library with ``library()`` and its kernels with
+``CudaLibrary.kernel``; both are kept in ``LIBRARIES``, so a reloaded
+module gets the same objects back, and the kernel reloader
+(``runtime/reload.py``) rebuilds a library in place (``adopt``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,15 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
+# every library made by ``library()``, by the source's absolute path
+LIBRARIES: dict = {}
+
+
+def library(source: str) -> "CudaLibrary":
+    """The library of ``csrc/<source>`` (or of a path), made on first use
+    and the same object on every later call."""
+    lib = CudaLibrary(source)
+    return LIBRARIES.setdefault(os.path.abspath(lib.source), lib)
 
 
 class CudaLibrary:
@@ -44,6 +57,23 @@ class CudaLibrary:
         self._path = None
         self._proc = None
         self._lib = None
+        self.kernels = []  # every CudaKernel made over this library
+
+    def kernel(self, symbol: str, argtypes: list) -> "CudaKernel":
+        """The library's kernel ``symbol``, made on first use; a later call
+        (a reloaded module) gets the same object with these ``argtypes``."""
+        for k in self.kernels:
+            if k.symbol == symbol:
+                k.argtypes, k._fn = [*argtypes, ctypes.c_void_p], None
+                return k
+        return CudaKernel(self, symbol, argtypes)
+
+    def adopt(self, new: "CudaLibrary") -> None:
+        """Take ``new``'s build of the same source, rebuilt after an edit:
+        each kernel resolves its function there at its next launch."""
+        self._path, self._lib, self.build_log = new._path, new._lib, new.build_log
+        for k in self.kernels:
+            k._fn = None
 
     @property
     def path(self) -> str:
@@ -113,6 +143,7 @@ class CudaKernel:
         self.argtypes = [*argtypes, ctypes.c_void_p]
         self.launches = 0
         self._fn = None
+        library.kernels.append(self)
 
     def load(self):
         if self._fn is None:

@@ -20,7 +20,7 @@ import ctypes
 
 import torch
 
-from renderer_tpu_torch.ops.cuda_build import CudaKernel, CudaLibrary, check_inputs
+from renderer_tpu_torch.ops.cuda_build import check_inputs, library
 from renderer_tpu_torch.ops.raster_cuda import BLOCK, TILE_H, TILE_W
 
 REC = 20   # floats per caster record
@@ -33,10 +33,10 @@ O_OK = 19  # 1.0 live caster, 0.0 dead
 SEGMENT_BLOCKS = 32  # caster blocks per work item (tile, segment) of the kernel
 SEGMENT_MAX = 64     # the most the kernel takes (csrc/occlusion.cu SEG_MAX)
 
-LIBRARY = CudaLibrary("occlusion.cu")
+LIBRARY = library("occlusion.cu")
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-OCCLUSION_TILES = CudaKernel(LIBRARY, "rtt_occlusion_tiles",
-                             [_PTR] * 7 + [_I32] * 5 + [_PTR, _PTR, ctypes.c_size_t])
+OCCLUSION_TILES = LIBRARY.kernel("rtt_occlusion_tiles",
+                                 [_PTR] * 7 + [_I32] * 5 + [_PTR, _PTR, ctypes.c_size_t])
 PLAIN_CHUNK = 1 << 24  # (tile, caster, receiver) triples per plain-version step
 
 

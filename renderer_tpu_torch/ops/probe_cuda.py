@@ -13,12 +13,12 @@ import ctypes
 
 import torch
 
-from renderer_tpu_torch.ops.cuda_build import CudaKernel, CudaLibrary, check_inputs
+from renderer_tpu_torch.ops.cuda_build import check_inputs, library
 
-LIBRARY = CudaLibrary("probe.cu")
+LIBRARY = library("probe.cu")
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-ADD_ONE = CudaKernel(LIBRARY, "rtt_add_one", [_PTR, _PTR, _I32])
-TRANSPOSE = CudaKernel(LIBRARY, "rtt_transpose", [_PTR, _PTR, _I32, _I32])
+ADD_ONE = LIBRARY.kernel("rtt_add_one", [_PTR, _PTR, _I32])
+TRANSPOSE = LIBRARY.kernel("rtt_transpose", [_PTR, _PTR, _I32, _I32])
 
 
 def add_one_plain(x: torch.Tensor) -> torch.Tensor:

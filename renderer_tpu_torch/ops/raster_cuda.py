@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from renderer_tpu_torch.ops.cuda_build import CudaKernel, CudaLibrary, check_inputs
+from renderer_tpu_torch.ops.cuda_build import check_inputs, library
 from renderer_tpu_torch.ops.raster_spec import DEPTH_CLEAR, FRONT_DET_SIGN, NO_TRIANGLE
 
 TILE_H = 16
@@ -32,7 +32,7 @@ R_W = 12    # 12..14 w_clip per corner
 R_BB = 15   # 15..18 bbox xmin, xmax, ymin, ymax in pixels (+-inf if dead)
 R_TL = 19   # 19..21 top-left flag per edge (1.0 / 0.0)
 
-LIBRARY = CudaLibrary("raster.cu")
+LIBRARY = library("raster.cu")
 
 
 class VisibilityBuffer(NamedTuple):
@@ -213,8 +213,8 @@ def raster_tiles_plain(rec, masks, block_list, block_count, block_simple,
     return image(depth), image(tid), image(b0), image(b1)
 
 
-RASTER_TILES = CudaKernel(LIBRARY, "rtt_raster_tiles",
-                          [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5)
+RASTER_TILES = LIBRARY.kernel("rtt_raster_tiles",
+                              [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5)
 
 
 def raster_kernel(rec, masks, block_list, block_count, block_simple,

@@ -106,6 +106,9 @@ class Renderer:
         self.outputs = tuple(outputs)
         self.config = RuntimeConfig()
         self._pending_config = RuntimeConfig()
+        # the plan builder (``build_forward_plan``'s signature); the kernel
+        # reloader swaps it and clears the plans
+        self.plan_builder = build_forward_plan
         self._plans = {}
         self.scene = scene
         self.state = initial_state(self.cfg, self.device)
@@ -129,8 +132,8 @@ class Renderer:
         """The plan of the active switch set, built on first use."""
         key = tuple(sorted(vars(self.config).items()))
         if key not in self._plans:
-            self._plans[key] = build_forward_plan(self.cfg, self.outputs, self.light_casts,
-                                                  **vars(self.config))
+            self._plans[key] = self.plan_builder(self.cfg, self.outputs, self.light_casts,
+                                                 **vars(self.config))
         return self._plans[key]
 
     def _external(self, camera: Camera, time_s: float = 0.0, overlay=None) -> dict:

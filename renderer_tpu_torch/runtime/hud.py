@@ -1,9 +1,10 @@
 """The HUD's text (``renderer_tpu.runtime.hud``): the frame count and time,
-the runtime switches, the active plan's passes, shadow-caster truncation,
-the cluster budget and the cached atlas's state, and a check of a frame's
-outputs. Both read device values on the host, so they run between frames,
-never inside one. (The JAX package's raster bin-overflow line has no
-counterpart: the port's bin lists have no cap.)
+fps figures, the runtime switches, the active plan's passes, the staging
+arena and the streamer, shadow-caster truncation, the cluster budget and
+the cached atlas's state, and a check of a frame's outputs. Both read
+device values on the host, so they run between frames, never inside one.
+(The JAX package's raster bin-overflow line has no counterpart: the
+port's bin lists have no cap.)
 """
 
 from __future__ import annotations
@@ -16,16 +17,35 @@ import numpy as np
 import torch
 
 
-def format_hud(renderer, extra: dict = None, prepared=None) -> str:
-    """The HUD panel's lines for ``renderer`` (a ``runtime.Renderer``);
+def format_hud(renderer, frame_stats=None, arena=None, streamer=None, extra: dict = None,
+               prepared=None) -> str:
+    """The HUD panel's lines for ``renderer`` (a ``runtime.Renderer``).
+    ``frame_stats`` (``utils.profiling.FrameStats``) adds the fps line,
+    ``arena`` (``runtime.allocator.Arena``) the staging arena's,
+    ``streamer`` (``runtime.streaming.SceneStreamer``) the streaming line;
     ``prepared`` (the last frame's prepare result) adds the shadow-caster
     and cluster-budget lines."""
     lines = ["=== renderer_tpu HUD ===",
              f"frame {renderer.stats['frames']}  plans built: {len(renderer._plans)}"
              f"  last frame: {renderer.stats['last_ms']:.1f} ms"]
+    if frame_stats is not None:
+        s = frame_stats.summary()
+        lines.append(f"fps: {s['fps']:.1f}  avg: {s['ms_avg']:.1f} ms  p99: {s['ms_p99']:.1f} ms")
     cfgd = dataclasses.asdict(renderer.config)
     lines.append("switches: " + "  ".join(f"{k}={'on' if v else 'off'}" for k, v in cfgd.items()))
     lines.append("active passes: " + " -> ".join(p.name for p in renderer.passes))
+    if arena is not None:
+        a = arena.stats()
+        lines.append("staging arena: "
+                     f"{a['used']/1e6:.1f}/{a['capacity']/1e6:.1f} MB used, "
+                     f"peak {a['peak_used']/1e6:.1f} MB, live allocs {a['live_allocs']}, "
+                     f"largest free {a['largest_free_block']/1e6:.1f} MB "
+                     f"({a['free_block_count']} blocks)")
+    if streamer is not None:
+        st = streamer.stats
+        lines.append(f"streaming: {st['uploaded']}/{st['requested']} uploaded "
+                     f"({st['decoded'] - st['uploaded']} decoded+queued), "
+                     f"budget {streamer.budget}/frame")
     cfg = renderer.cfg
     if prepared is not None:
         if renderer.config.shadows:

@@ -2,25 +2,21 @@
 (``renderer_tpu.scene.simplify``).
 
 The C++ source is the JAX package's ``renderer_tpu/native/meshproc.cc``,
-shared by both packages: it is compiled here with g++ at first use into
-``renderer_tpu_torch/_build/`` (keyed by a hash of the source), so the port
-imports nothing of the JAX package. LOD indices reference the original
-vertex pool.
+shared by both packages: it is compiled by path with g++ at first use
+(``utils.native``), so the port imports nothing of the JAX package. LOD
+indices reference the original vertex pool.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 
 import numpy as np
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "renderer_tpu", "native", "meshproc.cc")
-_BUILD_DIR = os.path.join(_PKG, "_build")
+from renderer_tpu_torch.utils.native import NATIVE_DIR, load_shared
+
 _lock = threading.Lock()
 _fn = None
 
@@ -28,27 +24,17 @@ _fn = None
 def _load():
     global _fn
     with _lock:
-        if _fn is not None:
-            return _fn
-        with open(_SRC, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        lib_path = os.path.join(_BUILD_DIR, f"libmeshproc-{digest}.so")
-        if not os.path.exists(lib_path):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{lib_path}.tmp{os.getpid()}"
-            subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp],
-                           check=True, capture_output=True)
-            os.replace(tmp, lib_path)  # atomic: concurrent builders race safely
-        fn = ctypes.CDLL(lib_path).rtpu_simplify_cluster
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-            ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
-        ]
-        _fn = fn
-        return fn
+        if _fn is None:
+            fn = load_shared(os.path.join(NATIVE_DIR, "meshproc.cc")).rtpu_simplify_cluster
+            fn.restype = ctypes.c_int
+            fn.argtypes = [
+                ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+                ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
+            ]
+            _fn = fn
+        return _fn
 
 
 def simplify(positions: np.ndarray, indices: np.ndarray, grid_size: int) -> np.ndarray:

@@ -19,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from renderer_tpu_torch.utils.image import resize_bilinear_u8
+
 
 class TextureAtlas(NamedTuple):
     """Device-side atlas. ``packed_u32`` holds R | G<<8 | B<<16 | A<<24 per
@@ -74,12 +76,8 @@ class TextureAtlasBuilder:
             img = np.concatenate(
                 [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], axis=-1
             )
-        if img.shape[:2] != (self.size, self.size):
-            from PIL import Image
-
-            img = np.asarray(
-                Image.fromarray(img).resize((self.size, self.size), Image.BILINEAR)
-            )
+        if img.shape[:2] != (self.size, self.size):  # Pillow's BILINEAR, bit for bit
+            img = resize_bilinear_u8(img, (self.size, self.size))
         self.layers.append(img)
         return len(self.layers) - 1
 

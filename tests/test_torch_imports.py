@@ -1,6 +1,8 @@
 """The port runs without jax and without the JAX package: the port package,
 chip_smoke.py and chip_ab.py import neither, directly or indirectly (the machine with
-the card has no jax installed, and the port stands alone)."""
+the card has no jax installed, and the port stands alone). Nor does it need
+Pillow for PNG textures or their resize: the machine with the card has
+none."""
 
 import os
 import re
@@ -11,6 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 FRAME = """
 import sys
+sys.modules["PIL"] = None  # the card's machine has no Pillow: importing it raises
 sys.path.insert(0, "tests")  # torch_raster_cases
 import numpy as np
 from renderer_tpu_torch.mathx import Camera
@@ -43,6 +46,52 @@ out = os.path.join(tempfile.mkdtemp(), "demo.png")
 demo.main(["--scene", "skinned", "--size", "64", "--out", out, "--device", "cpu", "--hud",
            "--dump-graphs"])
 assert os.path.exists(out)
+import json, time
+from renderer_tpu_torch.models import colonnade_scene
+from renderer_tpu_torch.runtime import AutoCapacityRenderer, KernelReloader, checkpoint
+from renderer_tpu_torch.runtime.allocator import Arena
+from renderer_tpu_torch.runtime.camera_controller import CameraState, to_camera
+from renderer_tpu_torch.runtime.gameplay import ProjectileSystem
+from renderer_tpu_torch.runtime.streaming import SceneStreamer
+from renderer_tpu_torch.scene import SceneBuilder, SceneLimits
+from renderer_tpu_torch.scene.gltf import load_gltf
+from renderer_tpu_torch.utils.image import write_png
+from renderer_tpu_torch.utils.profiling import FrameStats, trace
+import base64
+from renderer_tpu_torch.scene import primitives
+d = tempfile.mkdtemp()
+write_png(os.path.join(d, "t.png"), np.random.default_rng(0).uniform(size=(40, 24, 4)))
+box = primitives.box()
+blob = box.positions.tobytes() + box.indices.astype(np.uint32).tobytes()
+json.dump({"asset": {"version": "2.0"}, "buffers": [{"byteLength": len(blob),
+           "uri": "data:application/octet-stream;base64," + base64.b64encode(blob).decode()}],
+           "bufferViews": [{"buffer": 0, "byteOffset": 0, "byteLength": box.positions.nbytes},
+                           {"buffer": 0, "byteOffset": box.positions.nbytes,
+                            "byteLength": box.indices.size * 4}],
+           "accessors": [{"bufferView": 0, "componentType": 5126, "count": len(box.positions),
+                          "type": "VEC3"},
+                         {"bufferView": 1, "componentType": 5125, "count": box.indices.size,
+                          "type": "SCALAR"}],
+           "images": [{"uri": "t.png"}], "textures": [{"source": 0}],
+           "materials": [{"pbrMetallicRoughness": {"baseColorTexture": {"index": 0}}}],
+           "meshes": [{"primitives": [{"attributes": {"POSITION": 0}, "indices": 1,
+                                       "material": 0}]}],
+           "nodes": [{"mesh": 0}], "scenes": [{"nodes": [0]}]},
+          open(os.path.join(d, "t.gltf"), "w"))
+b = load_gltf(os.path.join(d, "t.gltf"), SceneBuilder(SceneLimits(), atlas_size=32))
+assert b._materials[0]["base_color_tex"] == 0
+b = load_gltf("assets/colonnade.glb", b)
+b.add_texture(np.random.default_rng(1).integers(0, 256, (50, 70, 4), dtype=np.uint8))
+scene = b.build(texture_slots=3, device="cpu")
+s = SceneStreamer(scene, arena=Arena(1 << 22, device="cpu"))
+s.request_texture(np.zeros((20, 9, 4), np.uint8))
+s.request_mesh("assets/colonnade.glb")
+while s.stats["uploaded"] < 2:
+    time.sleep(0.01)
+    s.pump()
+s.close()
+ProjectileSystem(scene, 0, 0, 4).step()
+print("PIL blocked:", "PIL" in sys.modules and sys.modules["PIL"] is None)
 import chip_ab, chip_smoke, torch_raster_cases  # noqa: F401
 import renderer_tpu_torch.ops.probe_cuda  # noqa: F401
 loaded = sorted(m for m in sys.modules
@@ -61,6 +110,7 @@ def test_port_renders_a_frame_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "JAX_MODULES []" in res.stdout, res.stdout
+    assert "PIL blocked: True" in res.stdout, res.stdout
 
 
 def test_no_jax_import_in_port_sources():

@@ -1,18 +1,26 @@
 """The Python side of the kernels' launch path, on the CPU: the occlusion
-kernel's scratch size and work split, and the wrappers' routing and input
-checks, which raise before anything is built or launched.
+kernel's scratch size and work split, the wrappers' routing and input
+checks, which raise before anything is built or launched, and
+``cuda_build``'s registry of libraries and kernels under the kernel
+reloader (a reloaded module keeps its objects; on the card, an edited
+source rebuilt into the same CudaKernel).
 """
 
 import ctypes
+import os
+import time
 
 import numpy as np
 import pytest
 import torch
 
+from renderer_tpu_torch.models import box_scene
 from renderer_tpu_torch.ops import cuda_build, probe_cuda
 from renderer_tpu_torch.ops import occlusion_cuda as oc
 from renderer_tpu_torch.ops import raster_cuda as rc
 from renderer_tpu_torch.ops.rt_grid import occlusion_inputs
+from renderer_tpu_torch.passes.pipeline import PipelineConfig
+from renderer_tpu_torch.runtime import KernelReloader, Renderer
 from torch_occlusion_cases import CASES
 
 
@@ -70,3 +78,66 @@ def test_launcher_appends_the_stream_pointer():
     assert kernel.argtypes == [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     assert kernel.launches == 0
     assert oc.OCCLUSION_TILES.argtypes[-1] is ctypes.c_void_p
+
+
+def edit(path, text):
+    time.sleep(0.01)
+    path.write_text(text)
+    os.utime(path)  # the mtime moves even on a coarse filesystem
+
+
+def test_reload_of_a_kernel_module_keeps_its_kernel_objects():
+    held = (probe_cuda.LIBRARY, probe_cuda.ADD_ONE, probe_cuda.TRANSPOSE)
+    kernels = list(probe_cuda.LIBRARY.kernels)
+    r = Renderer(box_scene(device="cpu"), PipelineConfig(width=64, height=64, tri_capacity=256))
+    reloader = KernelReloader(r, rebuild=lambda: r.plan_builder, modules=[probe_cuda.__name__],
+                              sources=[])
+    path = probe_cuda.__file__
+    st = os.stat(path)
+    os.utime(path, (st.st_atime, st.st_mtime + 1.0))  # contents unchanged
+    try:
+        assert reloader.poll() is True and reloader.stats == {"reloads": 1, "failures": 0}
+    finally:
+        os.utime(path, (st.st_atime, st.st_mtime))
+    assert all(a is b for a, b in zip((probe_cuda.LIBRARY, probe_cuda.ADD_ONE,
+                                       probe_cuda.TRANSPOSE), held))
+    assert cuda_build.LIBRARIES[os.path.abspath(probe_cuda.LIBRARY.source)] is held[0]
+    assert held[0].kernels == kernels and held[1] in kernels and held[2] in kernels
+
+
+@pytest.mark.gpu
+def test_reload_swaps_an_edited_kernel_source(tmp_path, monkeypatch):
+    """On the card: a copy of probe.cu built and launched, then edited so
+    add_one adds 2: poll() rebuilds it and the same CudaKernel object
+    launches the new code; a broken edit keeps it and counts a failure."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    text = open(os.path.join(cuda_build.CSRC, "probe.cu")).read()
+    body = "__fadd_rn(x[i], 1.0f)"
+    assert body in text
+    source = tmp_path / "probe_copy.cu"
+    source.write_text(text)
+    monkeypatch.setattr(cuda_build, "LIBRARIES", {})
+    lib = cuda_build.library(str(source))
+    kernel = lib.kernel("rtt_add_one", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int])
+    x = torch.arange(1024, dtype=torch.float32, device="cuda")
+
+    def add():
+        y = torch.empty_like(x)
+        kernel.launch(x.get_device(), x.data_ptr(), y.data_ptr(), x.numel())
+        return y
+
+    assert torch.equal(add(), x + 1)
+    first = lib.path
+    r = Renderer(box_scene(device="cpu"), PipelineConfig(width=64, height=64, tri_capacity=256))
+    reloader = KernelReloader(r, modules=[], sources=[str(source)])
+    edit(source, text.replace(body, "__fadd_rn(x[i], 2.0f)"))
+    assert reloader.poll() is True, reloader.last_error
+    assert reloader.stats == {"reloads": 1, "failures": 0}
+    assert lib.kernels == [kernel] and kernel.library is lib and lib.path != first
+    assert torch.equal(add(), x + 2)
+    edit(source, text.replace(body, "__fadd_rn(x[i], 2.0f"))  # does not compile
+    assert reloader.poll() is False
+    assert reloader.stats == {"reloads": 1, "failures": 1}
+    assert "nvcc failed" in reloader.last_error
+    assert torch.equal(add(), x + 2) and kernel.launches == 3

@@ -2,8 +2,8 @@
 the base, rt, shadowed exact and shadowed checkerboard+fix frames, the
 occlusion-culled, frozen, debug-AABB and cluster-culled ones, and the
 skinned (pose pass and per-corner cull), quarter-rate, SSAA, Lambert,
-reference-view and HUD ones render
-under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+reference-view and HUD ones render, and the scene streamer's pumps and
+the projectile step run, under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
 operation that waits for the card (a blocking copy between host and card,
 ``.item()``, ``nonzero``, a stream synchronization). The cameras are made
 by ``orbit_camera`` inside that window, as a render loop makes them, and
@@ -75,3 +75,61 @@ def test_frame_makes_no_blocking_sync(name):
         torch.cuda.set_sync_debug_mode("default")
     img = out["image"]
     assert img.shape == (CFG.height, CFG.width, 3) and bool(torch.isfinite(img).all())
+
+
+@pytest.mark.gpu
+def test_streaming_and_projectiles_make_no_blocking_sync():
+    """Every ``pump()`` (meshes, one chunked past CHUNK_VERTS, and a texture
+    resized to the layer size, staged through the page-locked arena), a
+    projectile step and a frame, under ``set_sync_debug_mode("error")``;
+    after ``close()`` the arena holds no block and the streamed vertices
+    are on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from renderer_tpu_torch.runtime.allocator import Arena
+    from renderer_tpu_torch.runtime.gameplay import ProjectileSystem
+    from renderer_tpu_torch.runtime.streaming import CHUNK_VERTS, SceneStreamer
+    from renderer_tpu_torch.scene import SceneLimits, primitives
+
+    dev = torch.device("cuda")
+    limits = SceneLimits(max_instances=1024, max_vertices=1 << 16, max_triangles=1 << 16,
+                         max_materials=64, max_lights=4)
+    scene = sponza_like_scene(256, limits=limits, texture_slots=6, device=dev)
+    projectiles = ProjectileSystem(scene, mesh_id=1, material_id=0, capacity=32)
+    projectiles.step()  # the slots it reserves count as live before the streamer starts
+    arena = Arena(64 << 20, device=dev)
+    streamer = SceneStreamer(scene, budget=2, arena=arena)
+    big = primitives.uv_sphere(rings=64, sectors=96)
+    assert len(big.positions) > CHUNK_VERTS
+    streamer.request_mesh(big, translation=(0.0, 2.0, 0.0), scale=3.0)
+    for i in range(3):
+        streamer.request_mesh(primitives.torus(), translation=(3.0 * i, 1.0, 2.0))
+    streamer.request_texture(np.random.default_rng(0).integers(0, 256, (512, 512, 4),
+                                                               dtype=np.uint8))
+    r = Renderer(scene, CFG, device=dev)
+    aspect = CFG.width / CFG.height
+    r.render(orbit_camera(0.3, aspect, dev))
+    for f in streamer._pending:
+        f.result(timeout=120)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(1, 6):
+            streamer.pump()
+            projectiles.step()
+            out = r.render(orbit_camera(0.3 + 0.01 * k, aspect, dev))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert streamer.stats["uploaded"] == 5 and arena.pinned
+    streamer.close()
+    assert arena.stats()["live_allocs"] == 0
+    lib = scene.meshes
+    off = int(lib.mesh_vertex_offset[int(lib.mesh_count) - 4])
+    assert torch.equal(lib.positions[off:off + len(big.positions)].cpu(),
+                       torch.from_numpy(big.positions))
+    assert projectiles.alive_count() > 0
+    img = out["image"]
+    assert img.shape == (CFG.height, CFG.width, 3) and bool(torch.isfinite(img).all())
+    arena.close()
