@@ -42,7 +42,7 @@ code is non-zero:
    is that of the work launched inside its range, matched through the
    profiler's correlation ids, kernels launched through ctypes included);
 10. the rt path's occlusion inputs at the bench camera (slot 0, the sun)
-    for rt_scale 2 and 1: kernel against plain version, bin lists, caster
+    for rt_scale 2, 1 and 4: kernel against plain version, bin lists, caster
     total against capacity, kernel / setup+binning+kernel / plain times,
     the kernel's share of its bound, its work items, the hit casters it
     stages against the casters listed, and its time per segment length;
@@ -147,7 +147,25 @@ code is non-zero:
 35. a KernelReloader on the bench renderer: one watched ops module and
     csrc/raster.cu touched, contents unchanged: poll() swaps, the frame
     after equals the frame before, kernel 1 counts on in the same
-    CudaKernel; the reload's host ms.
+    CudaKernel; the reload's host ms;
+36. the plain configuration (PipelineConfig(tile_raster=False): the scan
+    rasterizer, raster barycentrics, brute-force rt) on the JAX demo's
+    scenes (box, spheres, mixed, textured, skinned) at 512x512 and
+    tri_capacity 16384, 3 orbit frames each, and on textured and mixed one
+    shadowed, one rt and one checkerboard+fix frame: every frame under
+    sync-debug "error", ms/frame, device busy of one more traced frame,
+    the same frames on the CPU path (device "cpu") against the card's
+    (visible triangle equal on >= 99.9% of pixels, PSNR >= 50 dB, >= 40
+    for rt, shadowed and skinned), no kernel launched by the plain path,
+    the textured frame against the tile frame (the JAX package's
+    tests/test_pipeline.py:117 gate); render_forward on mixed against its
+    CPU path; the bench rt frame at rt_scale 2 and 4 against 1 (the
+    minimum over the gate poses of PSNR, reported against the 40 dB gate,
+    not enforced); mixed with its point light in a shadow slot through
+    kernel 2 (each cube face against the plain version, the frame with the
+    plain walk swapped in identical); the brute-force lit plane against
+    the grid's at rt_scale 1 on mixed, as a PSNR; and the demo with
+    --scan-raster --rt (exit 0, its PNG written).
 
 Every main path runs with every kernel's launch count set to 0 just
 before it and read just after (the raster kernel once per frame and per
@@ -176,7 +194,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
-from renderer_tpu_torch.demo import no_blocking_sync  # noqa: E402
+from renderer_tpu_torch.demo import build_scene as build_demo_scene  # noqa: E402
+from renderer_tpu_torch.demo import make_camera as make_demo_camera, no_blocking_sync  # noqa: E402
 from renderer_tpu_torch.mathx import Camera, orbit_camera, quat_from_axis_angle, quat_mul  # noqa: E402
 from renderer_tpu_torch.models import (  # noqa: E402
     city_scene, colonnade_scene, skinned_scene, sponza_like_scene)
@@ -184,6 +203,7 @@ from renderer_tpu_torch.models.scenes import _colonnade_lights, colonnade_spec  
 from renderer_tpu_torch.ops import cuda_build, geometry, occlusion_cuda as oc  # noqa: E402
 from renderer_tpu_torch.ops import probe_cuda, raster_cuda as rc, rt_grid as trt  # noqa: E402
 from renderer_tpu_torch.ops import shadow as tshadow  # noqa: E402
+from renderer_tpu_torch.ops import pbr as tpbr  # noqa: E402
 from renderer_tpu_torch.ops.pbr import fix_capacity, quarter_fix_capacity  # noqa: E402
 from renderer_tpu_torch.ops.skin import pose_scene  # noqa: E402
 from renderer_tpu_torch.ops.shadow import directional_light_matrices  # noqa: E402
@@ -201,6 +221,7 @@ from renderer_tpu_torch.runtime.streaming import CHUNK_VERTS, SceneStreamer  # n
 from renderer_tpu_torch.scene import SceneBuilder, SceneLimits, primitives  # noqa: E402
 from renderer_tpu_torch.scene.gltf import load_gltf  # noqa: E402
 from renderer_tpu_torch.utils import tree  # noqa: E402
+from renderer_tpu_torch.utils.compile_cache import enable_persistent_cache  # noqa: E402
 from renderer_tpu_torch.utils.image import psnr, read_png, resize_bilinear_u8, write_png  # noqa: E402
 from renderer_tpu_torch.utils.profiling import FrameStats  # noqa: E402
 from torch_occlusion_cases import CASES as OCCLUSION_CASES  # noqa: E402
@@ -226,6 +247,7 @@ HOT_TILES = 10  # phase 6 times the kernel on the heaviest tile alone and on the
 LAUNCH_CALLS = 10_000  # calls per piece of the launch-path breakdown
 PROBE_ROUNDS = 7  # rounds of add_one, its plain version and x + 1, timed in turns
 SEGMENT_SWEEP = (1, 8, 16, 32, 64)  # occlusion segment lengths timed in phase 10
+RT_SCALES = (2, 1, 4)  # phase 10's receiver grids
 # bench.py's shadowed tiers and quality gate (bench.py:43-59, 102, 257-265)
 GATE_ANGLES = (0.3, 0.3 + 0.005 * FRAMES, 0.3 + 0.01 * (FRAMES - 1))
 GATE_DB = 40.0
@@ -258,6 +280,21 @@ DEMO_RUNS = {  # name -> demo arguments besides --size, --out, --frames, --check
     "glb": ("--scene", "glb:assets/colonnade.glb"),
     "watch": ("--scene", "box", "--watch"),
 }
+# phase 36, the plain configuration: the JAX demo's scenes, size and capacity
+PLAIN_SCENES = ("box", "spheres", "mixed", "textured", "skinned")
+PLAIN_CAPACITY = 16384
+PLAIN_FRAMES = 3  # orbit frames per scene after a warm-up
+PLAIN_SWITCH_SCENES = ("textured", "mixed")
+PLAIN_SWITCHES = {  # name -> (config changes, runtime switches), one frame each
+    "shadows": ({}, dict(shadows=True)),
+    "rt": ({}, dict(rt=True)),
+    "checkerboard_fix": (dict(shade_rate="checkerboard"), {}),
+}
+PLAIN_DB = 50.0  # the CPU path against the card (PERF.md section 2)
+PLAIN_DB_LOOSE = 40.0  # rt, shadowed and skinned frames
+PLAIN_DEMO = ("--scene", "textured", "--scan-raster", "--rt")
+POINT_SLOT = 1  # the shadow slot phase 36 gives the mixed scene's point light
+BRUTE_SCENE = "mixed"
 ASSET = os.path.join(ROOT, "assets", "colonnade.glb")
 COLONNADE_CAPACITY = 1 << 16  # expansion 2^17 holds the asset's 36k triangles
 COLONNADE_FRAMES = 30
@@ -804,7 +841,7 @@ def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, 
             tier_launches[tier]["shadow_updates_per_frame"] = updates
         tier_renderers[tier] = r
     path_launches.update({t: n[rc.RASTER_TILES.symbol] for t, n in tier_launches.items()})
-    write_png(os.path.join(cuda_build.BUILD_DIR, "chip_smoke_shadowed_frame.png"),
+    write_png(os.path.join(enable_persistent_cache(), "chip_smoke_shadowed_frame.png"),
               np.clip(out["image"].cpu().numpy(), 0.0, 1.0))
     phase("tiers", "; ".join(
         f"{t} {ms:.2f} ms/frame = {1e3 / ms:.2f} FPS" + (
@@ -1141,11 +1178,10 @@ def swapped_plain_image(make_image):
 def run_demos(card) -> str:
     """Phase 30: the demo's runs, all started together, each in its own
     process; each must exit 0 and write its PNG. Returns the phase line."""
-    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=ROOT)
     procs = {}
     for name, args in DEMO_RUNS.items():
-        out = os.path.join(cuda_build.BUILD_DIR, f"demo_{name}.png")
+        out = os.path.join(enable_persistent_cache(), f"demo_{name}.png")
         if os.path.exists(out):
             os.remove(out)
         cmd = [sys.executable, "-m", "renderer_tpu_torch.demo", "--size", str(DEMO_SIZE),
@@ -1171,7 +1207,8 @@ def run_demos(card) -> str:
     if failed:
         raise AssertionError("demo runs failed: " + " | ".join(failed))
     return (f"{len(results)} runs at {DEMO_SIZE}x{DEMO_SIZE}, 3 frames after the first, all "
-            f"under --check-sync, exit 0, PNGs in {os.path.relpath(cuda_build.BUILD_DIR, ROOT)}/ "
+            f"under --check-sync, exit 0, PNGs in "
+            f"{os.path.relpath(enable_persistent_cache(), ROOT)}/ "
             f"in {time.perf_counter() - t0:.1f} s: " + "; ".join(results) + f" ({card})")
 
 
@@ -1232,7 +1269,7 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
     if moved <= 1e-4 or changed == 0 or not all(bool(torch.isfinite(i).all()) for i in images):
         raise AssertionError(f"skinned scene: least vertex move {moved}, least pixels changed "
                              f"{changed} between frames")
-    write_png(os.path.join(cuda_build.BUILD_DIR, "chip_smoke_skinned_frame.png"),
+    write_png(os.path.join(enable_persistent_cache(), "chip_smoke_skinned_frame.png"),
               np.clip(images[-1].cpu().numpy(), 0.0, 1.0))
     phase("skinned_scene", f"skinned_scene at {WIDTH}x{HEIGHT}, {SKIN_FRAMES} frames over its 1 s "
                            f"clip: between consecutive frames the vertices move at least "
@@ -1645,7 +1682,7 @@ def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, car
     path_launches["camera_controller"] = CONTROLLER_FRAMES
     if not all(bool(torch.isfinite(f).all()) for f in frames) or torch.equal(frames[0], frames[-1]):
         raise AssertionError("camera controller: frames not finite or not moving")
-    prefix = os.path.join(cuda_build.BUILD_DIR, "chip_smoke_checkpoint")
+    prefix = os.path.join(enable_persistent_cache(), "chip_smoke_checkpoint")
     r_stream = run["renderer"]
     save_renderer(prefix, r_stream)
     fresh = Renderer(clone_scene(base), cfg, outputs=outputs, device=dev)
@@ -1701,6 +1738,243 @@ def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, car
                     f"time, stats {reloader.stats}; the frame after equals the frame before bit "
                     f"for bit; kernel 1's CudaKernel is the same object and counted the frame's "
                     f"launch ({launches_before} launches before the reload) ({card})")
+
+
+def plain_run(name: str, changes: dict, switches: dict, dev, frames: int, warmup: bool):
+    """The plain configuration on ``dev`` with the JAX demo's scene ``name``
+    at its size and capacity: a warm-up frame (if ``warmup``), then
+    ``frames`` frames of the demo's orbit (angle 0.5 + 0.02k, clip time
+    k/60), on the card under sync-debug "error", and on the card one more
+    frame traced for its device busy time. Returns (per frame (image,
+    visible identity) on the host, ms/frame, busy ms of the traced frame or
+    None, the last frame's soup count)."""
+    scene = build_demo_scene(name, dev)
+    cfg = PipelineConfig(width=DEMO_SIZE, height=DEMO_SIZE, tri_capacity=PLAIN_CAPACITY,
+                         skinning=name == "skinned", tile_raster=False, **changes)
+    r = Renderer(scene, cfg, outputs=("image", "vis", "soup"), device=dev)
+    r.set_config(**switches)
+    r.apply_config_now()
+
+    def frame(k):
+        return r.render(make_demo_camera(name, 0.5 + 0.02 * k, dev), time_s=k / 60.0)
+
+    if warmup:
+        frame(0)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_blocking_sync(on_card):
+        outs = [frame(k) for k in range(frames)]
+    if on_card:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / frames
+    busy = device_busy_ms(lambda: frame(frames)) if on_card else None
+    return ([(o["image"].cpu().numpy(), visible_identity(o).cpu().numpy()) for o in outs], ms,
+            busy, int(outs[-1]["soup"].count))
+
+
+def device_busy_ms(fn) -> float:
+    """Device busy ms of one call of ``fn`` (the profiler's CUDA activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def held_to_cpu(label: str, card_frames, cpu_frames, db: float) -> str:
+    """Each card frame against the same frame on the CPU path: the visible
+    triangle equal on >= 99.9% of pixels and display-clamped PSNR >= db.
+    Returns the worst of each, formatted."""
+    same, worst = 1.0, math.inf
+    for (img, ident), (cimg, cident) in zip(card_frames, cpu_frames, strict=True):
+        if not np.isfinite(img).all():
+            raise AssertionError(f"{label}: image not finite")
+        same = min(same, float((ident == cident).mean()))
+        worst = min(worst, psnr(np.clip(img, 0, 1), np.clip(cimg, 0, 1)))
+    if same < 0.999 or worst < db:
+        raise AssertionError(f"{label}: card against CPU path: visible triangle equal on "
+                             f"{100 * same:.3f}% of pixels, PSNR {worst:.2f} dB (want >= 99.9%, "
+                             f">= {db} dB)")
+    return f"CPU path: triangle equal {100 * same:.3f}%, PSNR >= {fmt_db(worst)} dB"
+
+
+def plain_phases(scene, cfg, path_launches, dev, card) -> None:
+    """Phase 36: the plain configuration (tile_raster=False) on the card:
+    the JAX demo's scenes, their shadowed, rt and checkerboard frames, the
+    plain frame against the tile frame, render_forward and the demo; then
+    the rt cells the tile configuration left open: rt_scale 2 and 4 against
+    1 at the bench, a point-light slot through kernel 2, and the brute-force
+    planes against the grid's. Every card run comes first; the demo then
+    renders on the card while the same frames render on the CPU path."""
+    cpu = torch.device("cpu")
+    runs = [(name, "orbit", {}, {}, PLAIN_FRAMES) for name in PLAIN_SCENES]
+    runs += [(name, sw, *PLAIN_SWITCHES[sw], 1) for name in PLAIN_SWITCH_SCENES
+             for sw in PLAIN_SWITCHES]
+    for k in KERNELS:
+        k.launches = 0
+    card_runs = [plain_run(name, changes, switches, dev, n, warmup=True)
+                 for name, _, changes, switches, n in runs]
+    launched = {k.symbol: k.launches for k in KERNELS}
+    path_launches["plain"] = launched[rc.RASTER_TILES.symbol]
+    if any(launched.values()):
+        raise AssertionError(f"the plain configuration launched kernels: {launched}")
+    # the textured plain frame against the tile frame (kernel 1), the JAX
+    # package's tests/test_pipeline.py:117 gate
+    tile = Renderer(build_demo_scene("textured", dev),
+                    PipelineConfig(width=DEMO_SIZE, height=DEMO_SIZE, tri_capacity=PLAIN_CAPACITY),
+                    device=dev)
+    img_tile = tile.render(make_demo_camera("textured", 0.5, dev))["image"].cpu().numpy()
+    err = np.abs(img_tile - card_runs[PLAIN_SCENES.index("textured")][0][0][0])
+    if not ((err < 0.02).mean() > 0.95 and err.mean() < 0.005):
+        raise AssertionError(f"plain against tile frame: error < 0.02 on "
+                             f"{100 * (err < 0.02).mean():.2f}%, mean {err.mean():.5f}")
+
+    # render_forward on mixed
+    from renderer_tpu_torch.passes.forward import render_forward
+
+    def forward(d):
+        scene_d, cam_d = build_demo_scene("mixed", d), make_demo_camera("mixed", 0.5, d)
+        return lambda: render_forward(scene_d, cam_d, DEMO_SIZE, DEMO_SIZE, PLAIN_CAPACITY)
+
+    fwd = forward(dev)
+    fwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_blocking_sync(True):
+        img, vis = fwd()
+    torch.cuda.synchronize()
+    f_ms = (time.perf_counter() - t0) * 1e3
+    f_busy = device_busy_ms(fwd)
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    demo_png = os.path.join(enable_persistent_cache(), "demo_plain_rt.png")
+    if os.path.exists(demo_png):
+        os.remove(demo_png)
+    demo_proc = subprocess.Popen(  # on the card while the CPU path renders below
+        [sys.executable, "-m", "renderer_tpu_torch.demo", "--size", str(DEMO_SIZE), "--out",
+         demo_png, "--frames", "3", "--check-sync", *PLAIN_DEMO],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    for (name, label, changes, switches, n), (frames, ms, busy, count) in zip(runs, card_runs):
+        t0 = time.perf_counter()
+        # a warm-up only under shadows (the cached atlas): the other frames
+        # keep no state between frames
+        cpu_frames = plain_run(name, changes, switches, cpu, n, warmup="shadows" in switches)[0]
+        cpu_ms = (time.perf_counter() - t0) * 1e3 / n
+        loose = name == "skinned" or "shadows" in switches or "rt" in switches
+        held = held_to_cpu(f"{name} {label}", frames, cpu_frames,
+                           PLAIN_DB_LOOSE if loose else PLAIN_DB)
+        lines.append(f"{name} {label} ({n} frames): {ms:.1f} ms/frame, busy {busy:.1f} ms/frame "
+                     f"(idle {100 * max(0.0, 1 - busy / ms):.1f}%), {count} triangles, {held} "
+                     f"(CPU {cpu_ms:.0f} ms/frame)")
+    phase("plain", f"{len(runs)} plain-configuration runs at {DEMO_SIZE}x{DEMO_SIZE}, "
+                   f"tri_capacity {PLAIN_CAPACITY}, trilinear, each after a warm-up frame, under "
+                   f"sync-debug \"error\"; busy from one more traced frame; kernel launches on the "
+                   f"plain path {launched} ({card}): " + "; ".join(lines)
+          + f"; textured plain against tile frame: error < 0.02 on "
+            f"{100 * (err < 0.02).mean():.3f}% of pixels, mean {err.mean():.2e}")
+    cimg, cvis = forward(cpu)()
+    held = held_to_cpu("render_forward", [(img.cpu().numpy(), vis.tri_id.cpu().numpy())],
+                       [(cimg.numpy(), cvis.tri_id.numpy())], PLAIN_DB)
+    phase("plain_forward", f"render_forward on mixed at {DEMO_SIZE}x{DEMO_SIZE}: {f_ms:.1f} ms, "
+                           f"busy {f_busy:.1f} ms, under sync-debug \"error\", coverage "
+                           f"{float((vis.tri_id >= 0).float().mean()):.3f}; {held} ({card})")
+    try:
+        log, _ = demo_proc.communicate(timeout=DEMO_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        demo_proc.kill()
+        log, _ = demo_proc.communicate()
+    if demo_proc.returncode != 0 or not os.path.exists(demo_png):
+        raise AssertionError(f"demo {' '.join(PLAIN_DEMO)} (exit {demo_proc.returncode}): "
+                             f"{log[-2000:]}")
+    png = read_png(demo_png)
+    if png.shape != (DEMO_SIZE, DEMO_SIZE, 3) or png.std() < 2.0:
+        raise AssertionError(f"demo {' '.join(PLAIN_DEMO)}: PNG {png.shape}, std {png.std():.2f}")
+    steady = [ln for ln in log.splitlines() if ln.startswith("steady-state")]
+    phase("plain_demo", f"python -m renderer_tpu_torch.demo {' '.join(PLAIN_DEMO)} --size "
+                        f"{DEMO_SIZE} --frames 3 --check-sync, on the card while the CPU path "
+                        f"rendered: exit 0, {os.path.relpath(demo_png, ROOT)} written; "
+                        f"{steady[0] if steady else 'no steady-state line'} ({card})")
+
+    # rt_scale 2 and 4 against 1 at the bench (tile configuration, kernel 2) ----
+    gate = {}
+    for s in (1, 2, 4):
+        r = Renderer(scene, dataclasses.replace(cfg, rt_scale=s), device=dev)
+        r.set_config(rt=True)
+        r.apply_config_now()
+        gate[s] = gate_frames(r, dev)
+    db2, db4 = psnr_min(gate[2], gate[1]), psnr_min(gate[4], gate[1])
+    phase("rt_scales", f"bench rt frame, min over the gate poses "
+                       f"{[round(a, 3) for a in GATE_ANGLES]} of display-clamped "
+                       f"PSNR against rt_scale 1: rt_scale 2 {fmt_db(db2)} dB, rt_scale 4 "
+                       f"{fmt_db(db4)} dB (gate {GATE_DB} dB: "
+                       f"{'met' if db2 >= GATE_DB else 'missed'}, "
+                       f"{'met' if db4 >= GATE_DB else 'missed'}; reported, not enforced) ({card})")
+
+    # a point-light slot through kernel 2 ---------------------------------------
+    pscene = build_demo_scene("mixed", dev)
+    pscene.lights.shadow_slot[0] = POINT_SLOT  # the point light casts: six cube faces
+    pcfg = PipelineConfig(width=DEMO_SIZE, height=DEMO_SIZE, tri_capacity=PLAIN_CAPACITY)
+    pr = Renderer(pscene, pcfg, device=dev)
+    pr.set_config(rt=True)
+    pr.apply_config_now()
+    pcam = make_demo_camera("mixed", 0.5, dev)
+    pr.render(pcam)
+    oc.OCCLUSION_TILES.launches = 0
+    with Recorder(trt, "occlusion_grid") as rec:
+        p_img = pr.render(pcam)["image"]
+    p_launches = oc.OCCLUSION_TILES.launches
+    worst_faces = 0
+    for args, _, _ in rec.calls:
+        ins = trt.occlusion_inputs(*args)
+        got, want = oc.occlusion_kernel(*ins), oc.occlusion_tiles_plain(*ins)
+        worst_faces += int((got != want).sum())
+    if worst_faces or p_launches != len(rec.calls) or len(rec.calls) != 7:
+        raise AssertionError(f"point-light slot: {len(rec.calls)} traces, {p_launches} launches, "
+                             f"{worst_faces} receivers differ from the plain version")
+    kernel = trt.occlusion_kernel
+    trt.occlusion_kernel = oc.occlusion_tiles_plain
+    try:
+        p_plain = pr.render(pcam)["image"]
+    finally:
+        trt.occlusion_kernel = kernel
+    if not torch.equal(p_img, p_plain):
+        raise AssertionError("point-light rt frame differs with the plain occlusion walk")
+    p_ms = host_ms(lambda: pr.render(pcam))
+    phase("rt_point", f"mixed at {DEMO_SIZE}x{DEMO_SIZE} with its point light in slot "
+                      f"{POINT_SLOT} and the sun in slot 0, rt_scale 2: {len(rec.calls)} occlusion "
+                      f"walks per frame (1 + 6 cube faces) = kernel 2 launches {p_launches}, each "
+                      f"face's plane equal to the plain version's, the frame identical with the "
+                      f"plain walk swapped in; {p_ms:.1f} ms/frame ({card})")
+
+    # the brute-force planes against the grid's at rt_scale 1 on mixed ------------
+    planes = {}
+    for tile_raster in (True, False):
+        br = Renderer(build_demo_scene(BRUTE_SCENE, dev),
+                      PipelineConfig(width=DEMO_SIZE, height=DEMO_SIZE, tri_capacity=PLAIN_CAPACITY,
+                                     rt_scale=1, tile_raster=tile_raster),
+                      outputs=("image", "vis"), device=dev)
+        br.set_config(rt=True)
+        br.apply_config_now()
+        fn = "rt_shadow_grid" if tile_raster else "rt_shadow_planes"
+        with Recorder(tpbr, fn) as rec:
+            out = br.render(make_demo_camera(BRUTE_SCENE, 0.5, dev))
+        planes[tile_raster] = (rec.calls[0][2][0], out["vis"].tri_id >= 0,
+                               np.clip(out["image"].cpu().numpy(), 0, 1))
+    (g_plane, g_cov, g_img), (b_plane, b_cov, b_img) = planes[True], planes[False]
+    both = g_cov & b_cov
+    differ = float(((g_plane != b_plane) & both).sum()) / max(1, int(both.sum()))
+    plane_db = 10 * math.log10(1.0 / differ) if differ > 0 else math.inf
+    phase("brute_vs_grid", f"{BRUTE_SCENE} at {DEMO_SIZE}x{DEMO_SIZE}, rt_scale 1, the sun's slot: "
+                           f"brute-force and grid lit planes differ on {100 * differ:.3f}% of the "
+                           f"pixels both rasters cover = PSNR {fmt_db(plane_db)} dB; images "
+                           f"{fmt_db(psnr(g_img, b_img))} dB ({card})")
 
 
 def main() -> int:
@@ -1863,8 +2137,8 @@ def main() -> int:
         raise AssertionError(f"launches for {frames} frames of the base path: {base_launches}")
     path_launches = {"base": launches}
     img_base, coverage, brightness = check_image(out)
-    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    write_png(os.path.join(cuda_build.BUILD_DIR, "chip_smoke_frame.png"), np.clip(img_base, 0.0, 1.0))
+    write_png(os.path.join(enable_persistent_cache(), "chip_smoke_frame.png"),
+              np.clip(img_base, 0.0, 1.0))
     passes = renderer.pass_timings(orbit_camera(0.3 + 0.01 * (FRAMES - 1), WIDTH / HEIGHT, dev))
     phase("main_path", f"{frame_ms:.2f} ms/frame = {1e3 / frame_ms:.2f} FPS over {FRAMES} frames "
                        f"({card}); {int(out['soup'].count)} visible triangles; raster launches "
@@ -1894,7 +2168,7 @@ def main() -> int:
     profile_main_path("profile", renderer, dev, card)
 
     # 10. rt: slot 0's occlusion inputs at the bench camera --------------------
-    rt_cfgs = {s: dataclasses.replace(cfg, rt_scale=s) for s in (2, 1)}
+    rt_cfgs = {s: dataclasses.replace(cfg, rt_scale=s) for s in RT_SCALES}
     rt_inputs = {}
     for s, c in rt_cfgs.items():
         r = Renderer(scene, c, device=dev)
@@ -1909,7 +2183,7 @@ def main() -> int:
     demand = int(torch.where(visible, scene.meshes.lod_tri_count[mesh_id, prepared.lod], 0).sum())
     cap = cfg.caster_capacity
     grid = []
-    for s in (2, 1):
+    for s in RT_SCALES:
         clip, valid, lx, ly, ld = rt_inputs[s]
         args = trt.occlusion_inputs(clip, valid, lx, ly, ld)
         got = oc.occlusion_kernel(*args)
@@ -1984,7 +2258,8 @@ def main() -> int:
     if dark_share < 0.005:
         raise AssertionError(f"rt frame darker than the rt-off frame on only {100 * dark_share:.2f}% "
                              "of covered pixels")
-    write_png(os.path.join(cuda_build.BUILD_DIR, "chip_smoke_rt_frame.png"), np.clip(img_rt, 0.0, 1.0))
+    write_png(os.path.join(enable_persistent_cache(), "chip_smoke_rt_frame.png"),
+              np.clip(img_rt, 0.0, 1.0))
     rt_passes = rt_renderer.pass_timings(orbit_camera(0.3 + 0.01 * (FRAMES - 1), WIDTH / HEIGHT, dev))
     phase("rt_main_path", f"{rt_ms:.2f} ms/frame = {1e3 / rt_ms:.2f} FPS over {FRAMES} frames vs "
                           f"base {frame_ms:.2f} ms/frame ({card}); traced slots "
@@ -2029,6 +2304,7 @@ def main() -> int:
     city = culling_phases(scene, prepared, cfg, renderer, kernel_ms, path_launches, dev, card)
     tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card)
     runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, card)
+    plain_phases(scene, cfg, path_launches, dev, card)
     kernels["raster_tiles"]["launches"] = sum(path_launches.values())
     phase("launches", f"raster kernel launches per main path, each counted from 0: "
                       f"{json.dumps(path_launches)}, {sum(path_launches.values())} in all")

@@ -6,6 +6,12 @@
 
 The frame renders on the CUDA card (kernel 1, ``csrc/raster.cu``, is the
 raster); ``--device cpu`` runs the plain PyTorch versions on the CPU.
+The raster choice maps onto the JAX demo's the other way round: the JAX
+demo takes its plain XLA configuration unless given ``--pallas`` (the
+tile kernel); this demo takes kernel 1 unless given ``--scan-raster``,
+which selects the plain configuration (``PipelineConfig(tile_raster=
+False)``: the scan rasterizer, raster barycentrics, and for ``--rt`` exact
+brute-force rays).
 Scenes: box, spheres, mixed, textured, skinned, city, colonnade (the
 committed ``assets/colonnade.glb``) and glb:<path> (a .glb or .gltf with
 the colonnade's lights). ``--watch`` hot-reloads the ops and passes
@@ -146,6 +152,9 @@ def main(argv=None):
     ap.add_argument("--shadows", action="store_true", help="shadow-mapped lights")
     ap.add_argument("--occlusion", action="store_true", help="two-pass occlusion culling")
     ap.add_argument("--rt", action="store_true", help="ray-traced shadows")
+    ap.add_argument("--scan-raster", action="store_true",
+                    help="the plain configuration (the JAX demo's default, without --pallas): "
+                         "the scan rasterizer instead of kernel 1, brute-force rays for --rt")
     ap.add_argument("--reference-image", action="store_true",
                     help="tint where the frame differs from the independent scan rasterizer's")
     ap.add_argument("--ssaa", type=int, default=1, help="supersampling factor")
@@ -183,7 +192,8 @@ def main(argv=None):
                        tri_capacity=args.tri_capacity or (1 << 18 if args.scene == "city"
                                                           else 16384),
                        skinning=args.scene == "skinned", ssaa=args.ssaa,
-                       shade_rate=args.shade_rate, shade_fix=not args.no_shade_fix),
+                       shade_rate=args.shade_rate, shade_fix=not args.no_shade_fix,
+                       tile_raster=not args.scan_raster),
         outputs=("image", "vis", "prepared") if args.hud else ("image", "vis"), device=device)
     renderer.set_config(debug_aabbs=args.debug_aabbs, freeze_culling=args.freeze_culling,
                         shadows=args.shadows, occlusion_culling=args.occlusion, rt=args.rt,

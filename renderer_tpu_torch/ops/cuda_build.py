@@ -2,8 +2,9 @@
 launch its C functions.
 
 Each source is a shared library with a plain C interface, compiled for
-Hopper (``sm_90a``) at first use into ``renderer_tpu_torch/_build/``
-(git-ignored) under a name keyed by a hash of the source and the flags, so
+Hopper (``sm_90a``) at first use into the build directory of
+``utils/compile_cache.py`` (by default the git-ignored
+``renderer_tpu_torch/_build/``) under a name keyed by a hash of the source and the flags, so
 an edited source is rebuilt and an unchanged one is loaded as it is.
 Nothing is built when a module is imported. ``start()`` runs nvcc in the
 background, so several sources can build at once (``build_all``).
@@ -26,9 +27,9 @@ import time
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
+from renderer_tpu_torch.utils.compile_cache import enable_persistent_cache
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 # -fmad=false: no FMA contraction, so a kernel rounds every product and sum
 # as its plain PyTorch version does; -Xptxas -v reports registers and spills
 NVCC_FLAGS = (
@@ -85,7 +86,7 @@ class CudaLibrary:
             with open(self.source, "rb") as f:
                 digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode()).hexdigest()[:16]
             stem = os.path.splitext(os.path.basename(self.source))[0]
-            self._path = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+            self._path = os.path.join(enable_persistent_cache(), f"lib{stem}-{digest}.so")
         return self._path
 
     def start(self) -> None:
@@ -97,7 +98,6 @@ class CudaLibrary:
 
         if CUDA_HOME is None:
             raise RuntimeError(f"nvcc not found: the CUDA toolkit is needed to build {self.source}")
-        os.makedirs(BUILD_DIR, exist_ok=True)
         self._tmp = f"{path}.tmp{os.getpid()}"
         self._t0 = time.perf_counter()
         self._proc = subprocess.Popen(

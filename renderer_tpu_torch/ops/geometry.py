@@ -153,17 +153,14 @@ def coarse_cull(scene: Scene, model: torch.Tensor, viewproj: torch.Tensor) -> to
     """Instance-level frustum cull of world AABBs -> (..., N) bool visible
     under each (..., 4, 4) viewproj, with the camera cull's arithmetic
     (``prepare_frame_columns``). ``model`` is (N, 16) rows or (N, 4, 4)."""
-    flat = mats44(model).reshape(-1, 16)
-    m = [[flat[:, 4 * i + j] for j in range(4)] for i in range(3)]
-    cw, ew, _, _ = _world_aabb_cols(scene, m)
+    cw, ew, _, _ = _world_aabb_cols(scene, _cols_of(model))
     return scene.instances.alive & ~_outside_frustum(viewproj, cw, ew)
 
 
-def prepare_frame_columns(scene: Scene, camera: Camera) -> Prepared:
-    """Model and clip matrices, coarse frustum cull of world AABBs, the
-    distance LOD pick and the scene bounds, all as (N,) column math."""
-    inst = scene.instances
-    lib = scene.meshes
+def _model_cols(inst) -> list:
+    """The model matrix of every instance as columns ``m[i][j]`` (rows i <
+    3; the fourth row is (0, 0, 0, 1)): rotation times uniform scale, then
+    the translation."""
     tt = inst.translation.T
     qt = inst.rotation.T
     s = inst.scale
@@ -173,41 +170,88 @@ def prepare_frame_columns(scene: Scene, camera: Camera) -> Prepared:
         [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
         [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
     ]
-    m = [[r[i][j] * s for j in range(3)] + [tt[i]] for i in range(3)]
+    return [[r[i][j] * s for j in range(3)] + [tt[i]] for i in range(3)]
 
-    _, _, vp = camera_matrices(camera)
-    clip_cols = []
+
+def _model_rows(m: list) -> torch.Tensor:
+    """(N, 16) row-major matrices from ``_model_cols``'s columns."""
+    zero, one = torch.zeros_like(m[0][0]), torch.ones_like(m[0][0])
+    return torch.stack(m[0] + m[1] + m[2] + [zero, zero, zero, one], dim=-1)
+
+
+def _cols_of(model: torch.Tensor) -> list:
+    """The columns ``m[i][j]`` (rows i < 3) of (N, 16) or (N, 4, 4) matrices."""
+    flat = mats44(model).reshape(-1, 16)
+    return [[flat[:, 4 * i + j] for j in range(4)] for i in range(3)]
+
+
+def _clip_mat_cols(vp: torch.Tensor, m: list) -> list:
+    """The 16 columns of vp @ model, row-major, from the model's columns
+    (its fourth row (0, 0, 0, 1)), each sum taken left to right."""
+    cols = []
     for i in range(4):
         for j in range(4):
             c = vp[i, 0] * m[0][j] + vp[i, 1] * m[1][j] + vp[i, 2] * m[2][j]
             if j == 3:
                 c = c + vp[i, 3]
-            clip_cols.append(c)
+            cols.append(c)
+    return cols
 
-    cw, ew, mn_t, mx_t = _world_aabb_cols(scene, m)
-    visible = inst.alive & ~_outside_frustum(vp, cw, ew)
 
-    cam_p = camera.position
-    dx, dy, dz = cw[0] - cam_p[0], cw[1] - cam_p[1], cw[2] - cam_p[2]
+def _lod_cols(scene: Scene, cw: list, mn_t, mx_t, eye: torch.Tensor) -> torch.Tensor:
+    """(N,) distance LOD: log2 of a quarter of the distance from ``eye`` to
+    the world AABB centre ``cw`` over the bounding radius, floored and
+    clamped to the library's levels."""
+    s = scene.instances.scale
+    dx, dy, dz = cw[0] - eye[0], cw[1] - eye[1], cw[2] - eye[2]
     dist = torch.sqrt(dx * dx + dy * dy + dz * dz)
     radius = torch.sqrt(
         (mx_t[0] - mn_t[0]) ** 2 + (mx_t[1] - mn_t[1]) ** 2 + (mx_t[2] - mn_t[2]) ** 2
     ) * (0.5 * s)
     ratio = radius / torch.clamp(dist, min=1e-6)
     lod = torch.floor(torch.log2(torch.clamp(0.25 / torch.clamp(ratio, min=1e-6), min=1.0)))
-    lod = torch.clamp(lod, 0, lib.lod_tri_count.shape[1] - 1).long()
+    return torch.clamp(lod, 0, scene.meshes.lod_tri_count.shape[1] - 1).long()
+
+
+def prepare_frame_columns(scene: Scene, camera: Camera) -> Prepared:
+    """Model and clip matrices, coarse frustum cull of world AABBs, the
+    distance LOD pick and the scene bounds, all as (N,) column math."""
+    inst = scene.instances
+    m = _model_cols(inst)
+    _, _, vp = camera_matrices(camera)
+    cw, ew, mn_t, mx_t = _world_aabb_cols(scene, m)
+    visible = inst.alive & ~_outside_frustum(vp, cw, ew)
+    lod = _lod_cols(scene, cw, mn_t, mx_t, camera.position)
 
     # scene bounds over the alive instances (the light cameras' fit)
     big = 1e9
     scene_min = torch.stack([torch.where(inst.alive, cw[k] - ew[k], big).min() for k in range(3)])
     scene_max = torch.stack([torch.where(inst.alive, cw[k] + ew[k], -big).max() for k in range(3)])
 
-    zero, one = torch.zeros_like(s), torch.ones_like(s)
-    model = torch.stack(m[0] + m[1] + m[2] + [zero, zero, zero, one], dim=-1)
-    clip_mats = torch.stack(clip_cols, dim=-1)
+    clip_mats = torch.stack(_clip_mat_cols(vp, m), dim=-1)
     vp_inv = torch.linalg.inv_ex(vp).inverse
-    return Prepared(model, vp, clip_mats, visible, lod, vp_inv, scene_min, scene_max,
+    return Prepared(_model_rows(m), vp, clip_mats, visible, lod, vp_inv, scene_min, scene_max,
                     camera.position)
+
+
+def instance_matrices(scene: Scene) -> torch.Tensor:
+    """(N, 4, 4) model matrices of the whole instance table, as
+    ``prepare_frame_columns`` computes them."""
+    return _model_rows(_model_cols(scene.instances)).reshape(-1, 4, 4)
+
+
+def camera_clip_matrices(camera: Camera, model: torch.Tensor):
+    """(viewproj (4, 4), per-instance clip matrices viewproj @ model (N, 4,
+    4)), as ``prepare_frame_columns`` computes them."""
+    _, _, vp = camera_matrices(camera)
+    return vp, torch.stack(_clip_mat_cols(vp, _cols_of(model)), dim=-1).reshape(-1, 4, 4)
+
+
+def select_lod(scene: Scene, camera: Camera, model: torch.Tensor) -> torch.Tensor:
+    """(N,) int64 distance LOD per instance from the camera, as
+    ``prepare_frame_columns`` picks it."""
+    cw, _, mn_t, mx_t = _world_aabb_cols(scene, _cols_of(model))
+    return _lod_cols(scene, cw, mn_t, mx_t, camera.position)
 
 
 def _slot_map_starts(counts: torch.Tensor, capacity: int):
@@ -347,6 +391,103 @@ def expand_clip_only(scene: Scene, visible: torch.Tensor, lod: torch.Tensor,
                         mats44(clip_mats).reshape(-1, 16)[owner].T.contiguous())
         clip = torch.stack(cc, dim=1).reshape(capacity, 3, 4)
     return clip, valid, torch.clamp(total, max=capacity).to(torch.int32)
+
+
+def expand_draw_stream(scene: Scene, visible: torch.Tensor, lod: torch.Tensor,
+                       clip_mats: torch.Tensor, model: torch.Tensor, capacity: int) -> TriangleSoup:
+    """Every triangle of the visible instances at their LOD in a soup of
+    ``capacity`` slots, with its corner attributes (the plain
+    configuration's expansion; no cull, sort or records). A slot's owner
+    is found by a binary search of the running triangle counts, on the
+    device; slots past the total are invalid, with owner N - 1 and
+    library triangle 0. A scene with ``tri_rec`` transforms the record's
+    corners as ``build_draw_stream`` does, bit for bit; a posed scene
+    gathers its corners from the vertex pool."""
+    inst = scene.instances
+    lib = scene.meshes
+    n = inst.mesh_id.shape[0]
+    tc = _lod_tri_counts(scene, visible, lod)
+    ends = torch.cumsum(tc, 0)
+    total = ends[-1]
+    slots = torch.arange(capacity, device=tc.device)
+    owner = torch.clamp(torch.searchsorted(ends, slots, right=True), max=n - 1)
+    local = slots - (ends - tc)[owner]
+    valid = slots < total
+    tri_base = lib.lod_index_offset[inst.mesh_id.long()[owner], lod[owner]]
+    tri_idx = torch.where(valid, tri_base + local, 0)
+    vidx = lib.indices[tri_idx].long()  # (T, 3) library-global vertex ids
+    if lib.tri_rec is not None:
+        cc = _clip_cols(lib.tri_rec[tri_idx].T.contiguous(),
+                        mats44(clip_mats).reshape(-1, 16)[owner].T.contiguous())
+        clip = torch.stack(cc, dim=1).reshape(capacity, 3, 4)
+    else:
+        clip = _corner_map(lib.positions[vidx], mats44(clip_mats)[owner], True)
+    lin = mats44(model)[owner]
+    tan = lib.tangents[vidx]
+    return TriangleSoup(
+        clip=clip, instance=owner, valid=valid,
+        count=torch.clamp(total, max=capacity).to(torch.int32), tri_idx=tri_idx,
+        tex_lod=torch.zeros((capacity,), dtype=torch.float32, device=tc.device),
+        normal=_corner_map(lib.normals[vidx], lin, False), uv=lib.uvs[vidx],
+        tangent=torch.cat([_corner_map(tan[..., :3], lin, False), tan[..., 3:]], dim=-1))
+
+
+def adjugate3(m: torch.Tensor) -> torch.Tensor:
+    """Batched adjugate of (..., 3, 3)."""
+
+    def c(i, j):  # the cofactor of entry (j, i)
+        i1, i2, j1, j2 = (i + 1) % 3, (i + 2) % 3, (j + 1) % 3, (j + 2) % 3
+        return m[..., j1, i1] * m[..., j2, i2] - m[..., j1, i2] * m[..., j2, i1]
+
+    return torch.stack([torch.stack([c(i, j) for j in range(3)], dim=-1) for i in range(3)],
+                       dim=-2)
+
+
+def det3(m: torch.Tensor) -> torch.Tensor:
+    """(...,) determinant of (..., 3, 3), expanded along the first row."""
+    return (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1])
+            - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 0])
+            + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]))
+
+
+def triangle_setup(soup_clip: torch.Tensor, width: int, height: int):
+    """Per-triangle raster setup of clip corners (T, 3, 4) -> (adj (T, 3,
+    3), the edge functions as rows; det (T,), whose sign is the facing; zw
+    (T, 3, 2), each corner's clip z and w)."""
+    m = pixel_homogeneous(soup_clip, width, height).transpose(-1, -2)  # columns are corners
+    return adjugate3(m), det3(m), soup_clip[..., 2:4]
+
+
+def backface_cull_mask(det: torch.Tensor) -> torch.Tensor:
+    """(T,) True for front-facing triangles."""
+    return det * FRONT_DET_SIGN > 0
+
+
+def ndc_bounds(soup_clip: torch.Tensor):
+    """Conservative NDC bounds of each triangle -> (min_xy, max_xy), each
+    (T, 2); a triangle with a corner at or behind w = 0 gets the screen."""
+    w = soup_clip[..., 3]
+    ndc = soup_clip[..., :2] / torch.where(w.abs() > 1e-9, w, 1e-9)[..., None]  # (T, 3, 2)
+    all_front = (w > 1e-9).all(dim=-1, keepdim=True)
+    return (torch.where(all_front, ndc.min(dim=-2).values, -1.0),
+            torch.where(all_front, ndc.max(dim=-2).values, 1.0))
+
+
+def frustum_cull_mask(soup_clip: torch.Tensor) -> torch.Tensor:
+    """(T,) False where all three corners lie beyond one clip plane."""
+    x, y, z, w = (soup_clip[..., i] for i in range(4))
+    out = ((x < -w).all(dim=-1) | (x > w).all(dim=-1) | (y < -w).all(dim=-1)
+           | (y > w).all(dim=-1) | (z < 0).all(dim=-1) | (z > w).all(dim=-1))
+    return ~out
+
+
+def cull_triangles(soup: TriangleSoup, cull_backface: bool = True) -> TriangleSoup:
+    """The soup with its valid mask cut by the per-triangle frustum test
+    and the backface test (without it, the zero-area test)."""
+    _, det, _ = triangle_setup(soup.clip, 2, 2)  # the facing does not depend on the size
+    mask = soup.valid & frustum_cull_mask(soup.clip)
+    mask = mask & (backface_cull_mask(det) if cull_backface else det != 0)
+    return soup._replace(valid=mask)
 
 
 def _cull_and_keys(x: list, y: list, z: list, w: list, valid: torch.Tensor,
@@ -609,10 +750,12 @@ def pixel_homogeneous(clip: torch.Tensor, width: int, height: int) -> torch.Tens
     return torch.stack([(x + w) * (0.5 * width), (w - y) * (0.5 * height), w], dim=-1)
 
 
-def build_shade_records(soup: TriangleSoup, scene: Scene, render_size) -> torch.Tensor:
+def build_shade_records(soup: TriangleSoup, scene: Scene, render_size=None) -> torch.Tensor:
     """(T, SR_COLS) shade records of a soup that carries its corner
-    attributes, with the SR_EDGE columns at ``render_size`` (width,
-    height), from which shading derives barycentrics."""
+    attributes. With ``render_size`` (width, height) the SR_EDGE columns
+    hold the edge coefficients, from which shading derives barycentrics;
+    without it (the plain configuration, whose shading reads the raster's
+    barycentrics) they are zero like the padding."""
     t_cap = soup.instance.shape[0]
     mat_id = scene.instances.material_id.long()[soup.instance]
     mats = scene.materials
@@ -623,8 +766,9 @@ def build_shade_records(soup: TriangleSoup, scene: Scene, render_size) -> torch.
         mats.roughness[mat_id][:, None], mats.emissive[mat_id],
         mats.base_color_tex[mat_id][:, None].float(), mats.normal_tex[mat_id][:, None].float(),
     ]
-    u = pixel_homogeneous(soup.clip, *render_size)  # (T, 3 corners, 3)
-    cols += [_cross3(u[:, 1], u[:, 2]), _cross3(u[:, 2], u[:, 0]), _cross3(u[:, 0], u[:, 1])]
+    if render_size is not None:
+        u = pixel_homogeneous(soup.clip, *render_size)  # (T, 3 corners, 3)
+        cols += [_cross3(u[:, 1], u[:, 2]), _cross3(u[:, 2], u[:, 0]), _cross3(u[:, 0], u[:, 1])]
     rec = torch.cat(cols, dim=-1)
     return torch.cat([rec, rec.new_zeros((t_cap, SR_COLS - rec.shape[-1]))], dim=-1)
 

@@ -8,9 +8,10 @@ full frame, the packed checkerboard lattice and the sparse batch of the
 checkerboard fix. Ported: barycentrics re-derived from the shade records'
 edge columns, base-colour textures, normal maps with the Toksvig roughness
 term, edge AA, shadow maps (``ops/shadow.py``), ray-traced shadows through
-the light-space grid (``ops/rt_grid.py``), and the checkerboard and
-quarter shade rates with their fixes. The brute-force ray caster is later
-work.
+the light-space grid (``ops/rt_grid.py``) or by brute force (``ops/rt.py``,
+the plain configuration's), and the checkerboard and quarter shade rates
+with their fixes, with barycentrics from the records or from the raster
+(the plain configuration's) at every rate.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from renderer_tpu_torch.ops.geometry import (
     SR_BASE, SR_BC_LAYER, SR_EDGE, SR_EMISSIVE, SR_METALLIC, SR_NM_LAYER,
     SR_NORMAL, SR_ROUGH, SR_TANGENT, SR_TEXLOD, SR_UV, pixel_centres, unproject_depth,
 )
+from renderer_tpu_torch.ops.rt import RtBrute, rt_shadow_planes
 from renderer_tpu_torch.ops.rt_grid import RtGrid, rt_shadow_grid, slot_lights
 from renderer_tpu_torch.ops.shadow import ShadowMaps, shadow_occlusion
 from renderer_tpu_torch.ops.texture import sample_atlas_cf, srgb_to_linear
@@ -123,6 +125,7 @@ def shade_pbr(
     light_slots: int = None,  # shade only the first k light-table slots
     aa: bool = False,  # edge AA (ops/aa.py)
     rt_grid: RtGrid = None,  # ray-traced shadows (ops/rt_grid.py)
+    rt: RtBrute = None,  # exact ray-traced shadows by brute force (ops/rt.py)
     shadow: ShadowMaps = None,  # shadow maps (ops/shadow.py)
     # shade the (x + y) even half-lattice packed to (H, W/2) and rebuild the
     # rest from same-triangle neighbours (_checkerboard_expand)
@@ -131,21 +134,21 @@ def shade_pbr(
     # the three other classes from their shaded neighbours (_quarter_expand)
     quarter: bool = False,
     # with checkerboard or quarter: exactly re-shade the worst rebuilt
-    # pixels (_checkerboard_fix, _quarter_fix); skipped under rt_grid, whose
-    # screen tiles need the full lattice
+    # pixels (_checkerboard_fix, _quarter_fix); skipped under rt_grid and
+    # rt, as in the JAX package
     shade_fix: bool = True,
     # False: interpolate with the visibility buffer's barycentrics (the
-    # reference view's independent raster) instead of re-deriving them from
-    # the records' edge columns; full rate only
+    # plain configuration's scan raster, the reference view) instead of
+    # re-deriving them from the records' edge columns
     bary_from_records: bool = True,
 ) -> torch.Tensor:
     """Shade a visibility buffer -> (H, W, 3) linear HDR colour."""
     if checkerboard and quarter:
         raise ValueError("checkerboard and quarter are exclusive")
-    if not bary_from_records and (checkerboard or quarter):
-        raise ValueError("barycentrics from the visibility buffer need the full shade rate")
     fh_, fw_ = vis.depth.shape
     dev = vis.depth.device
+    traced = rt_grid if rt_grid is not None else rt  # the ray-traced shadows, if any
+    bary_in = None if bary_from_records else vis.bary
     full_height = full_height if full_height is not None else fh_
     # the background as a (3, 1, 1) fill on the device, not a host copy
     bg = torch.stack([torch.full((1, 1), float(c), dtype=torch.float32, device=dev)
@@ -154,7 +157,8 @@ def shade_pbr(
     def run(depth_in, tri_in, px, py, bary=None):
         """The per-sample shading core on a 2D grid of samples at the
         absolute pixel centres (px, py) (None: the full frame's), with
-        barycentrics from the records (``bary`` None) or given (3, h, w)."""
+        barycentrics from the records (``bary`` None) or given (3, h, w)
+        (the raster's, sampled like the grid)."""
         h_, w_ = depth_in.shape
         p_ = h_ * w_
         covered = tri_in != NO_TRIANGLE
@@ -170,19 +174,19 @@ def shade_pbr(
         def col(k):
             return cols_t[_C_OFF + _CONST.index(k)].reshape(h_, w_)
 
-        # barycentrics: the winner's edge functions at the pixel centre
-        pxf, pyf = px.reshape(p_), py.reshape(p_)
+        if bary is None:  # the winner's edge functions at the pixel centre
+            pxf, pyf = px.reshape(p_), py.reshape(p_)
 
-        def e(k):
-            return cols_t[_C_OFF + 6 + k]
+            def e(k):
+                return cols_t[_C_OFF + 6 + k]
 
-        lam0 = e(0) * pxf + e(1) * pyf + e(2)
-        lam1 = e(3) * pxf + e(4) * pyf + e(5)
-        lam2 = e(6) * pxf + e(7) * pyf + e(8)
-        lsum = lam0 + lam1 + lam2
-        inv = 1.0 / torch.where(lsum != 0.0, lsum, 1.0)
-        b0, b1, b2 = (lam0 * inv)[None], (lam1 * inv)[None], (lam2 * inv)[None]
-        if bary is not None:
+            lam0 = e(0) * pxf + e(1) * pyf + e(2)
+            lam1 = e(3) * pxf + e(4) * pyf + e(5)
+            lam2 = e(6) * pxf + e(7) * pyf + e(8)
+            lsum = lam0 + lam1 + lam2
+            inv = 1.0 / torch.where(lsum != 0.0, lsum, 1.0)
+            b0, b1, b2 = (lam0 * inv)[None], (lam1 * inv)[None], (lam2 * inv)[None]
+        else:
             b0, b1, b2 = (bary[k].reshape(1, p_) for k in range(3))
 
         attrs = b0 * cols_t[0:8] + b1 * cols_t[8:16] + b2 * cols_t[16:24]
@@ -233,6 +237,9 @@ def shade_pbr(
                 slot_lights(rt_grid.light_casts, rt_grid.n_slots), tri=tri_in,
                 rt_scale=rt_grid.rt_scale,
             )
+        elif rt is not None:
+            planes = rt_shadow_planes(world, n_geom, scene.lights, rt.tri_world, rt.tri_valid,
+                                      slot_lights(rt.light_casts, rt.n_slots), rt.rt_scale)
 
         v = _normalize_cf(camera_pos[:, None, None] - world)
         lights = scene.lights
@@ -248,8 +255,8 @@ def shade_pbr(
             l = to_light / torch.sqrt(torch.clamp(dist2, min=1e-12))
             atten = torch.where(directional, 1.0, 1.0 / torch.clamp(dist2, min=1e-4))
             radiance = lights.color[li][:, None, None] * (lights.intensity[li] * atten)
-            if planes is not None and li < len(rt_grid.light_casts):
-                slot = rt_grid.light_casts[li][0]
+            if planes is not None and li < len(traced.light_casts):
+                slot = traced.light_casts[li][0]
                 if 0 <= slot < len(planes):
                     radiance = radiance * planes[slot][None]
             if shadow is not None and li < len(shadow.light_casts):
@@ -270,10 +277,11 @@ def shade_pbr(
         py = (2.0 * torch.arange(h2, dtype=torch.float32, device=dev)[:, None]
               + float(y0) + 0.5).expand(h2, w2)
         tri_s = vis.tri_id[0::2, 0::2]
-        shaded = run(vis.depth[0::2, 0::2], tri_s, px, py)
+        shaded = run(vis.depth[0::2, 0::2], tri_s, px, py,
+                     None if bary_in is None else bary_in[:, 0::2, 0::2])
         color, scores = _quarter_expand(shaded, vis.tri_id, tri_s, tri_s != NO_TRIANGLE, bg)
-        if shade_fix and rt_grid is None:
-            color = _quarter_fix(color, scores, vis, y0, run)
+        if shade_fix and traced is None:
+            color = _quarter_fix(color, scores, vis, y0, run, bary_in)
     elif checkerboard:
         # the shaded half-lattice ((x + y) even) packed to (H, W/2):
         # x = 2j + ((y + y0) & 1), shaded at its true pixel centres
@@ -281,7 +289,7 @@ def shade_pbr(
         par0 = rowpar == 0
 
         def pack(a):
-            return torch.where(par0, a[:, 0::2], a[:, 1::2])
+            return torch.where(par0, a[..., 0::2], a[..., 1::2])
 
         w2 = fw_ // 2
         px = (2.0 * torch.arange(w2, dtype=torch.float32, device=dev)[None, :]
@@ -289,14 +297,14 @@ def shade_pbr(
         py = (torch.arange(fh_, dtype=torch.float32, device=dev)[:, None]
               + float(y0) + 0.5).expand(fh_, w2)
         tri_s = pack(vis.tri_id)
-        shaded = run(pack(vis.depth), tri_s, px, py)
+        shaded = run(pack(vis.depth), tri_s, px, py, None if bary_in is None else pack(bary_in))
         recon, score, tri_u = _checkerboard_expand(shaded, vis.tri_id, tri_s,
                                                    tri_s != NO_TRIANGLE, rowpar, bg)
         color = _cb_interleave(shaded, recon, rowpar)
-        if shade_fix and rt_grid is None:
-            color = _checkerboard_fix(color, score, tri_u, vis, rowpar, y0, run)
+        if shade_fix and traced is None:
+            color = _checkerboard_fix(color, score, tri_u, vis, rowpar, y0, run, bary_in)
     else:
-        color = run(vis.depth, vis.tri_id, None, None, None if bary_from_records else vis.bary)
+        color = run(vis.depth, vis.tri_id, None, None, bary_in)
     if aa:
         color = edge_aa(color, vis.tri_id)
     return color.permute(1, 2, 0)
@@ -308,7 +316,7 @@ def fix_capacity(p2: int) -> int:
     return min(p2 - p2 % 8, max(2048, -(-p2 // FIX_K_DIV) // 8 * 8))
 
 
-def _checkerboard_fix(color, score, tri_u, vis, rowpar, y0: int, run):
+def _checkerboard_fix(color, score, tri_u, vis, rowpar, y0: int, run, bary=None):
     """Exactly re-shade the worst reconstructed pixels.
 
     Up to K = fix_capacity(P) suspects by neighbour-spread score, those
@@ -316,7 +324,8 @@ def _checkerboard_fix(color, score, tri_u, vis, rowpar, y0: int, run):
     (8, K/8) batch at their pixel centres, so each equals the full-rate
     frame's pixel, and scattered into the interleaved frame (3, H, W). The
     suspects not above FIX_TAU land in a trash column; nothing here reads
-    a device value on the host."""
+    a device value on the host. ``bary`` (3, H, W): the raster's
+    barycentrics, gathered at the suspects (None: from the records)."""
     h_, w_ = score.shape
     p2 = h_ * w_
     k = fix_capacity(p2)
@@ -331,20 +340,22 @@ def _checkerboard_fix(color, score, tri_u, vis, rowpar, y0: int, run):
     t_k = torch.where(good, tri_u.reshape(p2)[idx], NO_TRIANGLE)
     yk, jk = idx // w_, idx % w_
     xk = 2 * jk + (1 - ((yk + y0) & 1))  # the complement: x = 2j + 1 - parity
-    return _reshade(color, run, d_k, t_k, xk, yk, y0, good)
+    return _reshade(color, run, d_k, t_k, xk, yk, y0, good, bary)
 
 
-def _reshade(color, run, d_k, t_k, xk, yk, y0: int, good):
+def _reshade(color, run, d_k, t_k, xk, yk, y0: int, good, bary=None):
     """The K pixels (xk, yk) with depth d_k and triangle t_k shaded through
-    the closure ``run`` on an (8, K/8) batch at their pixel centres, and
+    the closure ``run`` on an (8, K/8) batch at their pixel centres (with
+    the barycentrics of the (3, H, W) ``bary`` there, when given), and
     written into the (3, H, W) frame where ``good`` (the others into a
     trash column)."""
     k = d_k.shape[0]
     shape2 = (8, k // 8)
+    fw_ = color.shape[-1]
+    bary_k = None if bary is None else bary[:, yk, xk].reshape((3,) + shape2)
     color_k = run(d_k.reshape(shape2), t_k.reshape(shape2),
                   (xk.to(torch.float32) + 0.5).reshape(shape2),
-                  (yk.to(torch.float32) + float(y0) + 0.5).reshape(shape2)).reshape(3, k)
-    fw_ = color.shape[-1]
+                  (yk.to(torch.float32) + float(y0) + 0.5).reshape(shape2), bary_k).reshape(3, k)
     p_full = color.shape[1] * fw_
     out = torch.cat([color.reshape(3, p_full), color.new_zeros((3, 1))], dim=1)
     out.index_copy_(1, torch.where(good, yk * fw_ + xk, p_full), color_k)
@@ -468,12 +479,12 @@ def quarter_fix_capacity(p_full: int) -> int:
     return min(p_u - p_u % 8, max(2048, -(-p_full // QFIX_K_DIV) // 8 * 8))
 
 
-def _quarter_fix(color, scores, vis, y0: int, run):
+def _quarter_fix(color, scores, vis, y0: int, run, bary=None):
     """Exactly re-shade the worst quarter-rebuilt pixels: up to K =
     quarter_fix_capacity(P) suspects over all three classes at once by
     score, those above FIX_TAU, through the frame's own closure ``run`` on
     an (8, K/8) batch, scattered into the (3, H, W) frame (the others into
-    a trash column)."""
+    a trash column). ``bary`` as in ``_checkerboard_fix``."""
     _, h2, w2 = scores.shape
     p_u = h2 * w2
     fh_, fw_ = vis.depth.shape
@@ -489,4 +500,4 @@ def _quarter_fix(color, scores, vis, y0: int, run):
     flat_pix = yy * fw_ + xx
     d_k = vis.depth.reshape(p_full)[flat_pix]
     t_k = torch.where(good, vis.tri_id.reshape(p_full)[flat_pix], NO_TRIANGLE)
-    return _reshade(color, run, d_k, t_k, xx, yy, y0, good)
+    return _reshade(color, run, d_k, t_k, xx, yy, y0, good, bary)

@@ -8,7 +8,10 @@ Casters are culled and expanded per light against the light's own frustum,
 so off-camera geometry still casts into view. A directional slot renders
 whole or as one of K horizontal bands; a point slot renders six cube faces
 into a 2x3 grid of (S/2, S/4) faces. Every view is a two-sided depth-only
-raster (``raster_cuda.rasterize_cuda``: the CUDA kernel on the card).
+raster: ``raster_cuda.rasterize_cuda`` (the CUDA kernel on the card), or
+with ``tile_raster=False`` the plain configuration's scan rasterizer
+(``raster_scan.rasterize_scan``), as the JAX package's atlas takes its XLA
+raster without Pallas.
 
 The Renderer's light-cast pattern is static (``runtime.frame.light_casts``),
 so which slot holds which kind of light is known on the host: a slot
@@ -29,6 +32,7 @@ import torch
 from renderer_tpu_torch.mathx.camera import look_at, matmul4, orthographic, perspective
 from renderer_tpu_torch.ops.geometry import clip_rows, coarse_cull, expand_clip_only
 from renderer_tpu_torch.ops.raster_cuda import rasterize_cuda
+from renderer_tpu_torch.ops.raster_scan import rasterize_scan
 
 # cube faces in axis order +x, -x, +y, -y, +z, -z; a receiver belongs to the
 # face of the major axis of its light -> receiver direction
@@ -342,7 +346,7 @@ def initial_cache(n_slots: int, slot_size: int, progressive: int, device) -> tup
 def render_shadow_atlas_cached(scene, light_mats, model, lod, slots: tuple, slot_size: int,
                                caster_capacity: int, prev: tuple, budget: int = 0,
                                progressive: int = 1, scene_min=None, scene_max=None,
-                               weights: SignatureWeights = None):
+                               weights: SignatureWeights = None, tile_raster: bool = True):
     """The cached atlas: re-render only the units whose signature changed,
     at most ``budget`` of them per frame (round robin). A static scene
     converges to no raster work. ``prev`` is the state (atlas, sig, cursor)
@@ -363,13 +367,15 @@ def render_shadow_atlas_cached(scene, light_mats, model, lod, slots: tuple, slot
         sel, new_sig, new_cursor = select_shadow_updates(sig, sig_prev, cursor, budget)
     atlas = render_shadow_atlas_per_light(
         scene, light_mats, model, lod, slots, slot_size, caster_capacity, selected=sel,
-        atlas_prev=atlas_prev, scene_min=scene_min, scene_max=scene_max, progressive=progressive)
+        atlas_prev=atlas_prev, scene_min=scene_min, scene_max=scene_max, progressive=progressive,
+        tile_raster=tile_raster)
     return atlas, (atlas, new_sig, new_cursor)
 
 
 def render_shadow_atlas_per_light(scene, light_mats, model, lod, slots: tuple, slot_size: int,
                                   caster_capacity: int, selected=None, atlas_prev=None,
-                                  scene_min=None, scene_max=None, progressive: int = 1):
+                                  scene_min=None, scene_max=None, progressive: int = 1,
+                                  tile_raster: bool = True):
     """(n_slots, S, S) depth atlas with per-light caster cull and expansion.
 
     ``slots``: per slot (light index, directional) or None
@@ -383,7 +389,8 @@ def render_shadow_atlas_per_light(scene, light_mats, model, lod, slots: tuple, s
     Caster LOD: point slots pick by distance to the light; directional
     slots by distance to the light's virtual eye when the scene bounds are
     given (camera-independent, so the cache stays exact as the camera
-    moves), else the camera's ``lod``."""
+    moves), else the camera's ``lod``. ``tile_raster=False`` rasterizes
+    the views through the scan rasterizer."""
     if progressive > 1 and (selected is None or atlas_prev is None):
         raise ValueError("progressive band renders need the cache's selection and atlas")
     dev = light_mats.device
@@ -397,7 +404,9 @@ def render_shadow_atlas_per_light(scene, light_mats, model, lod, slots: tuple, s
             visible = visible & on
         clip, valid, _ = expand_clip_only(scene, visible, lod_pick, clip_rows(m, model),
                                           caster_capacity)
-        return rasterize_cuda(clip, valid, w, h, cull_backface=False, with_bary=False).depth
+        if tile_raster:
+            return rasterize_cuda(clip, valid, w, h, cull_backface=False, with_bary=False).depth
+        return rasterize_scan(clip, valid, w, h, cull_backface=False, with_bary=False).depth
 
     def ones(h):
         return torch.ones((h, s), dtype=torch.float32, device=dev)

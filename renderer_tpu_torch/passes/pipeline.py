@@ -22,6 +22,20 @@ previous frame left it (``reads_prev``, the JAX package's resource of
 the same name): ``vis`` and ``prev_vp`` (the last depth and viewproj),
 ``draw_list`` (the last cull's list) and the cached atlas's
 ``shadow_cache``.
+
+``PipelineConfig.tile_raster`` picks between the JAX package's two
+configurations. True (the port's default): the draw stream is built,
+culled and Morton-sorted in one pass (``geometry.build_draw_stream``),
+kernel 1 rasterizes the frame and the atlas, shading derives barycentrics
+from the records' edge columns, and ``rt`` traces through the light-space
+grid. False (the JAX package's default, ``use_pallas=False``): the cull
+expands, culls and compacts the stream (``expand_draw_stream``,
+``cull_triangles``, ``compact_soup``) and packs records without edge
+columns, the scan rasterizer (``ops/raster_scan.py``) rasterizes the
+frame and the atlas with barycentrics, shading interpolates with those,
+and ``rt`` traces by brute force against the culled soup (``ops/rt.py``).
+``cluster_cull`` has no effect there, as in the JAX package, where only
+``build_draw_stream`` reads it.
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ from renderer_tpu_torch.ops.raster_cuda import (
 )
 from renderer_tpu_torch.ops.raster_scan import rasterize_scan
 from renderer_tpu_torch.ops.raster_spec import DEPTH_CLEAR, NO_TRIANGLE
+from renderer_tpu_torch.ops.rt import RtBrute, triangles_world
 from renderer_tpu_torch.ops.shading import shade_flat_instance, shade_lambert
 from renderer_tpu_torch.ops.skin import pose_scene
 from renderer_tpu_torch.ops.rt_grid import RtGrid, slot_lights
@@ -57,6 +72,7 @@ from renderer_tpu_torch.ops.shadow import (
 EXTERNAL = ("scene", "camera", "time", "overlay")
 REFERENCE_SCALE = 4  # the reference view renders at 1/4 of the width and height
 REFERENCE_TINT_AT = 0.08  # mean abs difference over which a reference cell is tinted
+SCAN_CAPACITY_ALIGN = 128  # the plain configuration's tri_capacity multiple (the JAX check)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,8 +117,13 @@ class PipelineConfig:
     shade_rate: str = "full"
     shade_fix: bool = True  # checkerboard, quarter: re-shade the worst rebuilt pixels
     # cull whole 32-triangle clusters (bounding sphere, normal cone) before
-    # the per-triangle cull (geometry._cluster_slot_map)
+    # the per-triangle cull (geometry._cluster_slot_map); tile raster only
     cluster_cull: bool = False
+    # the JAX package's use_pallas: True rasterizes with kernel 1 (the
+    # port's main path), False is the plain configuration (the module
+    # docstring). The default differs from the JAX package's (False) on
+    # purpose: the port's main path is kernel 1
+    tile_raster: bool = True
 
     @property
     def expand_capacity(self) -> int:
@@ -128,23 +149,34 @@ class PipelineConfig:
             raise ValueError(f"ssaa={self.ssaa}")
         if self.shading != "pbr" and (self.aa != "none" or self.shade_rate != "full"):
             raise ValueError("edge AA and the shade-rate tiers need PBR shading")
-        if self.tri_capacity % BLOCK or self.width % TILE_W or self.height % TILE_H:
-            raise ValueError(
-                f"need tri_capacity % {BLOCK} == 0, width % {TILE_W} == 0 and "
-                f"height % {TILE_H} == 0"
-            )
-        if self.caster_capacity % BLOCK or self.rt_scale < 1 or self.shadow_slots < 0:
-            raise ValueError(f"need shadow_tri_capacity % {BLOCK} == 0, rt_scale >= 1 "
-                             "and shadow_slots >= 0")
-        # the atlas's views are raster shapes: S x S slots, (S/2, S/4) cube
-        # faces and (S, S/K) bands
-        if self.shadow_size % (2 * TILE_W) or self.shadow_size % (4 * TILE_H):
-            raise ValueError(f"need shadow_size % {2 * TILE_W} == 0 and % {4 * TILE_H} == 0")
+        if self.rt_scale < 1 or self.shadow_slots < 0:
+            raise ValueError("need rt_scale >= 1 and shadow_slots >= 0")
+        band_rows = TILE_H  # a band's rows are a multiple of this
+        if self.tile_raster:
+            if self.tri_capacity % BLOCK or self.width % TILE_W or self.height % TILE_H:
+                raise ValueError(
+                    f"need tri_capacity % {BLOCK} == 0, width % {TILE_W} == 0 and "
+                    f"height % {TILE_H} == 0"
+                )
+            if self.caster_capacity % BLOCK:
+                raise ValueError(f"need shadow_tri_capacity % {BLOCK} == 0")
+            # the atlas's views are raster shapes: S x S slots, (S/2, S/4)
+            # cube faces and (S, S/K) bands
+            if self.shadow_size % (2 * TILE_W) or self.shadow_size % (4 * TILE_H):
+                raise ValueError(f"need shadow_size % {2 * TILE_W} == 0 and % {4 * TILE_H} == 0")
+        else:  # what the JAX package checks without Pallas
+            band_rows = 1
+            if self.tri_capacity % SCAN_CAPACITY_ALIGN:
+                raise ValueError(f"need tri_capacity % {SCAN_CAPACITY_ALIGN} == 0")
+            rw, rh = self.render_size
+            if self.shade_rate != "full" and rw % 2 or self.shade_rate == "quarter" and rh % 2:
+                raise ValueError("the shade-rate tiers need an even render width (and height, "
+                                 "quarter)")
         if self.shadow_progressive > 1 and not (
                 self.shadow_cache and self.shadow_update_budget == 1
-                and self.shadow_size % (self.shadow_progressive * TILE_H) == 0):
+                and self.shadow_size % (self.shadow_progressive * band_rows) == 0):
             raise ValueError("shadow_progressive needs shadow_cache, shadow_update_budget=1 "
-                             f"and shadow_size % (shadow_progressive * {TILE_H}) == 0")
+                             f"and shadow_size % (shadow_progressive * {band_rows}) == 0")
 
 
 def initial_state(cfg: PipelineConfig, device) -> dict:
@@ -212,6 +244,7 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         raise ValueError(f"occlusion culling's {LEVELS}-level depth pyramid needs the render "
                          f"width and height divisible by {1 << LEVELS}")
     lambert = cfg.shading == "lambert"
+    plain = not cfg.tile_raster
 
     def pose(scene, time=None):
         return {"scene_view": pose_scene(scene, time) if cfg.skinning else scene}
@@ -221,11 +254,19 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         return {"prepared": prepared, "prev_vp": prepared.vp}
 
     def cull(scene_view, prepared):
-        soup, rec = geometry.build_draw_stream(
-            scene_view, prepared, cfg.expand_capacity, cfg.tri_capacity, w, h,
-            cull_backface=cfg.cull_backface, cluster_cull=cfg.cluster_cull,
-            want_soup_attrs=lambert,
-        )
+        if plain:
+            soup = geometry.expand_draw_stream(scene_view, prepared.visible, prepared.lod,
+                                               prepared.clip_mats, prepared.model,
+                                               cfg.tri_capacity)
+            soup = compact_soup(geometry.cull_triangles(soup, cull_backface=cfg.cull_backface))
+            soup = geometry.finalize_tex_lod(soup, w, h, scene_view.atlas.level_size[0])
+            rec = geometry.build_shade_records(soup, scene_view)
+        else:
+            soup, rec = geometry.build_draw_stream(
+                scene_view, prepared, cfg.expand_capacity, cfg.tri_capacity, w, h,
+                cull_backface=cfg.cull_backface, cluster_cull=cfg.cluster_cull,
+                want_soup_attrs=lambert,
+            )
         draw_list = geometry.DrawList(soup.instance, soup.tri_idx, soup.valid, soup.count)
         return {"soup": soup, "shade_rec": rec, "draw_list": draw_list}
 
@@ -242,8 +283,8 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         soup = geometry.soup_from_draw_list(scene_view, draw_list_prev, prepared.clip_mats,
                                             prepared.model)
         soup = geometry.finalize_tex_lod(soup, w, h, scene_view.atlas.level_size[0])
-        return {"soup": soup,
-                "shade_rec": geometry.build_shade_records(soup, scene_view, render_size=(w, h))}
+        return {"soup": soup, "shade_rec": geometry.build_shade_records(
+            soup, scene_view, render_size=None if plain else (w, h))}
 
     def aabb(scene_view, prepared):
         return {"soup": compact_soup(aabb_soup(scene_view, prepared.visible, prepared.clip_mats,
@@ -251,8 +292,12 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
 
     # PBR shading re-derives barycentrics from the records' edge columns,
     # so the raster kernel stores depth and id only; Lambert and the debug
-    # view interpolate the soup's normals through the raster's barycentrics
+    # view interpolate the soup's normals through the raster's barycentrics.
+    # The plain configuration's scan raster always makes them
     def raster(soup, with_bary=lambert):
+        if plain:
+            return {"vis": rasterize_scan(soup.clip, soup.valid, w, h,
+                                          cull_backface=cfg.cull_backface)}
         return {"vis": rasterize_cuda(soup.clip, soup.valid, w, h,
                                       cull_backface=cfg.cull_backface, with_bary=with_bary)}
 
@@ -271,7 +316,8 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         args = (scene_view, mats, prepared.model, prepared.lod, slots, cfg.shadow_size,
                 cfg.caster_capacity)
         if not cfg.shadow_cache:
-            atlas = render_shadow_atlas_per_light(*args, scene_min=smin, scene_max=smax)
+            atlas = render_shadow_atlas_per_light(*args, scene_min=smin, scene_max=smax,
+                                                  tile_raster=cfg.tile_raster)
             return {"shadow": ShadowMaps(atlas, mats, light_casts)}
         n = prepared.model.shape[0]
         if n not in sig_weights:
@@ -279,12 +325,13 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         atlas, cache = render_shadow_atlas_cached(
             *args, prev=shadow_cache_prev, budget=cfg.shadow_update_budget,
             progressive=cfg.shadow_progressive, scene_min=smin, scene_max=smax,
-            weights=sig_weights[n])
+            weights=sig_weights[n], tile_raster=cfg.tile_raster)
         return {"shadow": ShadowMaps(atlas, mats, light_casts), "shadow_cache": cache}
 
     img_res = "image_hires" if cfg.ssaa > 1 else "image_pre"
 
-    def _shade(vis, soup, shade_rec, scene, camera, prepared, rt_grid=None, shadow_maps=None):
+    def _shade(vis, soup, shade_rec, scene, camera, prepared, rt_grid=None, shadow_maps=None,
+               rt=None):
         if lambert:
             return shade_lambert(vis, soup, scene, camera.position, prepared.vp_inv,
                                  background=cfg.background)
@@ -292,9 +339,10 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
             vis, shade_rec, scene, camera.position, prepared.vp_inv,
             background=cfg.background, enable_textures=cfg.enable_textures,
             enable_normal_maps=cfg.enable_normal_maps, trilinear=cfg.trilinear,
-            light_slots=cfg.shade_light_slots, aa=(cfg.aa == "edge"), rt_grid=rt_grid,
+            light_slots=cfg.shade_light_slots, aa=(cfg.aa == "edge"), rt_grid=rt_grid, rt=rt,
             shadow=shadow_maps, checkerboard=(cfg.shade_rate == "checkerboard"),
             quarter=(cfg.shade_rate == "quarter"), shade_fix=cfg.shade_fix,
+            bary_from_records=not plain,
         )
 
     def shade(vis, soup, shade_rec, scene_view, camera, prepared):
@@ -306,7 +354,13 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
 
     def shade_rt(vis, soup, shade_rec, scene_view, camera, prepared):
         """Ray-traced shadows: per-light caster expansion, light-space
-        binning and the occlusion walk (ops/rt_grid.py)."""
+        binning and the occlusion walk (ops/rt_grid.py); in the plain
+        configuration exact rays against the camera's culled soup
+        (ops/rt.py)."""
+        if plain:
+            rt = RtBrute(triangles_world(soup.clip, prepared.vp_inv), soup.valid, light_casts,
+                         cfg.shadow_slots, cfg.rt_scale)
+            return {img_res: _shade(vis, soup, shade_rec, scene_view, camera, prepared, rt=rt)}
         smin, smax = prepared.scene_min, prepared.scene_max
         d = smax - smin
         radius = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) * 0.5 + 1e-3

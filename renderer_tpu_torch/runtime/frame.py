@@ -21,6 +21,9 @@
 - Per-frame externals besides the scene and camera: the animation clock
   ``time_s`` (under ``PipelineConfig.skinning``, a device fill, not a host
   copy) and the 2D ``overlay`` tables the ``hud`` switch blends in.
+- Construction fixes the build directory of the kernels
+  (``utils.compile_cache.enable_persistent_cache``), as the JAX Renderer
+  enables its compilation cache.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 from renderer_tpu_torch.mathx.camera import Camera
 from renderer_tpu_torch.passes.pipeline import PipelineConfig, build_forward_plan, initial_state
 from renderer_tpu_torch.scene.types import Scene
+from renderer_tpu_torch.utils.compile_cache import enable_persistent_cache
 
 
 @dataclasses.dataclass
@@ -91,6 +95,7 @@ def execute_plan(passes, outputs, state: dict, wrap=_record_pass, **external):
 class Renderer:
     def __init__(self, scene: Scene, cfg: Optional[PipelineConfig] = None,
                  outputs=("image", "vis"), device=None):
+        enable_persistent_cache()
         scene_device = scene.lights.count.device
         # normalized ("cuda" -> "cuda:0") so it compares with tensor devices
         self.device = scene_device if device is None else torch.empty(0, device=device).device

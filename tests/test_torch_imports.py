@@ -33,6 +33,15 @@ for switches in [{}] + switch_sets:
     r.apply_config_now()
     img = r.render(cam)["image"].numpy()
     assert img.shape == (64, 128, 3) and np.isfinite(img).all()
+import dataclasses
+from renderer_tpu_torch.passes.forward import render_forward
+plain = Renderer(r.scene, dataclasses.replace(r.cfg, tile_raster=False))
+for switches in ({}, dict(rt=True), dict(shadows=True)):
+    plain.set_config(**{**{k: False for k in vars(plain.config)}, **switches})
+    plain.apply_config_now()
+    assert np.isfinite(plain.render(cam)["image"].numpy()).all()
+img, _ = render_forward(r.scene, cam, 128, 64, 2048)
+assert np.isfinite(img.numpy()).all()
 from renderer_tpu_torch.models import city_scene
 city = Renderer(city_scene(3, device="cpu"),
                 PipelineConfig(width=128, height=64, tri_capacity=4096, cluster_cull=True))

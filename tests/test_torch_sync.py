@@ -2,7 +2,9 @@
 the base, rt, shadowed exact and shadowed checkerboard+fix frames, the
 occlusion-culled, frozen, debug-AABB and cluster-culled ones, and the
 skinned (pose pass and per-corner cull), quarter-rate, SSAA, Lambert,
-reference-view and HUD ones render, and the scene streamer's pumps and
+reference-view and HUD ones, the plain configuration's frames
+(``tile_raster=False``: the scan rasterizer, brute-force rt) and
+``render_forward`` render, and the scene streamer's pumps and
 the projectile step run, under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
 operation that waits for the card (a blocking copy between host and card,
 ``.item()``, ``nonzero``, a stream synchronization). The cameras are made
@@ -43,6 +45,12 @@ FRAMES = {  # name -> (config changes, switches)
     "freeze": ({}, dict(freeze_culling=True)),
     "debug_aabbs": ({}, dict(debug_aabbs=True)),
     "cluster_cull": (dict(cluster_cull=True), {}),
+    "plain": (dict(tile_raster=False), {}),
+    "plain_rt": (dict(tile_raster=False), dict(rt=True)),
+    "plain_shadowed_checkerboard_fix": (dict(tile_raster=False, shade_rate="checkerboard"),
+                                        dict(shadows=True)),
+    "plain_quarter_fix": (dict(tile_raster=False, shade_rate="quarter"), {}),
+    "plain_freeze": (dict(tile_raster=False), dict(freeze_culling=True)),
 }
 
 
@@ -133,3 +141,24 @@ def test_streaming_and_projectiles_make_no_blocking_sync():
     img = out["image"]
     assert img.shape == (CFG.height, CFG.width, 3) and bool(torch.isfinite(img).all())
     arena.close()
+
+
+@pytest.mark.gpu
+def test_render_forward_makes_no_blocking_sync():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from renderer_tpu_torch.passes.forward import render_forward
+
+    dev = torch.device("cuda")
+    scene = sponza_like_scene(64, device=dev)
+    aspect = CFG.width / CFG.height
+    render_forward(scene, orbit_camera(0.3, aspect, dev), CFG.width, CFG.height, 4096)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, vis = render_forward(scene, orbit_camera(0.31, aspect, dev), CFG.width, CFG.height,
+                                  4096)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert img.shape == (CFG.height, CFG.width, 3) and bool(torch.isfinite(img).all())
+    assert bool((vis.tri_id >= 0).any())
