@@ -10,8 +10,8 @@ code is non-zero:
 1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
    TF32 off for matmuls and cuDNN;
 2. build every kernel from renderer_tpu_torch/csrc/ (raster.cu,
-   occlusion.cu, probe.cu; one nvcc each, started together), with ptxas's
-   registers and spills;
+   occlusion.cu, probe.cu, scan_raster.cu, rt_brute.cu; one nvcc each,
+   started together), with ptxas's registers and spills;
 3. raster kernel against its plain PyTorch version on the test cases of
    tests/torch_raster_cases.py (bit-identical; the CPU tests hold the plain
    version to the float64 numpy reference rasterizer);
@@ -153,11 +153,14 @@ code is non-zero:
     scenes (box, spheres, mixed, textured, skinned) at 512x512 and
     tri_capacity 16384, 3 orbit frames each, and on textured and mixed one
     shadowed, one rt and one checkerboard+fix frame: every frame under
-    sync-debug "error", ms/frame, device busy of one more traced frame,
-    the same frames on the CPU path (device "cpu") against the card's
-    (visible triangle equal on >= 99.9% of pixels, PSNR >= 50 dB, >= 40
-    for rt, shadowed and skinned), no kernel launched by the plain path,
-    the textured frame against the tile frame (the JAX package's
+    sync-debug "error", ms/frame and device busy of one more traced frame
+    beside its soup.count, the shadowed frame against the scene's
+    unshadowed one, the same frames on the CPU path (device "cpu") against
+    the card's (visible triangle equal on >= 99.9% of pixels, PSNR >= 50
+    dB, >= 40 for rt, shadowed and skinned), the launches of each run
+    counted from 0 (kernel 5 once per frame and per atlas view, kernel 6
+    once per rt frame and traced slot, kernels 1-4 never), the textured
+    frame against the tile frame (the JAX package's
     tests/test_pipeline.py:117 gate); render_forward on mixed against its
     CPU path; the bench rt frame at rt_scale 2 and 4 against 1 (the
     minimum over the gate poses of PSNR, reported against the 40 dB gate,
@@ -165,13 +168,29 @@ code is non-zero:
     kernel 2 (each cube face against the plain version, the frame with the
     plain walk swapped in identical); the brute-force lit plane against
     the grid's at rt_scale 1 on mixed, as a PSNR; and the demo with
-    --scan-raster --rt (exit 0, its PNG written).
+    --scan-raster --rt (exit 0, its PNG written);
+37. kernel 5, the count-bounded scan raster (csrc/scan_raster.cu), against
+    its plain version bit for bit (depth, tri_id, barycentrics): on the
+    raster cases with and without the backface cull at counts 0, 1, 127,
+    128, 129 and the capacity, and at the camera, reference-view and atlas
+    soups (the sun's slot, the point light's cube faces) of phase 36's
+    mixed frame at their own counts, where the bounded result also equals
+    the unbounded one; the launches of a plain and a tile frame with the
+    reference view; the kernel's time, the plain version's and the bound
+    (the pairs inside the walked triangles' bboxes);
+38. kernel 6, the count-bounded brute-force rt (csrc/rt_brute.cu), against
+    its plain version at phase 36's mixed rt soup, rt_scale 2 and 1, at
+    counts 0, 129 and the frame's (identical planes), timed beside its
+    bound (the pairs the early exit leaves);
+39. bench_torch.py in a subprocess: exit 0, its last line one JSON object
+    with bench.result_line's keys and a _gpu metric, printed.
 
 Every main path runs with every kernel's launch count set to 0 just
 before it and read just after (the raster kernel once per frame and per
-atlas view, the occlusion kernel once per rt frame and traced slot, the
-kernels of no path never). Then a line of the raster kernel's launches
-per path, each phase's host seconds, the run's total seconds, one JSON
+atlas view, the occlusion kernel once per rt frame and traced slot, on
+the plain paths kernels 5 and 6 in their stead, the kernels of no path
+never). Then a line of each path kernel's launches per path, each
+phase's host seconds, the run's total seconds, one JSON
 line listing every kernel, the card's name and power limit, and, last,
 the JSON result line.
 """
@@ -202,6 +221,7 @@ from renderer_tpu_torch.models import (  # noqa: E402
 from renderer_tpu_torch.models.scenes import _colonnade_lights, colonnade_spec  # noqa: E402
 from renderer_tpu_torch.ops import cuda_build, geometry, occlusion_cuda as oc  # noqa: E402
 from renderer_tpu_torch.ops import probe_cuda, raster_cuda as rc, rt_grid as trt  # noqa: E402
+from renderer_tpu_torch.ops import raster_scan as rs, rt as brute  # noqa: E402
 from renderer_tpu_torch.ops import shadow as tshadow  # noqa: E402
 from renderer_tpu_torch.ops import pbr as tpbr  # noqa: E402
 from renderer_tpu_torch.ops.pbr import fix_capacity, quarter_fix_capacity  # noqa: E402
@@ -295,6 +315,40 @@ PLAIN_DB_LOOSE = 40.0  # rt, shadowed and skinned frames
 PLAIN_DEMO = ("--scene", "textured", "--scan-raster", "--rt")
 POINT_SLOT = 1  # the shadow slot phase 36 gives the mixed scene's point light
 BRUTE_SCENE = "mixed"
+SCAN_COUNTS = (0, 1, 127, 128, 129)  # phase 37's counts on the raster cases, and the capacity
+BRUTE_COUNTS = (0, 129)  # phase 38's counts, and the frame's own
+SCAN_BYTES_PER_TRI = 80  # the setup kernel 5 reads per walked triangle (ScanInputs)
+BRUTE_BYTES_PER_TRI = 53  # the setup kernel 6 reads per walked triangle (BruteInputs)
+BENCH_TIMEOUT_S = 600
+# bench.result_line's keys with every tier given (bench.py:361-398); the
+# golden key is present when the goldens' shape matches the frame
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "mtris_per_sec", "visible_triangles", "frame_ms",
+    "headline_tier", "headline_mode", "shade_rate", "features", "psnr_basis", "exact_path_fps",
+    "exact_path_frame_ms", "checkerboard_fix_fps", "checkerboard_fix_frame_ms",
+    "checkerboard_fix_psnr_db_min", "shadowed_fps", "shadowed_frame_ms", "shadowed_mode",
+    "shadowed_exact_fps", "shadowed_checkerboard_fix_fps", "shadowed_psnr_db_min",
+    "shadowed_shadow_updates_per_frame", "shadowed_dynamic_fps", "shadowed_dynamic_frame_ms",
+    "shadow_updates_per_frame", "shadow_progressive_bands", "shadow_caster_capacity")
+BENCH_GOLDEN_KEY = "psnr_vs_golden_db"
+# phase 39: bench_torch's base exact tier in a fresh process, before and
+# after one traced window of torch.profiler (host and device activity)
+PROFILED_BENCH = """
+import torch
+from torch.profiler import ProfilerActivity, profile
+import bench_torch as b
+from renderer_tpu_torch.models import sponza_like_scene
+from renderer_tpu_torch.passes.pipeline import PipelineConfig
+dev = torch.device("cuda")
+scene = sponza_like_scene(b.N_INSTANCES, device=dev)
+cfg = PipelineConfig(width=b.WIDTH, height=b.HEIGHT, tri_capacity=b.TRI_CAPACITY,
+                     enable_normal_maps=True, aa="edge", trilinear=False)
+before = b._measure_mode(scene, cfg, dev, shadows=False)[0]
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    b._measure_mode(scene, cfg, dev, shadows=False, frames=5)
+after = b._measure_mode(scene, cfg, dev, shadows=False)[0]
+print(before * 1e3, after * 1e3)
+"""
 ASSET = os.path.join(ROOT, "assets", "colonnade.glb")
 COLONNADE_CAPACITY = 1 << 16  # expansion 2^17 holds the asset's 36k triangles
 COLONNADE_FRAMES = 30
@@ -312,7 +366,8 @@ CONTROLLER_FRAMES = 30
 RELOAD_MODULE = "renderer_tpu_torch.ops.shading"  # a watched ops module touched in phase 35
 GOLDEN_DIR = os.path.join(ROOT, "assets", "golden")
 # every kernel wrapper's launcher (launches are counted there)
-KERNELS = (rc.RASTER_TILES, oc.OCCLUSION_TILES, probe_cuda.ADD_ONE, probe_cuda.TRANSPOSE)
+KERNELS = (rc.RASTER_TILES, oc.OCCLUSION_TILES, probe_cuda.ADD_ONE, probe_cuda.TRANSPOSE,
+           rs.SCAN_RASTER, brute.RT_BRUTE)
 
 
 PHASE_SECONDS = {}  # phase -> host seconds from the previous phase's line to its own
@@ -745,12 +800,12 @@ def fmt_db(v: float) -> str:
     return "inf" if math.isinf(v) else f"{v:.2f}"
 
 
-def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, card) -> None:
+def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, card) -> dict:
     """Phases 14-19: the shadow atlas's raster, bench.py's checkerboard and
     shadowed tiers, image quality, the checkerboard's exactness, the plain
     raster in the shadowed frame and its profile. ``renderer`` is the base
     frame's (phase 7), ``frame_ms`` its ms per frame; each tier's raster
-    launches go into ``path_launches``."""
+    launches go into ``path_launches``. Returns each tier's ms/frame."""
     # 14. the shadow atlas's raster at the bench camera (slot 0, the sun) -------
     size, k_bands = cfg.shadow_size, SHADOW_PROGRESSIVE
     slots = trt.slot_lights(renderer.light_casts, cfg.shadow_slots)
@@ -908,6 +963,7 @@ def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, 
 
     # 19. profile of the shadowed checkerboard+fix frame -------------------------
     profile_main_path("shadow_profile", tier_renderers["shadowed_checkerboard"], dev, card)
+    return tier_ms
 
 
 def city_camera(k, dev):
@@ -1747,7 +1803,8 @@ def plain_run(name: str, changes: dict, switches: dict, dev, frames: int, warmup
     k/60), on the card under sync-debug "error", and on the card one more
     frame traced for its device busy time. Returns (per frame (image,
     visible identity) on the host, ms/frame, busy ms of the traced frame or
-    None, the last frame's soup count)."""
+    None, the last frame's soup count, frames rendered, the renderer's
+    shadow slots)."""
     scene = build_demo_scene(name, dev)
     cfg = PipelineConfig(width=DEMO_SIZE, height=DEMO_SIZE, tri_capacity=PLAIN_CAPACITY,
                          skinning=name == "skinned", tile_raster=False, **changes)
@@ -1770,8 +1827,22 @@ def plain_run(name: str, changes: dict, switches: dict, dev, frames: int, warmup
         torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / frames
     busy = device_busy_ms(lambda: frame(frames)) if on_card else None
+    rendered = int(warmup) + frames + int(on_card)
     return ([(o["image"].cpu().numpy(), visible_identity(o).cpu().numpy()) for o in outs], ms,
-            busy, int(outs[-1]["soup"].count))
+            busy, int(outs[-1]["soup"].count), rendered,
+            trt.slot_lights(r.light_casts, r.cfg.shadow_slots))
+
+
+def plain_launches_wanted(switches: dict, rendered: int, slots) -> dict:
+    """Each kernel's launches for ``rendered`` plain frames: kernel 5 once
+    per frame and per atlas view (shadows), kernel 6 once per traced
+    directional slot (rt), no other kernel."""
+    views = sum(0 if sl is None else (1 if sl[1] else 6) for sl in slots)
+    traced = sum(1 for sl in slots if sl is not None and sl[1])
+    want = {k.symbol: 0 for k in KERNELS}
+    want[rs.SCAN_RASTER.symbol] = rendered * (1 + (views if switches.get("shadows") else 0))
+    want[brute.RT_BRUTE.symbol] = rendered * (traced if switches.get("rt") else 0)
+    return want
 
 
 def device_busy_ms(fn) -> float:
@@ -1804,6 +1875,10 @@ def held_to_cpu(label: str, card_frames, cpu_frames, db: float) -> str:
     return f"CPU path: triangle equal {100 * same:.3f}%, PSNR >= {fmt_db(worst)} dB"
 
 
+# per kernel of the plain paths (5 and 6), its launches per path of phases 36-37
+plain_path_launches = {rs.SCAN_RASTER.symbol: {}, brute.RT_BRUTE.symbol: {}}
+
+
 def plain_phases(scene, cfg, path_launches, dev, card) -> None:
     """Phase 36: the plain configuration (tile_raster=False) on the card:
     the JAX demo's scenes, their shadowed, rt and checkerboard frames, the
@@ -1816,14 +1891,22 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
     runs = [(name, "orbit", {}, {}, PLAIN_FRAMES) for name in PLAIN_SCENES]
     runs += [(name, sw, *PLAIN_SWITCHES[sw], 1) for name in PLAIN_SWITCH_SCENES
              for sw in PLAIN_SWITCHES]
-    for k in KERNELS:
-        k.launches = 0
-    card_runs = [plain_run(name, changes, switches, dev, n, warmup=True)
-                 for name, _, changes, switches, n in runs]
-    launched = {k.symbol: k.launches for k in KERNELS}
+    card_runs, launched = [], {k.symbol: 0 for k in KERNELS}
+    for name, label, changes, switches, n in runs:
+        for k in KERNELS:
+            k.launches = 0
+        card_runs.append(plain_run(name, changes, switches, dev, n, warmup=True))
+        got = {k.symbol: k.launches for k in KERNELS}
+        want = plain_launches_wanted(switches, *card_runs[-1][4:])
+        if got != want:
+            raise AssertionError(f"plain {name} {label}: launches {got}, want {want}")
+        launched = {k: launched[k] + v for k, v in got.items()}
+        path = "plain_" + label
+        for k in (rs.SCAN_RASTER, brute.RT_BRUTE):
+            if got[k.symbol]:
+                plain_path_launches[k.symbol][path] = (
+                    plain_path_launches[k.symbol].get(path, 0) + got[k.symbol])
     path_launches["plain"] = launched[rc.RASTER_TILES.symbol]
-    if any(launched.values()):
-        raise AssertionError(f"the plain configuration launched kernels: {launched}")
     # the textured plain frame against the tile frame (kernel 1), the JAX
     # package's tests/test_pipeline.py:117 gate
     tile = Renderer(build_demo_scene("textured", dev),
@@ -1831,6 +1914,7 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
                     device=dev)
     img_tile = tile.render(make_demo_camera("textured", 0.5, dev))["image"].cpu().numpy()
     err = np.abs(img_tile - card_runs[PLAIN_SCENES.index("textured")][0][0][0])
+    orbit_ms = {name: run[1] for (name, label, *_), run in zip(runs, card_runs) if label == "orbit"}
     if not ((err < 0.02).mean() > 0.95 and err.mean() < 0.005):
         raise AssertionError(f"plain against tile frame: error < 0.02 on "
                              f"{100 * (err < 0.02).mean():.2f}%, mean {err.mean():.5f}")
@@ -1843,6 +1927,8 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
         return lambda: render_forward(scene_d, cam_d, DEMO_SIZE, DEMO_SIZE, PLAIN_CAPACITY)
 
     fwd = forward(dev)
+    for k in KERNELS:
+        k.launches = 0
     fwd()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1851,6 +1937,10 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
     torch.cuda.synchronize()
     f_ms = (time.perf_counter() - t0) * 1e3
     f_busy = device_busy_ms(fwd)
+    f_launches = {k.symbol: k.launches for k in KERNELS}
+    if f_launches != {k.symbol: 3 if k is rs.SCAN_RASTER else 0 for k in KERNELS}:
+        raise AssertionError(f"render_forward, 3 calls: launches {f_launches}")
+    plain_path_launches[rs.SCAN_RASTER.symbol]["forward"] = 3
 
     env = dict(os.environ, PYTHONPATH=ROOT)
     demo_png = os.path.join(enable_persistent_cache(), "demo_plain_rt.png")
@@ -1861,7 +1951,7 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
          demo_png, "--frames", "3", "--check-sync", *PLAIN_DEMO],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines = []
-    for (name, label, changes, switches, n), (frames, ms, busy, count) in zip(runs, card_runs):
+    for (name, label, changes, switches, n), (frames, ms, busy, count, *_) in zip(runs, card_runs):
         t0 = time.perf_counter()
         # a warm-up only under shadows (the cached atlas): the other frames
         # keep no state between frames
@@ -1870,20 +1960,24 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
         loose = name == "skinned" or "shadows" in switches or "rt" in switches
         held = held_to_cpu(f"{name} {label}", frames, cpu_frames,
                            PLAIN_DB_LOOSE if loose else PLAIN_DB)
-        lines.append(f"{name} {label} ({n} frames): {ms:.1f} ms/frame, busy {busy:.1f} ms/frame "
-                     f"(idle {100 * max(0.0, 1 - busy / ms):.1f}%), {count} triangles, {held} "
-                     f"(CPU {cpu_ms:.0f} ms/frame)")
+        against = (f" (orbit frame {orbit_ms[name]:.1f} ms: {ms - orbit_ms[name]:+.1f} ms)"
+                   if label != "orbit" else "")
+        lines.append(f"{name} {label} ({n} frames): {ms:.1f} ms/frame{against}, busy {busy:.1f} "
+                     f"ms/frame (idle {100 * max(0.0, 1 - busy / ms):.1f}%), soup.count {count}, "
+                     f"{held} (CPU {cpu_ms:.0f} ms/frame)")
     phase("plain", f"{len(runs)} plain-configuration runs at {DEMO_SIZE}x{DEMO_SIZE}, "
                    f"tri_capacity {PLAIN_CAPACITY}, trilinear, each after a warm-up frame, under "
                    f"sync-debug \"error\"; busy from one more traced frame; kernel launches on the "
-                   f"plain path {launched} ({card}): " + "; ".join(lines)
+                   f"plain paths, each run counted from 0, summed {launched} ({card}): "
+          + "; ".join(lines)
           + f"; textured plain against tile frame: error < 0.02 on "
             f"{100 * (err < 0.02).mean():.3f}% of pixels, mean {err.mean():.2e}")
     cimg, cvis = forward(cpu)()
     held = held_to_cpu("render_forward", [(img.cpu().numpy(), vis.tri_id.cpu().numpy())],
                        [(cimg.numpy(), cvis.tri_id.numpy())], PLAIN_DB)
     phase("plain_forward", f"render_forward on mixed at {DEMO_SIZE}x{DEMO_SIZE}: {f_ms:.1f} ms, "
-                           f"busy {f_busy:.1f} ms, under sync-debug \"error\", coverage "
+                           f"busy {f_busy:.1f} ms, under sync-debug \"error\", kernel 5 "
+                           f"launches 3 for 3 calls (no count, as in JAX), coverage "
                            f"{float((vis.tri_id >= 0).float().mean()):.3f}; {held} ({card})")
     try:
         log, _ = demo_proc.communicate(timeout=DEMO_TIMEOUT_S)
@@ -1977,6 +2071,278 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
                            f"{fmt_db(psnr(g_img, b_img))} dB ({card})")
 
 
+def scan_bound(inp, count, width: int, height: int, tri_block: int):
+    """Kernel 5's least time: bytes, the walked triangles' setup read once
+    and the five output planes written once; operations, OPS_PER_PAIR per
+    (pixel, triangle) pair of a walked live triangle whose bbox holds the
+    pixel centre. Returns (ms, bound by, walked triangles, pairs)."""
+    walked = rs.live_blocks(count, inp.adj.shape[0], tri_block) * tri_block
+    bb = inp.bb[:walked].double()
+    (x0, x1), (y0, y1) = (centre_span(bb[:, 0], bb[:, 1], 0, width),
+                          centre_span(bb[:, 2], bb[:, 3], 0, height))
+    inside = (x1 - x0 + 1).clamp(min=0) * (y1 - y0 + 1).clamp(min=0)
+    pairs = int(torch.where(inp.tri_ok[:walked] & torch.isfinite(inside), inside, 0).sum())
+    ms, by = bound(walked * SCAN_BYTES_PER_TRI + 4 + 5 * 4 * width * height,
+                   pairs * OPS_PER_PAIR)
+    return ms, by, walked, pairs
+
+
+def brute_bound(inp, count):
+    """Kernel 6's least time: bytes, the origins and the walked triangles'
+    setup read once and the plane written once; operations, those of the
+    (receiver, live triangle) pairs the early exit leaves (the live
+    triangles a receiver tests in order up to its first hit, all of them
+    for a lit one), each as far as its test needs: u (three products, two
+    sums, the constant, f and a compare: 8), then v (8) if u >= 0, u + v
+    and its compare (2) if v >= 0 too, and t (8) if u + v <= 1, counted on
+    the device. Returns (ms, bound by, walked triangles, pairs, ops)."""
+    origin, cvec, consts, f, live = inp
+    p, step = origin.shape[1], 1 << 16
+    walked = rs.live_blocks(count, cvec.shape[0], brute.BLOCK) * brute.BLOCK
+    occluded = torch.zeros(p, dtype=torch.bool, device=origin.device)
+    pairs = ops = 0
+    order = torch.arange(brute.BLOCK, device=origin.device)
+    for b0 in range(0, walked, brute.BLOCK):
+        sl = slice(b0, b0 + brute.BLOCK)
+        lv, cv, fb = live[sl], cvec[sl], f[sl]
+        for p0 in range(0, p, step):
+            o = origin[:, p0:p0 + step, None, None]
+            s_ = o[0] * cv[..., 0] + o[1] * cv[..., 1] + o[2] * cv[..., 2] - consts[sl]
+            u, v, t = s_[..., 0] * fb, s_[..., 1] * fb, s_[..., 2] * fb
+            u_ok = u >= 0.0
+            uv_ok = u_ok & (v >= 0.0)
+            in_tri = uv_ok & (u + v <= 1.0)
+            hit = in_tri & (t > brute.EPS) & lv
+            has = hit.any(dim=1)
+            first = torch.where(has, hit.int().argmax(dim=1), brute.BLOCK - 1)
+            occ = occluded[p0:p0 + step]
+            tested = lv & (order <= first[:, None]) & ~occ[:, None]
+            pairs += int(tested.sum())
+            ops += int(torch.where(tested, 8 + 8 * u_ok.int() + 2 * uv_ok.int() + 8 * in_tri.int(),
+                                   0).sum())
+            occluded[p0:p0 + step] = occ | has
+    ms, by = bound(p * 16 + walked * BRUTE_BYTES_PER_TRI + 4, ops)
+    return ms, by, walked, pairs, ops
+
+
+def scan_raster_phase(dev, card) -> dict:
+    """Phase 37: kernel 5 against its plain version on the raster cases and
+    at phase 36's mixed soups; its launches on the reference view; its time
+    and bound. Returns its kernels-line entry, whose ms is the device time
+    from the profiler: CUDA events over back-to-back calls time the
+    wrapper's host path there."""
+    worst_cases = 0
+    for name, (build, w, h, _) in sorted(CASES.items()):
+        clip, valid = build()
+        t_cap = clip.shape[0]
+        for cull in (True, False):
+            inp = rs.scan_inputs(torch.from_numpy(clip).to(dev), torch.from_numpy(valid).to(dev),
+                                 w, h, cull)
+            for count in (*SCAN_COUNTS, t_cap):
+                c = torch.tensor(count, dtype=torch.int32, device=dev)
+                for with_bary in (True, False):
+                    got = rs.scan_raster_kernel(inp, c, w, h, min(128, t_cap), with_bary)
+                    want = rs.scan_raster_plain(inp, count, w, h, min(128, t_cap), with_bary)
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(f"kernel 5 differs from its plain version on {name}, "
+                                             f"cull {cull}, count {count}, bary {with_bary}")
+                    worst_cases += 1
+
+    # the soups of phase 36's mixed frame: camera and reference view, then
+    # the atlas's views with the point light in a slot (sun slot + 6 faces)
+    def mixed_renderer(tile_raster=False, point=False, **switches):
+        scene = build_demo_scene("mixed", dev)
+        if point:
+            scene.lights.shadow_slot[0] = POINT_SLOT
+        r = Renderer(scene, PipelineConfig(width=DEMO_SIZE, height=DEMO_SIZE,
+                                           tri_capacity=PLAIN_CAPACITY, tile_raster=tile_raster),
+                     outputs=("image", "vis", "soup"), device=dev)
+        r.set_config(**switches)
+        r.apply_config_now()
+        return r
+
+    cam = make_demo_camera("mixed", 0.5, dev)
+    soups, launch_lines = [], []
+    for label, path, tile_raster, point, switches, module, names in (
+            ("plain frame + reference view", "plain_reference", False, False,
+             dict(reference_image=True), pipeline_module, ("camera", "reference view")),
+            ("tile frame + reference view", "tile_reference", True, False,
+             dict(reference_image=True), pipeline_module, ("reference view",)),
+            ("plain shadowed frame, point light in a slot", "plain_point_shadows", False, True,
+             dict(shadows=True), tshadow, ("sun slot",) + ("cube face",) * 6)):
+        r = mixed_renderer(tile_raster, point, **switches)
+        for k in KERNELS:
+            k.launches = 0
+        with Recorder(module, "rasterize_scan") as rec:
+            r.render(cam)
+        got = {k.symbol: k.launches for k in KERNELS}
+        n_scan = len(rec.calls) + (1 if module is tshadow else 0)  # the camera's own call
+        want = {k.symbol: 0 for k in KERNELS}
+        want[rs.SCAN_RASTER.symbol] = n_scan
+        want[rc.RASTER_TILES.symbol] = int(tile_raster)
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+        if len(rec.calls) != len(names):
+            raise AssertionError(f"{label}: {len(rec.calls)} scan raster calls, want {len(names)}")
+        plain_path_launches[rs.SCAN_RASTER.symbol][path] = got[rs.SCAN_RASTER.symbol]
+        launch_lines.append(f"{label}: kernel 5 launches {got[rs.SCAN_RASTER.symbol]}, kernel 1 "
+                            f"{got[rc.RASTER_TILES.symbol]}")
+        soups += [(f"{label}, {n} {c[0][2]}x{c[0][3]}", c) for n, c in zip(names, rec.calls)]
+    lines, entry = [], None
+    for label, (args, kwargs, out) in soups:
+        clip, valid, w, h = args
+        count = kwargs.get("count")
+        with_bary = kwargs.get("with_bary", True)
+        inp = rs.scan_inputs(clip, valid, w, h, kwargs.get("cull_backface", True))
+        tb = min(128, clip.shape[0])
+        got = rs.scan_raster_kernel(inp, count, w, h, tb, with_bary)
+        want = [None]
+        p_ms = host_ms(lambda: want.__setitem__(0, rs.scan_raster_plain(inp, count, w, h, tb,
+                                                                        with_bary)))
+        unbounded = rs.scan_raster_kernel(inp, None, w, h, tb, with_bary)
+        for a, b, c_, o in zip(got, want[0], unbounded, out):
+            if not (torch.equal(a, b) and torch.equal(a, c_) and torch.equal(a, o)):
+                raise AssertionError(f"kernel 5 at {label}: kernel, plain version, unbounded "
+                                     "walk and the frame's own call differ")
+        k_ms = cuda_ms(lambda: rs.scan_raster_kernel(inp, count, w, h, tb, with_bary), 20)
+        u_ms = cuda_ms(lambda: rs.scan_raster_kernel(inp, None, w, h, tb, with_bary), 5)
+        k_dev = sum(device_us_by_kernel(
+            lambda: rs.scan_raster_kernel(inp, count, w, h, tb, with_bary), 20).values()) / 1e3
+        u_dev = sum(device_us_by_kernel(
+            lambda: rs.scan_raster_kernel(inp, None, w, h, tb, with_bary), 5).values()) / 1e3
+        b_ms, b_by, walked, pairs = scan_bound(inp, count, w, h, tb)
+        lines.append(f"{label}: count {int(count)}, {walked} triangles walked of "
+                     f"{clip.shape[0]}, {pairs} pixel pairs; kernel by events / device "
+                     f"{k_ms:.4f} / {k_dev:.4f} ms (unbounded walk {u_ms:.4f} / {u_dev:.4f}), "
+                     f"plain {p_ms:.1f} ms, bound {b_ms:.5f} ms by {b_by} = "
+                     f"{100 * b_ms / k_ms:.1f}% of the events' time, {100 * b_ms / k_dev:.1f}% "
+                     "of the device time")
+        if entry is None:  # the plain frame's camera soup: the main path's call
+            entry = dict(name="scan_raster", route="cuda",
+                         source="renderer_tpu_torch/csrc/scan_raster.cu",
+                         replaces="renderer_tpu/ops/raster_jax.py:183", launches=None,
+                         max_abs_err=0.0, ms=k_dev, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
+    phase("scan_raster", f"kernel 5 against its plain version, identical depth, tri_id and "
+                         f"barycentrics: {len(CASES)} raster cases x cull on/off x counts "
+                         f"{list(SCAN_COUNTS)} and capacity x bary on/off ({worst_cases} calls); "
+                         + "; ".join(launch_lines) + "; at each soup, bounded = unbounded = the "
+                         "frame's own call: " + "; ".join(lines) + f" ({card})")
+    return entry
+
+
+def rt_brute_phase(dev, card) -> dict:
+    """Phase 38: kernel 6 against its plain version at phase 36's mixed rt
+    soup, rt_scale 2 and 1; its time and bound. Returns its kernels-line
+    entry (rt_scale 2; ms is the device time, as in phase 37)."""
+    lines, entry = [], None
+    for s in (2, 1):
+        r = Renderer(build_demo_scene(BRUTE_SCENE, dev),
+                     PipelineConfig(width=DEMO_SIZE, height=DEMO_SIZE, tri_capacity=PLAIN_CAPACITY,
+                                    rt_scale=s, tile_raster=False), device=dev)
+        r.set_config(rt=True)
+        r.apply_config_now()
+        with Recorder(brute, "ray_shadow_directional") as rec:
+            r.render(make_demo_camera(BRUTE_SCENE, 0.5, dev))
+        (world, normal, direction, tri, tri_valid, count), _, out = rec.calls[0]
+        inp = brute.brute_inputs(world, normal, direction, tri, tri_valid)
+        for c in (*BRUTE_COUNTS, int(count)):
+            got = brute.rt_brute_kernel(inp, torch.tensor(c, dtype=torch.int32, device=dev))
+            if not torch.equal(got, brute.rt_brute_plain(inp, c)):
+                raise AssertionError(f"kernel 6 differs from its plain version at rt_scale {s}, "
+                                     f"count {c}")
+            if c == 0 and not (got == 1).all():
+                raise AssertionError("kernel 6 at count 0: a receiver is not lit")
+        got = brute.rt_brute_kernel(inp, count)
+        if not torch.equal(got.reshape(out.shape), out):
+            raise AssertionError(f"kernel 6 differs from the frame's own call at rt_scale {s}")
+        want = [None]
+        p_ms = host_ms(lambda: want.__setitem__(0, brute.rt_brute_plain(inp, count)))
+        k_ms = cuda_ms(lambda: brute.rt_brute_kernel(inp, count), 20)
+        u_ms = cuda_ms(lambda: brute.rt_brute_kernel(inp, None), 5)
+        k_dev = sum(device_us_by_kernel(lambda: brute.rt_brute_kernel(inp, count), 20)
+                    .values()) / 1e3
+        u_dev = sum(device_us_by_kernel(lambda: brute.rt_brute_kernel(inp, None), 5)
+                    .values()) / 1e3
+        b_ms, b_by, walked, pairs, n_ops = brute_bound(inp, count)
+        lines.append(f"rt_scale {s}: {inp.origin.shape[1]} receivers, count {int(count)}, "
+                     f"{walked} triangles walked of {tri.shape[0]}, {pairs} pairs left by the "
+                     f"early exit ({n_ops} FP32 operations as far as each test needs), "
+                     f"{100 * float((got == 0).float().mean()):.1f}% occluded; kernel "
+                     f"by events / device {k_ms:.4f} / {k_dev:.4f} ms (unbounded walk "
+                     f"{u_ms:.4f} / {u_dev:.4f}), plain {p_ms:.1f} ms, bound {b_ms:.5f} ms by "
+                     f"{b_by} = {100 * b_ms / k_ms:.1f}% of the events' time, "
+                     f"{100 * b_ms / k_dev:.1f}% of the device time")
+        if entry is None:
+            entry = dict(name="rt_brute", route="cuda",
+                         source="renderer_tpu_torch/csrc/rt_brute.cu",
+                         replaces="renderer_tpu/ops/rt.py:99", launches=None, max_abs_err=0.0,
+                         ms=k_dev, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    phase("rt_brute", f"kernel 6 against its plain version on {BRUTE_SCENE}'s rt soup at "
+                      f"{DEMO_SIZE}x{DEMO_SIZE}, counts {list(BRUTE_COUNTS)} and the frame's: "
+                      "identical planes, count 0 all lit, the frame's own call equal; "
+                      + "; ".join(lines) + f" ({card})")
+    return entry
+
+
+def bench_phase(tier_ms: dict, scene, cfg, dev, card) -> None:
+    """Phase 39: bench_torch.py in a subprocess, its JSON line checked and
+    printed beside phase 7's and 15's ms/frame, and its base exact tier
+    measured in this process too, as it is and with the garbage
+    collector's objects frozen (this process holds far more objects than
+    a fresh one), and in a fresh process before and after one window of
+    torch.profiler (which this process has run before its tiers)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    out = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not out:
+        raise AssertionError(f"bench_torch.py exit {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(out[-1])
+    keys = set(line) - {BENCH_GOLDEN_KEY}
+    if keys != set(BENCH_KEYS) or not line["metric"].endswith("_gpu"):
+        raise AssertionError(f"bench_torch.py line: keys {sorted(set(line) ^ set(BENCH_KEYS))} "
+                             f"differ from bench.result_line's, metric {line['metric']}")
+    if line["metric"] != f"sponza_like_{N_INSTANCES}inst_{WIDTH}x{HEIGHT}_fps_gpu":
+        raise AssertionError(f"bench_torch.py metric {line['metric']}")
+    pairs = {"exact_path_frame_ms": "base_exact", "checkerboard_fix_frame_ms": "base_checkerboard",
+             "shadowed_dynamic_frame_ms": "shadowed_dynamic"}
+    against = {k: f"{line[k]} against {tier_ms[t]:.2f}" for k, t in pairs.items()}
+    against["shadowed exact / cb+fix fps"] = (
+        f"{line['shadowed_exact_fps']} / {line['shadowed_checkerboard_fix_fps']} against "
+        f"{1e3 / tier_ms['shadowed_exact']:.2f} / {1e3 / tier_ms['shadowed_checkerboard']:.2f}")
+    import gc
+
+    import bench_torch
+
+    here = {"as is": bench_torch._measure_mode(scene, cfg, dev, shadows=False)[0] * 1e3}
+    n_objects = len(gc.get_objects())
+    gc.collect()
+    gc.freeze()
+    try:
+        here["gc frozen"] = bench_torch._measure_mode(scene, cfg, dev, shadows=False)[0] * 1e3
+    finally:
+        gc.unfreeze()
+    against["base exact in this process"] = (
+        f"{here['as is']:.2f} ms/frame, {here['gc frozen']:.2f} with the collector's "
+        f"{n_objects} objects frozen")
+    traced = subprocess.run([sys.executable, "-c", PROFILED_BENCH], cwd=ROOT,
+                            env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+                            timeout=BENCH_TIMEOUT_S)
+    if traced.returncode != 0:
+        raise AssertionError(f"profiled bench process exit {traced.returncode}: "
+                             f"{traced.stderr[-3000:]}")
+    before, after = (float(v) for v in traced.stdout.split()[-2:])
+    against["base exact in a fresh process, before / after a profiler window"] = (
+        f"{before:.2f} / {after:.2f} ms/frame")
+    phase("bench", f"python3 bench_torch.py: exit 0 in {seconds:.1f} s, keys = bench.result_line's"
+                   f"{' with the golden key' if BENCH_GOLDEN_KEY in line else ''}, metric "
+                   f"{line['metric']}; against phases 7 and 15: {json.dumps(against)} ({card}); "
+                   f"its line: {out[-1]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1997,7 +2363,9 @@ def main() -> int:
 
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    libraries = {"raster.cu": rc.LIBRARY, "occlusion.cu": oc.LIBRARY, "probe.cu": probe_cuda.LIBRARY}
+    libraries = {"raster.cu": rc.LIBRARY, "occlusion.cu": oc.LIBRARY,
+                 "probe.cu": probe_cuda.LIBRARY, "scan_raster.cu": rs.LIBRARY,
+                 "rt_brute.cu": brute.LIBRARY}
     cuda_build.build_all(libraries.values())
     for kernel in KERNELS:
         kernel.load()
@@ -2300,20 +2668,32 @@ def main() -> int:
     # 13. rt profile ------------------------------------------------------------
     profile_main_path("rt_profile", rt_renderer, dev, card)
 
-    shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, card)
+    tier_ms = shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, card)
     city = culling_phases(scene, prepared, cfg, renderer, kernel_ms, path_launches, dev, card)
     tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card)
     runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, card)
     plain_phases(scene, cfg, path_launches, dev, card)
+    kernels["scan_raster"] = scan_raster_phase(dev, card)
+    kernels["rt_brute"] = rt_brute_phase(dev, card)
+    bench_phase(tier_ms, scene, cfg, dev, card)
     kernels["raster_tiles"]["launches"] = sum(path_launches.values())
+    for name, k in (("scan_raster", rs.SCAN_RASTER), ("rt_brute", brute.RT_BRUTE)):
+        kernels[name]["launches"] = sum(plain_path_launches[k.symbol].values())
+        if not kernels[name]["launches"]:
+            raise AssertionError(f"{name} was launched no time on the plain paths")
     phase("launches", f"raster kernel launches per main path, each counted from 0: "
-                      f"{json.dumps(path_launches)}, {sum(path_launches.values())} in all")
+                      f"{json.dumps(path_launches)}, {sum(path_launches.values())} in all; "
+                      f"kernel 5 (scan raster) per plain path "
+                      f"{json.dumps(plain_path_launches[rs.SCAN_RASTER.symbol])}, kernel 6 "
+                      f"(brute-force rt) {json.dumps(plain_path_launches[brute.RT_BRUTE.symbol])}, "
+                      f"occlusion kernel {kernels['occlusion_tiles']['launches']}")
 
     phase("phase_seconds", "host seconds of each phase, from the line before it: "
                            + json.dumps(PHASE_SECONDS))
     phase("total", f"chip_smoke ran {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [kernels[k] for k in
-                                  ("raster_tiles", "occlusion_tiles", "add_one", "transpose")]}))
+                                  ("raster_tiles", "occlusion_tiles", "add_one", "transpose",
+                                   "scan_raster", "rt_brute")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

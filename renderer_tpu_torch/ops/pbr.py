@@ -239,7 +239,8 @@ def shade_pbr(
             )
         elif rt is not None:
             planes = rt_shadow_planes(world, n_geom, scene.lights, rt.tri_world, rt.tri_valid,
-                                      slot_lights(rt.light_casts, rt.n_slots), rt.rt_scale)
+                                      slot_lights(rt.light_casts, rt.n_slots), rt.rt_scale,
+                                      rt.count)
 
         v = _normalize_cf(camera_pos[:, None, None] - world)
         lights = scene.lights

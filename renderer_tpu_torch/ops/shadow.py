@@ -10,16 +10,17 @@ whole or as one of K horizontal bands; a point slot renders six cube faces
 into a 2x3 grid of (S/2, S/4) faces. Every view is a two-sided depth-only
 raster: ``raster_cuda.rasterize_cuda`` (the CUDA kernel on the card), or
 with ``tile_raster=False`` the plain configuration's scan rasterizer
-(``raster_scan.rasterize_scan``), as the JAX package's atlas takes its XLA
-raster without Pallas.
+(``raster_scan.rasterize_scan``, its walk bounded by the view's caster
+count on the device), as the JAX package's atlas takes its XLA raster
+without Pallas.
 
 The Renderer's light-cast pattern is static (``runtime.frame.light_casts``),
 so which slot holds which kind of light is known on the host: a slot
 without a light is a fill of 1.0 and costs no work. Whether a slot renders
 this frame (the cache's choice) is a device tensor and is never read on
 the host: an unselected slot culls against an empty set, so its raster
-walks no triangle, and the result keeps the previous depth through
-``torch.where``.
+walks no triangle (the scan raster's count is 0: no block), and the
+result keeps the previous depth through ``torch.where``.
 """
 
 from __future__ import annotations
@@ -402,11 +403,12 @@ def render_shadow_atlas_per_light(scene, light_mats, model, lod, slots: tuple, s
         visible = coarse_cull(scene, model, m)
         if on is not None:
             visible = visible & on
-        clip, valid, _ = expand_clip_only(scene, visible, lod_pick, clip_rows(m, model),
-                                          caster_capacity)
+        clip, valid, count = expand_clip_only(scene, visible, lod_pick, clip_rows(m, model),
+                                              caster_capacity)
         if tile_raster:
             return rasterize_cuda(clip, valid, w, h, cull_backface=False, with_bary=False).depth
-        return rasterize_scan(clip, valid, w, h, cull_backface=False, with_bary=False).depth
+        return rasterize_scan(clip, valid, w, h, cull_backface=False, with_bary=False,
+                              count=count).depth
 
     def ones(h):
         return torch.ones((h, s), dtype=torch.float32, device=dev)

@@ -297,7 +297,7 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
     def raster(soup, with_bary=lambert):
         if plain:
             return {"vis": rasterize_scan(soup.clip, soup.valid, w, h,
-                                          cull_backface=cfg.cull_backface)}
+                                          cull_backface=cfg.cull_backface, count=soup.count)}
         return {"vis": rasterize_cuda(soup.clip, soup.valid, w, h,
                                       cull_backface=cfg.cull_backface, with_bary=with_bary)}
 
@@ -359,7 +359,7 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         (ops/rt.py)."""
         if plain:
             rt = RtBrute(triangles_world(soup.clip, prepared.vp_inv), soup.valid, light_casts,
-                         cfg.shadow_slots, cfg.rt_scale)
+                         cfg.shadow_slots, cfg.rt_scale, soup.count)
             return {img_res: _shade(vis, soup, shade_rec, scene_view, camera, prepared, rt=rt)}
         smin, smax = prepared.scene_min, prepared.scene_max
         d = smax - smin
@@ -389,7 +389,8 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         REFERENCE_TINT_AT are tinted magenta."""
         k = REFERENCE_SCALE
         wlo, hlo = cfg.width // k, cfg.height // k
-        vis_lo = rasterize_scan(soup.clip, soup.valid, wlo, hlo, cull_backface=cfg.cull_backface)
+        vis_lo = rasterize_scan(soup.clip, soup.valid, wlo, hlo, cull_backface=cfg.cull_backface,
+                                count=soup.count)
         ref = shade_pbr(vis_lo, shade_rec, scene_view, camera.position, prepared.vp_inv,
                         background=cfg.background, enable_textures=cfg.enable_textures,
                         enable_normal_maps=cfg.enable_normal_maps, trilinear=cfg.trilinear,

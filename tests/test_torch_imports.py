@@ -1,5 +1,6 @@
 """The port runs without jax and without the JAX package: the port package,
-chip_smoke.py and chip_ab.py import neither, directly or indirectly (the machine with
+chip_smoke.py, chip_ab.py and bench_torch.py import neither, directly or
+indirectly, and bench_torch.py does not import bench.py (the machine with
 the card has no jax installed, and the port stands alone). Nor does it need
 Pillow for PNG textures or their resize: the machine with the card has
 none."""
@@ -101,7 +102,8 @@ while s.stats["uploaded"] < 2:
 s.close()
 ProjectileSystem(scene, 0, 0, 4).step()
 print("PIL blocked:", "PIL" in sys.modules and sys.modules["PIL"] is None)
-import chip_ab, chip_smoke, torch_raster_cases  # noqa: F401
+import bench_torch, chip_ab, chip_smoke, torch_raster_cases  # noqa: F401
+assert "bench" not in sys.modules
 import renderer_tpu_torch.ops.probe_cuda  # noqa: F401
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "renderer_tpu"))
@@ -111,6 +113,8 @@ print("JAX_MODULES", loaded)
 # import statements that name jax or the JAX package (renderer_tpu, not
 # renderer_tpu_torch)
 IMPORT = re.compile(r"^\s*(import\s+(jax|renderer_tpu)\b(?!_)|from\s+(jax|renderer_tpu)\b(?!_))", re.M)
+# import statements that name bench.py (bench, not bench_torch)
+BENCH_IMPORT = re.compile(r"^\s*(import\s+bench\b(?!_)|from\s+bench\b(?!_))", re.M)
 
 
 def test_port_renders_a_frame_without_jax():
@@ -124,6 +128,7 @@ def test_port_renders_a_frame_without_jax():
 
 def test_no_jax_import_in_port_sources():
     paths = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_ab.py"),
+             os.path.join(ROOT, "bench_torch.py"),
              os.path.join(ROOT, "tests", "torch_raster_cases.py"),
              os.path.join(ROOT, "tests", "torch_occlusion_cases.py"),
              os.path.join(ROOT, "tests", "test_torch_kernels.py"),
@@ -134,6 +139,10 @@ def test_no_jax_import_in_port_sources():
     assert len(paths) > 15
     assert IMPORT.search("from renderer_tpu.ops import raster_ref")
     assert not IMPORT.search("from renderer_tpu_torch.ops import raster_cuda")
+    assert BENCH_IMPORT.search("import bench") and BENCH_IMPORT.search("from bench import x")
+    assert not BENCH_IMPORT.search("import bench_torch")
     for p in paths:
         with open(p) as f:
-            assert not IMPORT.search(f.read()), p
+            src = f.read()
+        assert not IMPORT.search(src), p
+        assert not BENCH_IMPORT.search(src), p

@@ -15,7 +15,12 @@ kernel's plane equals its plain version's on every occlusion case (the CPU
 tests hold the plain version to JAX and a float64 brute force), at the
 default segment length and at one-block segments, so segments of a tile
 combine; add_one and the transpose equal x + 1 and x.T.contiguous(); the
-kernels launch on the current stream, not on a stream seen before.
+kernels launch on the current stream, not on a stream seen before. The
+count-bounded scan raster (kernel 5) equals its plain version bit for bit
+(depth, tri_id, barycentrics) on every raster case, with and without the
+backface cull, at counts 0, 1, 127, 128, 129, the capacity and none, and
+the count-bounded brute-force rt (kernel 6) equals its plain version's
+lit plane at counts 0, 1, 129, the live count and none.
 """
 
 import numpy as np
@@ -27,7 +32,10 @@ from renderer_tpu_torch.ops.occlusion_cuda import (OCCLUSION_TILES, SEGMENT_BLOC
                                                    occlusion_tiles_plain)
 from renderer_tpu_torch.ops.raster_cuda import (TILE_H, TILE_W, raster_inputs, raster_kernel,
                                                 raster_tiles_plain)
+from renderer_tpu_torch.ops.raster_scan import (SCAN_RASTER, scan_inputs, scan_raster_kernel,
+                                                scan_raster_plain)
 from renderer_tpu_torch.ops.raster_spec import NO_TRIANGLE
+from renderer_tpu_torch.ops.rt import RT_BRUTE, brute_inputs, rt_brute_kernel, rt_brute_plain
 from renderer_tpu_torch.ops.rt_grid import occlusion_inputs
 from torch_occlusion_cases import CASES as OCCLUSION_CASES
 from torch_raster_cases import CASES, HOT_TILE, random_soup
@@ -171,3 +179,63 @@ def test_kernels_launch_on_the_current_stream(cuda_device):
     assert torch.equal(occ, want_occ)
     for g, p in zip(ras, want_ras):
         assert torch.equal(g, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_scan_raster_kernel_matches_plain(case, cull, cuda_device):
+    build, w, h, _ = CASES[case]
+    clip, valid = build()
+    inp = scan_inputs(torch.from_numpy(clip).to(cuda_device),
+                      torch.from_numpy(valid).to(cuda_device), w, h, cull)
+    t_cap = clip.shape[0]
+    tri_block = min(128, t_cap)
+    for count in (0, 1, 127, 128, 129, t_cap, None):
+        c = None if count is None else torch.tensor(count, dtype=torch.int32, device=cuda_device)
+        for with_bary in (True, False):
+            before = SCAN_RASTER.launches
+            got = scan_raster_kernel(inp, c, w, h, tri_block, with_bary)
+            want = scan_raster_plain(inp, count, w, h, tri_block, with_bary)
+            torch.cuda.synchronize()
+            assert SCAN_RASTER.launches == before + 1
+            for name, g, p in zip(("depth", "tri_id", "bary"), got, want):
+                assert torch.equal(g, p), (name, count, with_bary)
+            if count == 0:
+                assert (got.tri_id == NO_TRIANGLE).all()
+
+
+def brute_case(seed: int, n_tri: int = 600, capacity: int = 768):
+    """Receivers (3, 24, 40) over a slab, their normals, and a soup of
+    ``capacity`` slots whose first ``n_tri`` hold triangles above them."""
+    rng = np.random.default_rng(seed)
+    world = rng.uniform(-2, 2, (3, 24, 40)).astype(np.float32)
+    world[1] *= 0.1
+    normal = rng.normal(size=(3, 24, 40)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=0, keepdims=True)
+    tri = np.zeros((capacity, 3, 3), np.float32)
+    centres = rng.uniform(-2, 2, (n_tri, 1, 3)) * np.float32([1, 0.5, 1]) + np.float32([0, 1.5, 0])
+    tri[:n_tri] = centres + rng.normal(scale=0.15, size=(n_tri, 3, 3))
+    valid = np.zeros(capacity, bool)
+    valid[:n_tri] = rng.random(n_tri) < 0.9
+    return world, normal, tri, valid
+
+
+@pytest.mark.gpu
+def test_rt_brute_kernel_matches_plain(cuda_device):
+    world, normal, tri, valid = brute_case(3)
+    direction = np.float32([-0.3, -1.0, 0.5])
+    inp = brute_inputs(*(torch.from_numpy(a).to(cuda_device)
+                         for a in (world, normal, direction, tri, valid)))
+    for count in (0, 1, 129, 600, None):
+        c = None if count is None else torch.tensor(count, dtype=torch.int32, device=cuda_device)
+        before = RT_BRUTE.launches
+        got = rt_brute_kernel(inp, c)
+        want = rt_brute_plain(inp, count)
+        torch.cuda.synchronize()
+        assert RT_BRUTE.launches == before + 1
+        assert torch.equal(got, want), count
+        if count == 0:
+            assert (got == 1).all()
+        elif count in (600, None):
+            assert (got == 0).any()

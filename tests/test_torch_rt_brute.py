@@ -15,7 +15,10 @@ Gates, with their reasons:
   within 0.04 on > 97% of pixels, and the grid frame darker than the
   unshadowed one;
 - a slot with no light, or with a point light, is a plane of ones and
-  traces nothing.
+  traces nothing;
+- bounded by the soup's count (0, 1, 127, 128, 129, the live count and
+  the capacity) against JAX's bounded walk at the same share, and bit for
+  bit against the soup cut after the walked blocks; count 0 is all lit.
 """
 
 import jax.numpy as jnp
@@ -51,16 +54,16 @@ def floor_receivers(n: int, size: float):
     return world, normal
 
 
-def random_case(seed: int):
+def random_case(seed: int, n_tri: int = 300, scale: float = 0.4):
     """Receivers spread over a slab and triangles above them, from a seed."""
     rng = np.random.default_rng(seed)
     world = rng.uniform(-2, 2, (3, 24, 40)).astype(np.float32)
     world[1] *= 0.1
     normal = rng.normal(size=(3, 24, 40)).astype(np.float32)
     normal /= np.linalg.norm(normal, axis=0, keepdims=True)
-    centres = rng.uniform(-2, 2, (300, 1, 3)) * np.float32([1, 0.5, 1]) + np.float32([0, 1.5, 0])
-    tri = (centres + rng.normal(scale=0.4, size=(300, 3, 3))).astype(np.float32)
-    valid = rng.random(300) < 0.9
+    centres = rng.uniform(-2, 2, (n_tri, 1, 3)) * np.float32([1, 0.5, 1]) + np.float32([0, 1.5, 0])
+    tri = (centres + rng.normal(scale=scale, size=(n_tri, 3, 3))).astype(np.float32)
+    valid = rng.random(n_tri) < 0.9
     return world, normal, tri, valid
 
 
@@ -103,6 +106,41 @@ def test_ray_shadow_directional_matches_jax(case):
     live = np.ones(got.shape, bool)
     assert agree(got, want, live) <= FLIP_SHARE
     assert 0.02 < (got == 0).mean() < 0.9  # shadowed and lit receivers both
+
+
+COUNT_CASE_TRIS = 600  # past four blocks, so that 1, 127 and 129 cut a block
+COUNT_CAPACITY = 768
+
+
+@pytest.mark.parametrize("count", ["0", "1", "127", "128", "129", "live", "capacity"])
+def test_count_bounded_ray_shadow_matches_jax(count):
+    """The walk bounded by the count, as JAX bounds it: whole blocks below
+    ceil(count / 128), so a live triangle past the count in the last
+    walked block still occludes; count 0 leaves every receiver lit."""
+    world, normal, tri, valid = random_case(11, COUNT_CASE_TRIS, scale=0.15)
+    direction = np.float32([-0.3, -1.0, 0.5])
+    pad = COUNT_CAPACITY - COUNT_CASE_TRIS
+    tri_s = np.concatenate([tri, np.zeros((pad, 3, 3), np.float32)])
+    valid_s = np.concatenate([valid, np.zeros(pad, bool)])
+    c = {"live": COUNT_CASE_TRIS, "capacity": COUNT_CAPACITY}.get(count) or int(count)
+    args = [torch.from_numpy(a) for a in (world, normal, direction, tri_s, valid_s)]
+    got = trt.ray_shadow_directional(*args, count=torch.tensor(c, dtype=torch.int32)).numpy()
+    want = np.asarray(jrt.ray_shadow_directional(
+        *(jnp.asarray(a) for a in (world, normal, direction, tri_s, valid_s)), jnp.int32(c)))
+    assert got.shape == want.shape == (1,) + world.shape[1:]
+    assert agree(got, want, np.ones(got.shape, bool)) <= FLIP_SHARE
+    walked = -(-c // trt.BLOCK) * trt.BLOCK
+    # the same as the soup cut after the walked blocks, bit for bit
+    cut = valid_s & (np.arange(len(valid_s)) < walked)
+    want_cut = trt.ray_shadow_directional(*args[:4], torch.from_numpy(cut)).numpy()
+    assert np.array_equal(got, want_cut)
+    if c == 0:
+        assert (got == 1).all()
+    else:
+        assert (got == 0).any()
+        if walked < COUNT_CASE_TRIS:  # the cut leaves occluders unwalked
+            full = trt.ray_shadow_directional(*args).numpy()
+            assert (full == 0).sum() > (got == 0).sum()
 
 
 def jax_lights(kinds):
