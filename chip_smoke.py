@@ -183,7 +183,21 @@ code is non-zero:
     counts 0, 129 and the frame's (identical planes), timed beside its
     bound (the pairs the early exit leaves);
 39. bench_torch.py in a subprocess: exit 0, its last line one JSON object
-    with bench.result_line's keys and a _gpu metric, printed.
+    with bench.result_line's keys and a _gpu metric, printed;
+40. the split frame (renderer_tpu_torch/parallel) over make_mesh([card] * 2),
+    two shards of 1920x544 rows on the one card, in bench.py's base exact,
+    base checkerboard+fix, shadowed static checkerboard+fix and rt tiers:
+    per tier the gathered frame against the single-shard frame (covered
+    mask equal, max abs difference <= 2e-6, the JAX package's gate; and
+    whether tri_id is equal too), ms/frame of both over the same frames,
+    both under sync-debug "error", device busy and idle of each over 3
+    traced frames, the launches of each path
+    counted from 0 (the split path twice the single one's: each shard
+    rasterizes its rows and makes the atlas whole); kernel 1 at shard 1's
+    rows (y0 = 544) of the gathered soup (its valid mask segmented by
+    shard) and of the same soup in the cull's order (the frame's), and
+    kernel 2 at shard 1's receivers, against their plain versions bit for
+    bit, and kernel 1's rows equal to shard 1's visibility buffer.
 
 Every main path runs with every kernel's launch count set to 0 just
 before it and read just after (the raster kernel once per frame and per
@@ -205,6 +219,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -331,6 +346,17 @@ BENCH_KEYS = (
     "shadowed_shadow_updates_per_frame", "shadowed_dynamic_fps", "shadowed_dynamic_frame_ms",
     "shadow_updates_per_frame", "shadow_progressive_bands", "shadow_caster_capacity")
 BENCH_GOLDEN_KEY = "psnr_vs_golden_db"
+# phase 40: the split frame over two shards of the card, in bench.py's tiers
+SPLIT_SHARDS = 2
+SPLIT_TIERS = {  # name -> (config changes, switches)
+    "base_exact": ({}, {}),
+    "base_checkerboard_fix": (dict(shade_rate="checkerboard"), {}),
+    "shadowed_static_checkerboard_fix": (dict(shade_rate="checkerboard"), dict(shadows=True)),
+    "rt": ({}, dict(rt=True)),
+}
+SPLIT_FRAMES = 10  # timed frames per tier and path
+SPLIT_PROFILE_FRAMES = 3  # frames per traced window
+SPLIT_ATOL = 2e-6  # split against single-shard image (tests/test_parallel.py's gate)
 # phase 39: bench_torch's base exact tier in a fresh process, before and
 # after one traced window of torch.profiler (host and device activity)
 PROFILED_BENCH = """
@@ -605,8 +631,8 @@ def bench_camera(k, dev):
     return orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev)
 
 
-def traced_window(renderer, dev, activities, cam_at=bench_camera):
-    """Render PROFILE_FRAMES frames (frame k at ``cam_at(k, dev)``) under
+def traced_window(renderer, dev, activities, cam_at=bench_camera, frames: int = PROFILE_FRAMES):
+    """Render ``frames`` frames (frame k at ``cam_at(k, dev)``) under
     torch.profiler. Returns the profile and the window's host-clock ms per
     frame."""
     from torch.profiler import profile
@@ -614,11 +640,21 @@ def traced_window(renderer, dev, activities, cam_at=bench_camera):
     with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for k in range(PROFILE_FRAMES):
+        for k in range(frames):
             renderer.render(cam_at(k, dev))
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_FRAMES
+        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     return prof, wall_ms
+
+
+def traced_busy(prof, frames: int) -> tuple:
+    """A traced window's device ops (the ``forward.`` ranges left out) and
+    their device busy ms per frame."""
+    from torch.autograd import DeviceType
+
+    device_ops = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.key.startswith("forward.")]
+    return device_ops, sum(e.self_device_time_total for e in device_ops) / 1e3 / frames
 
 
 def pass_device_ms(events, n_frames: int):
@@ -663,9 +699,7 @@ def profile_main_path(name, renderer, dev, card: str, cam_at=bench_camera) -> di
     from torch.profiler import ProfilerActivity
 
     prof, wall_ms = traced_window(renderer, dev, [ProfilerActivity.CUDA], cam_at)
-    device_ops = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and not e.key.startswith("forward.")]
-    busy_ms = sum(e.self_device_time_total for e in device_ops) / 1e3 / PROFILE_FRAMES
+    device_ops, busy_ms = traced_busy(prof, PROFILE_FRAMES)
     ops = sum(e.count for e in device_ops) / PROFILE_FRAMES
     top = sorted(device_ops, key=lambda e: -e.self_device_time_total)[:4]
     if busy_ms > 0:
@@ -2343,6 +2377,124 @@ def bench_phase(tier_ms: dict, scene, cfg, dev, card) -> None:
                    f"its line: {out[-1]}")
 
 
+def split_phase(scene, cfg, path_launches, kernels, dev, card) -> None:
+    """Phase 40: the split frame over two shards of the card (the module
+    docstring). Its raster and occlusion launches join the kernels line's."""
+    from torch.profiler import ProfilerActivity
+
+    from renderer_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh([dev] * SPLIT_SHARDS)
+    rows = HEIGHT // SPLIT_SHARDS
+    outputs = ("image", "vis", "soup")
+    cam = bench_camera(0, dev)
+    lines, checks = [], []
+    for name, (changes, switches) in SPLIT_TIERS.items():
+        tcfg = dataclasses.replace(cfg, **changes)
+        one = Renderer(scene, tcfg, outputs=outputs, device=dev)
+        split = Renderer(scene, dataclasses.replace(tcfg, spmd_devices=SPLIT_SHARDS),
+                         outputs=outputs, spmd_mesh=mesh)
+        for r in (one, split):
+            r.set_config(**switches)
+            r.apply_config_now()
+            r.render(cam)  # warm-up: plans, fonts, the atlas cache
+        ms, launched = {}, {}
+        for label, r in (("single", one), ("split", split)):
+            for kernel in KERNELS:
+                kernel.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with no_blocking_sync(True):
+                for k in range(SPLIT_FRAMES):
+                    r.render(bench_camera(k, dev))
+            torch.cuda.synchronize()
+            ms[label] = (time.perf_counter() - t0) * 1e3 / SPLIT_FRAMES
+            launched[label] = {kn.symbol: kn.launches for kn in KERNELS}
+        want = {k: SPLIT_SHARDS * v for k, v in launched["single"].items()}
+        if launched["split"] != want or not launched["split"][rc.RASTER_TILES.symbol] or (
+                switches.get("rt") and not launched["split"][oc.OCCLUSION_TILES.symbol]):
+            raise AssertionError(f"split {name}: launches {launched['split']}, want {want} "
+                                 f"(the single-shard path's {launched['single']} per shard)")
+        path_launches[f"split_{name}"] = launched["split"][rc.RASTER_TILES.symbol]
+        kernels["occlusion_tiles"]["launches"] += launched["split"][oc.OCCLUSION_TILES.symbol]
+        calls, gathered = [], []
+        record, order = trt.occlusion_grid, geometry.draw_order
+
+        def occlusion_grid(*args):  # kernel 2's inputs, by the shard that traced them
+            calls.append((threading.current_thread().name, args))
+            return record(*args)
+
+        def draw_order(soup, n):  # the gathered soup, before it is put in the cull's order
+            gathered.append(soup)
+            return order(soup, n)
+
+        trt.occlusion_grid, geometry.draw_order = occlusion_grid, draw_order
+        try:
+            a, b = one.render(cam), split.render(cam)
+            shard_vis = split.shard_outputs[1]["vis"]
+        finally:
+            trt.occlusion_grid, geometry.draw_order = record, order
+        same_cover = torch.equal(a["vis"].tri_id >= 0, b["vis"].tri_id >= 0)
+        same_ids = torch.equal(a["vis"].tri_id, b["vis"].tri_id)
+        err = (a["image"] - b["image"]).abs().max().item()
+        if not same_cover or err > SPLIT_ATOL:
+            raise AssertionError(f"split {name}: covered mask equal {same_cover}, max abs "
+                                 f"difference {err} against the single-shard frame "
+                                 f"({int((a['image'] != b['image']).any(-1).sum())} pixels "
+                                 f"differ, tri_id equal {same_ids})")
+        busy = {}  # label -> (device busy ms/frame, wall ms/frame, idle %)
+        for label, r in (("single", one), ("split", split)):
+            prof, wall = traced_window(r, dev, [ProfilerActivity.CUDA],
+                                       frames=SPLIT_PROFILE_FRAMES)
+            busy_ms = traced_busy(prof, SPLIT_PROFILE_FRAMES)[1]
+            busy[label] = (busy_ms, wall, 100.0 * (1.0 - busy_ms / wall))
+        lines.append(
+            f"{name}: covered equal, tri_id {'equal' if same_ids else 'not equal'}, max abs "
+            f"difference {err:.3g}; ms/frame over {SPLIT_FRAMES} "
+            f"frames, both under sync-debug error, single {ms['single']:.2f}, split "
+            f"{ms['split']:.2f}; "
+            + ", ".join(f"{label} busy {v[0]:.3f} ms/frame in {v[1]:.2f} = idle {v[2]:.1f}%"
+                        for label, v in busy.items())
+            + f"; launches split {json.dumps(launched['split'])}")
+        if name == "base_exact":  # kernel 1 at shard 1's rows, y0 = rows
+            seg, soup = gathered[-1], b["soup"]
+            count = int(soup.count)
+            if bool(seg.valid[:count].all()) or not bool(soup.valid[:count].all()):
+                raise AssertionError("split soup: want the gathered valid mask segmented and "
+                                     "the ordered one a prefix")
+            k1 = []
+            for label, s in (("gathered (segmented)", seg), ("ordered (the frame's)", soup)):
+                args = rc.raster_inputs(s.clip, s.valid, WIDTH, rows, y0=rows,
+                                        full_height=HEIGHT)
+                got = rc.raster_kernel(*args, False)
+                if not all(torch.equal(g, w)
+                           for g, w in zip(got, rc.raster_tiles_plain(*args, False))):
+                    raise AssertionError(f"split: kernel 1 at shard 1's rows of the {label} "
+                                         "soup differs from its plain version")
+                k1.append(f"{label} {cuda_ms(lambda: rc.raster_kernel(*args, False), 10):.4f} ms")
+            if not (torch.equal(got[0], shard_vis.depth) and torch.equal(got[1], shard_vis.tri_id)):
+                raise AssertionError("split: kernel 1 at shard 1's rows differs from the "
+                                     "shard's visibility buffer")
+            checks.append(f"kernel 1 at shard 1's rows {rows}..{HEIGHT - 1} of the gathered soup "
+                          f"({count} live of {seg.valid.numel()}, segments "
+                          f"{[int(v.sum()) for v in seg.valid.chunk(SPLIT_SHARDS)]}) and of the "
+                          "ordered one: each equal to its plain version, the ordered one to the "
+                          f"shard's buffer; kernel {', '.join(k1)}")
+        if switches.get("rt"):  # kernel 2 at shard 1's receivers
+            shard1 = [args for thread, args in calls if thread == "shard-1"]
+            if not shard1:
+                raise AssertionError("split rt: shard 1 traced no slot")
+            args = trt.occlusion_inputs(*shard1[0])
+            if not torch.equal(oc.occlusion_kernel(*args), oc.occlusion_tiles_plain(*args)):
+                raise AssertionError("split rt: kernel 2 at shard 1's receivers differs from "
+                                     "its plain version")
+            checks.append(f"kernel 2 at shard 1's receivers ({tuple(shard1[0][2].shape)} "
+                          f"grid, {len(shard1)} traced slots): equal to its plain version")
+    phase("split", f"{SPLIT_SHARDS} shards of {WIDTH}x{rows} on one card "
+                   f"(make_mesh([dev] * {SPLIT_SHARDS})), sponza_like_scene({N_INSTANCES}): "
+          + "; ".join(lines + checks) + f" ({card})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2676,6 +2828,7 @@ def main() -> int:
     kernels["scan_raster"] = scan_raster_phase(dev, card)
     kernels["rt_brute"] = rt_brute_phase(dev, card)
     bench_phase(tier_ms, scene, cfg, dev, card)
+    split_phase(scene, cfg, path_launches, kernels, dev, card)
     kernels["raster_tiles"]["launches"] = sum(path_launches.values())
     for name, k in (("scan_raster", rs.SCAN_RASTER), ("rt_brute", brute.RT_BRUTE)):
         kernels[name]["launches"] = sum(plain_path_launches[k.symbol].values())

@@ -16,8 +16,10 @@ Scenes: box, spheres, mixed, textured, skinned, city, colonnade (the
 committed ``assets/colonnade.glb``) and glb:<path> (a .glb or .gltf with
 the colonnade's lights). ``--watch`` hot-reloads the ops and passes
 modules and the kernel sources between frames (``runtime.reload``).
-``--spmd`` is not ported yet (ROADMAP.md queue 1, item 12): the demo
-exits naming the item and renders nothing in its place.
+``--spmd N`` splits the frame over N shards (``parallel.sharding``): the
+first N CUDA cards, or with ``--device cpu`` N shards on the CPU (the
+JAX demo's forced host-device count). On one card the split runs over a
+virtual mesh, ``make_mesh([dev] * N)``, from the library.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ import torch
 SCENES = ("box", "spheres", "mixed", "textured", "skinned", "city", "colonnade")
 ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
                      "colonnade.glb")
-NOT_PORTED = "not ported yet: ROADMAP.md queue 1, item {} ({})"
 
 
 @contextlib.contextmanager
@@ -171,10 +172,9 @@ def main(argv=None):
                     help="render every frame after the first under "
                          "torch.cuda.set_sync_debug_mode('error') (the card only)")
     ap.add_argument("--watch", action="store_true", help="hot-reload kernels between frames")
-    ap.add_argument("--spmd", type=int, default=0, metavar="N", help="split the frame over N cards")
+    ap.add_argument("--spmd", type=int, default=0, metavar="N",
+                    help="split the frame over N cards (N CPU shards with --device cpu)")
     args = ap.parse_args(argv)
-    if args.spmd > 1:
-        raise SystemExit("--spmd: " + NOT_PORTED.format(12, "the split frame"))
 
     from renderer_tpu_torch.graph.dot import dump
     from renderer_tpu_torch.ops.overlay import hud_overlay
@@ -183,6 +183,18 @@ def main(argv=None):
     from renderer_tpu_torch.runtime.hud import format_hud
     from renderer_tpu_torch.utils.image import srgb_encode, write_png
 
+    spmd_mesh = None
+    if args.spmd > 1:
+        from renderer_tpu_torch.parallel import make_mesh
+
+        if args.device == "cpu":
+            spmd_mesh = make_mesh(["cpu"] * args.spmd)
+        elif torch.cuda.device_count() < args.spmd:
+            raise SystemExit(f"--spmd {args.spmd}: only {torch.cuda.device_count()} CUDA devices "
+                             f"visible (on one card: Renderer(..., spmd_mesh=make_mesh([dev] * "
+                             f"{args.spmd})), from renderer_tpu_torch.parallel)")
+        else:
+            spmd_mesh = make_mesh([f"cuda:{i}" for i in range(args.spmd)])
     device = torch.empty(0, device=args.device or "cuda").device
     check = args.check_sync and device.type == "cuda"
     scene = build_scene(args.scene, device)
@@ -193,8 +205,9 @@ def main(argv=None):
                                                           else 16384),
                        skinning=args.scene == "skinned", ssaa=args.ssaa,
                        shade_rate=args.shade_rate, shade_fix=not args.no_shade_fix,
-                       tile_raster=not args.scan_raster),
-        outputs=("image", "vis", "prepared") if args.hud else ("image", "vis"), device=device)
+                       tile_raster=not args.scan_raster, spmd_devices=max(args.spmd, 1)),
+        outputs=("image", "vis", "prepared") if args.hud else ("image", "vis"), device=device,
+        spmd_mesh=spmd_mesh)
     renderer.set_config(debug_aabbs=args.debug_aabbs, freeze_culling=args.freeze_culling,
                         shadows=args.shadows, occlusion_culling=args.occlusion, rt=args.rt,
                         reference_image=args.reference_image)

@@ -12,18 +12,24 @@ EDGE_TAU = 0.0312  # FXAA's low contrast floor
 SUBPIX_CAP = 0.75  # FXAA subpix quality
 
 
-def _halo_rows(a):
-    """(row above the first, row below the last) with clamp-to-edge rows:
-    the single-device form of the JAX package's row-sharded halo."""
-    return a[..., :1, :], a[..., -1:, :]
+def halo_rows(arrays, halo=None) -> list:
+    """Per (..., H, W) array, (the row above its first, the row below its
+    last): with ``halo`` (the ``parallel.sharding.Shard`` of a split frame,
+    whose rows are a band of the image) the neighbouring shards' rows,
+    else clamp-to-edge rows (the JAX package's ``pbr._halo_rows``)."""
+    if halo is None:
+        return [(a[..., :1, :], a[..., -1:, :]) for a in arrays]
+    return halo.halo_rows(*arrays)
 
 
-def _up(a):
-    return torch.cat([_halo_rows(a)[0], a[..., :-1, :]], dim=-2)
+def _up(a, above=None):
+    """Each row's upper neighbour; the first row's is ``above`` (default:
+    itself)."""
+    return torch.cat([a[..., :1, :] if above is None else above, a[..., :-1, :]], dim=-2)
 
 
-def _dn(a):
-    return torch.cat([a[..., 1:, :], _halo_rows(a)[1]], dim=-2)
+def _dn(a, below=None):
+    return torch.cat([a[..., 1:, :], a[..., -1:, :] if below is None else below], dim=-2)
 
 
 def _left(a):
@@ -34,18 +40,20 @@ def _right(a):
     return torch.cat([a[..., :, 1:], a[..., :, -1:]], dim=-1)
 
 
-def edge_aa(color: torch.Tensor, tri_id: torch.Tensor) -> torch.Tensor:
+def edge_aa(color: torch.Tensor, tri_id: torch.Tensor, halo=None) -> torch.Tensor:
     """(3, H, W) HDR colour -> (3, H, W) anti-aliased. tri_id: (H, W)
     visibility-buffer ids (the background id counts, so silhouettes are
-    edges)."""
+    edges). ``halo``: the shard of a split frame, whose edge rows read the
+    neighbouring shards' (``halo_rows``)."""
     cl = torch.clamp(color, 0.0, 1.0)
     luma = _LW[0] * cl[0] + _LW[1] * cl[1] + _LW[2] * cl[2]
+    (t_a, t_b), (l_a, l_b), (c_a, c_b) = halo_rows((tri_id, luma, color), halo)
 
     id_edge = (
-        (tri_id != _up(tri_id)) | (tri_id != _dn(tri_id))
+        (tri_id != _up(tri_id, t_a)) | (tri_id != _dn(tri_id, t_b))
         | (tri_id != _right(tri_id)) | (tri_id != _left(tri_id))
     )
-    l_n, l_s, l_e, l_w = _up(luma), _dn(luma), _right(luma), _left(luma)
+    l_n, l_s, l_e, l_w = _up(luma, l_a), _dn(luma, l_b), _right(luma), _left(luma)
     l_max = torch.maximum(luma, torch.maximum(torch.maximum(l_n, l_s), torch.maximum(l_e, l_w)))
     l_min = torch.minimum(luma, torch.minimum(torch.minimum(l_n, l_s), torch.minimum(l_e, l_w)))
     rng = l_max - l_min
@@ -59,7 +67,7 @@ def edge_aa(color: torch.Tensor, tri_id: torch.Tensor) -> torch.Tensor:
     pick_e = (l_e - luma).abs() >= (l_w - luma).abs()
     nb = torch.where(
         horizontal[None],
-        torch.where(pick_n[None], _up(color), _dn(color)),
+        torch.where(pick_n[None], _up(color, c_a), _dn(color, c_b)),
         torch.where(pick_e[None], _right(color), _left(color)),
     )
     # FXAA sub-pixel weight: distance from the cross-neighbour average,

@@ -23,6 +23,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 
 import torch
@@ -58,6 +59,7 @@ class CudaLibrary:
         self._path = None
         self._proc = None
         self._lib = None
+        self._lock = threading.Lock()  # the shards of a split frame may load it at once
         self.kernels = []  # every CudaKernel made over this library
 
     def kernel(self, symbol: str, argtypes: list) -> "CudaKernel":
@@ -109,16 +111,17 @@ class CudaLibrary:
         """The loaded library, built first if need be. Its functions are
         called with the GIL held: they only enqueue work, and keeping the
         GIL is cheaper than releasing it around the call."""
-        if self._lib is None:
-            self.start()
-            if self._proc is not None:
-                _, err = self._proc.communicate()
-                rc, self._proc = self._proc.returncode, None
-                if rc != 0:
-                    raise RuntimeError(f"nvcc failed on {self.source}:\n{err}")
-                os.replace(self._tmp, self._lib_path())
-                self.build_log = f"built in {time.perf_counter() - self._t0:.2f} s\n{err}"
-            self._lib = ctypes.PyDLL(self._lib_path())
+        with self._lock:
+            if self._lib is None:
+                self.start()
+                if self._proc is not None:
+                    _, err = self._proc.communicate()
+                    rc, self._proc = self._proc.returncode, None
+                    if rc != 0:
+                        raise RuntimeError(f"nvcc failed on {self.source}:\n{err}")
+                    os.replace(self._tmp, self._lib_path())
+                    self.build_log = f"built in {time.perf_counter() - self._t0:.2f} s\n{err}"
+                self._lib = ctypes.PyDLL(self._lib_path())
         return self._lib
 
     def function(self, name: str, argtypes: list):

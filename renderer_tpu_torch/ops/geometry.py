@@ -516,6 +516,16 @@ def _cull_and_keys(x: list, y: list, z: list, w: list, valid: torch.Tensor,
     )
     mask = valid & ~out
     mask &= (det * FRONT_DET_SIGN > 0) if cull_backface else (det != 0)
+    return mask, _morton_keys(x, y, w, mask)
+
+
+def _morton_keys(x: list, y: list, w: list, mask: torch.Tensor) -> torch.Tensor:
+    """The Morton code of each triangle's screen-bbox centre on a 1024^2
+    grid, from its corners' clip columns; INVALID_KEY where ``mask`` is
+    False."""
+
+    def all3(f):
+        return f(0) & f(1) & f(2)
 
     safe = [torch.where(wc.abs() > 1e-9, wc, 1e-9) for wc in w]
     all_front = all3(lambda c: w[c] > 1e-9)
@@ -529,7 +539,18 @@ def _cull_and_keys(x: list, y: list, z: list, w: list, valid: torch.Tensor,
          + torch.maximum(torch.maximum(py[0], py[1]), py[2])) * -0.25 + 0.5, 0.0, 1.0)
     gx = torch.where(all_front, (cx * 1023).long(), 0)
     gy = torch.where(all_front, (cy * 1023).long(), 0)
-    return mask, torch.where(mask, _morton2d(gx, gy), INVALID_KEY)
+    return torch.where(mask, _morton2d(gx, gy), INVALID_KEY)
+
+
+def draw_order(soup: TriangleSoup, n_lib_tris: int) -> torch.Tensor:
+    """The permutation that puts a soup's live triangles in the order the
+    cull gives them: by the Morton key of the screen-bbox centre, ties by
+    the expansion slot, that is by (instance, library triangle); the dead
+    slots last. ``n_lib_tris`` bounds the library triangle indices."""
+    x, y, w = ([soup.clip[:, c, k] for c in range(3)] for k in (0, 1, 3))
+    key = _morton_keys(x, y, w, soup.valid)
+    perm = torch.sort(soup.instance * n_lib_tris + soup.tri_idx, stable=True).indices
+    return perm[torch.sort(key[perm], stable=True).indices]
 
 
 def expand_cull_sort_two_phase(scene: Scene, prepared: Prepared, expand_capacity: int,

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from renderer_tpu_torch.ops.aa import _dn, _up, edge_aa
+from renderer_tpu_torch.ops.aa import _dn, _right, _up, edge_aa, halo_rows
 from renderer_tpu_torch.ops.raster_spec import NO_TRIANGLE
 from renderer_tpu_torch.ops.geometry import (
     SR_BASE, SR_BC_LAYER, SR_EDGE, SR_EMISSIVE, SR_METALLIC, SR_NM_LAYER,
@@ -141,6 +141,10 @@ def shade_pbr(
     # plain configuration's scan raster, the reference view) instead of
     # re-deriving them from the records' edge columns
     bary_from_records: bool = True,
+    # the shard of a split frame (parallel.sharding.Shard): the buffer holds
+    # rows [y0, y0 + H) of a full_height frame, and the rebuilds, edge AA and
+    # the rt upsample read the neighbouring shards' rows at its edges
+    halo=None,
 ) -> torch.Tensor:
     """Shade a visibility buffer -> (H, W, 3) linear HDR colour."""
     if checkerboard and quarter:
@@ -235,7 +239,7 @@ def shade_pbr(
                 scene, world, n_geom, covered, rt_grid.light_mats, rt_grid.lod, rt_grid.model,
                 rt_grid.scene_radius, rt_grid.caster_capacity,
                 slot_lights(rt_grid.light_casts, rt_grid.n_slots), tri=tri_in,
-                rt_scale=rt_grid.rt_scale,
+                rt_scale=rt_grid.rt_scale, halo=halo,
             )
         elif rt is not None:
             planes = rt_shadow_planes(world, n_geom, scene.lights, rt.tri_world, rt.tri_valid,
@@ -280,9 +284,10 @@ def shade_pbr(
         tri_s = vis.tri_id[0::2, 0::2]
         shaded = run(vis.depth[0::2, 0::2], tri_s, px, py,
                      None if bary_in is None else bary_in[:, 0::2, 0::2])
-        color, scores = _quarter_expand(shaded, vis.tri_id, tri_s, tri_s != NO_TRIANGLE, bg)
+        color, scores = _quarter_expand(shaded, vis.tri_id, tri_s, tri_s != NO_TRIANGLE, bg,
+                                        halo)
         if shade_fix and traced is None:
-            color = _quarter_fix(color, scores, vis, y0, run, bary_in)
+            color = _quarter_fix(color, scores, vis, y0, run, bary_in, halo)
     elif checkerboard:
         # the shaded half-lattice ((x + y) even) packed to (H, W/2):
         # x = 2j + ((y + y0) & 1), shaded at its true pixel centres
@@ -300,14 +305,14 @@ def shade_pbr(
         tri_s = pack(vis.tri_id)
         shaded = run(pack(vis.depth), tri_s, px, py, None if bary_in is None else pack(bary_in))
         recon, score, tri_u = _checkerboard_expand(shaded, vis.tri_id, tri_s,
-                                                   tri_s != NO_TRIANGLE, rowpar, bg)
+                                                   tri_s != NO_TRIANGLE, rowpar, bg, halo)
         color = _cb_interleave(shaded, recon, rowpar)
         if shade_fix and traced is None:
-            color = _checkerboard_fix(color, score, tri_u, vis, rowpar, y0, run, bary_in)
+            color = _checkerboard_fix(color, score, tri_u, vis, rowpar, y0, run, bary_in, halo)
     else:
         color = run(vis.depth, vis.tri_id, None, None, bary_in)
     if aa:
-        color = edge_aa(color, vis.tri_id)
+        color = edge_aa(color, vis.tri_id, halo)
     return color.permute(1, 2, 0)
 
 
@@ -317,7 +322,34 @@ def fix_capacity(p2: int) -> int:
     return min(p2 - p2 % 8, max(2048, -(-p2 // FIX_K_DIV) // 8 * 8))
 
 
-def _checkerboard_fix(color, score, tri_u, vis, rowpar, y0: int, run, bary=None):
+def _top_suspects(scores, k: int, halo=None, axis: int = 0):
+    """The k best of ``scores`` by value, in ascending flat order: (flat
+    index, above FIX_TAU). Under a split frame (``halo``) ``scores`` holds
+    this shard's rows (dim ``axis``) of the frame's and the k are picked
+    over the whole frame, as on one shard; returned are those in this
+    shard's rows, at their flat index in ``scores``, the others marked not
+    good (at index 0)."""
+    rows = scores.shape[axis]
+    if halo is not None:
+        scores = halo.all_gather(scores.transpose(0, axis)).transpose(0, axis)
+    # exact top-k: the JAX package's approx_max_k is exact on the CPU too;
+    # only the TPU's is approximate (recall 0.95)
+    vals, idx = torch.topk(scores.reshape(-1), k)
+    # ascending pixel order (the JAX package sorts for its scatter's speed)
+    idx, perm = torch.sort(idx)
+    good = vals[perm] > FIX_TAU
+    if halo is None:
+        return idx, good
+    # flat index -> (outer, row, inner) of the whole frame's scores, then this shard's rows
+    inner = math.prod(scores.shape[axis + 1:])
+    outer, rest = idx // (scores.shape[axis] * inner), idx % (scores.shape[axis] * inner)
+    row = rest // inner - halo.axis_index() * rows
+    mine = (row >= 0) & (row < rows)
+    local = (outer * rows + row) * inner + rest % inner
+    return torch.where(mine, local, 0), good & mine
+
+
+def _checkerboard_fix(color, score, tri_u, vis, rowpar, y0: int, run, bary=None, halo=None):
     """Exactly re-shade the worst reconstructed pixels.
 
     Up to K = fix_capacity(P) suspects by neighbour-spread score, those
@@ -326,16 +358,13 @@ def _checkerboard_fix(color, score, tri_u, vis, rowpar, y0: int, run, bary=None)
     frame's pixel, and scattered into the interleaved frame (3, H, W). The
     suspects not above FIX_TAU land in a trash column; nothing here reads
     a device value on the host. ``bary`` (3, H, W): the raster's
-    barycentrics, gathered at the suspects (None: from the records)."""
+    barycentrics, gathered at the suspects (None: from the records). Under
+    a split frame (``halo``) P and the suspects are the whole frame's
+    (``_top_suspects``; the JAX package picks K per shard)."""
     h_, w_ = score.shape
     p2 = h_ * w_
-    k = fix_capacity(p2)
-    # exact top-k: the JAX package's approx_max_k is exact on the CPU too;
-    # only the TPU's is approximate (recall 0.95)
-    vals, idx = torch.topk(score.reshape(p2), k)
-    # ascending pixel order (the JAX package sorts for its scatter's speed)
-    idx, perm = torch.sort(idx)
-    good = vals[perm] > FIX_TAU
+    k = fix_capacity(p2 * (1 if halo is None else halo.axis_size()))
+    idx, good = _top_suspects(score, k, halo)
     depth_u = torch.where(rowpar == 0, vis.depth[:, 1::2], vis.depth[:, 0::2])
     d_k = depth_u.reshape(p2)[idx]
     t_k = torch.where(good, tri_u.reshape(p2)[idx], NO_TRIANGLE)
@@ -363,11 +392,11 @@ def _reshade(color, run, d_k, t_k, xk, yk, y0: int, good, bary=None):
     return out[:, :p_full].reshape(color.shape)
 
 
-def _rebuild(shaded, tri_s, cov_s, tri_u, shifts, bg):
+def _rebuild(planes, tri_u, shifts, bg):
     """One class of rebuilt pixels (triangle ids ``tri_u``) from its shaded
-    neighbours: ``shifts`` take the shaded lattice's planes (colour
-    (3, h, w), ids, coverage) to each neighbour's. Returns (colour (3, h,
-    w), suspect score (h, w)).
+    neighbours: each of ``shifts`` takes plane k of the shaded lattice's
+    ``planes`` (ids, coverage, colour (3, h, w)) to a neighbour's,
+    ``sh(k, plane)``. Returns (colour (3, h, w), suspect score (h, w)).
 
     The neighbours on the pixel's triangle are averaged, or with four of
     them the per-channel trimmed mean (drop min and max: exact for linear
@@ -376,6 +405,7 @@ def _rebuild(shaded, tri_s, cov_s, tri_u, shifts, bg):
     the background; uncovered pixels take the background. The score is the
     same-triangle neighbours' colour spread summed over the channels (1e9
     for a covered pixel with none, -1 for an uncovered one)."""
+    shaded = planes[2]
     cov_u = tri_u != NO_TRIANGLE
     num = torch.zeros_like(shaded)
     den = torch.zeros(tri_u.shape, dtype=torch.float32, device=shaded.device)
@@ -384,7 +414,7 @@ def _rebuild(shaded, tri_s, cov_s, tri_u, shifts, bg):
     nb_min = torch.full_like(shaded, math.inf)
     nb_max = torch.full_like(shaded, -math.inf)
     for sh in shifts:
-        nb_t, nb_cov, nb_c = sh(tri_s), sh(cov_s), sh(shaded)
+        nb_t, nb_cov, nb_c = (sh(k, a) for k, a in enumerate(planes))
         w_same = ((nb_t == tri_u) & nb_cov).to(torch.float32)
         num = num + nb_c * w_same[None]
         den = den + w_same
@@ -406,22 +436,31 @@ def _rebuild(shaded, tri_s, cov_s, tri_u, shifts, bg):
     return recon, torch.where(cov_u, torch.where(den == 0.0, 1e9, spread), -1.0)
 
 
-def _checkerboard_expand(shaded, tri_full, tri_s, cov_s, rowpar, bg):
+def _checkerboard_expand(shaded, tri_full, tri_s, cov_s, rowpar, bg, halo=None):
     """(3, H, W/2) shaded half-lattice -> the complement lattice rebuilt,
     (3, H, W/2), its suspect score (H, W/2) and its triangle ids.
 
     Each missing pixel ((x + y) odd) is rebuilt from its four cardinal
-    neighbours, all shaded (``_rebuild``)."""
+    neighbours, all shaded (``_rebuild``); the upper and lower ones at the
+    first and last row are the halo rows (``aa.halo_rows``)."""
     par0 = rowpar == 0
     tri_u = torch.where(par0, tri_full[:, 1::2], tri_full[:, 0::2])
+    planes = (tri_s, cov_s, shaded)
+    rows = halo_rows(planes, halo)
 
-    def left(a):  # (y, x-1): packed j on parity-0 rows, j-1 on parity-1
+    def up(k, a):
+        return _up(a, rows[k][0])
+
+    def dn(k, a):
+        return _dn(a, rows[k][1])
+
+    def left(k, a):  # (y, x-1): packed j on parity-0 rows, j-1 on parity-1
         return torch.where(par0, a, torch.cat([a[..., :, :1], a[..., :, :-1]], dim=-1))
 
-    def right(a):
-        return torch.where(par0, torch.cat([a[..., :, 1:], a[..., :, -1:]], dim=-1), a)
+    def right(k, a):
+        return torch.where(par0, _right(a), a)
 
-    recon, score = _rebuild(shaded, tri_s, cov_s, tri_u, (_up, _dn, left, right), bg)
+    recon, score = _rebuild(planes, tri_u, (up, dn, left, right), bg)
     return recon, score, tri_u
 
 
@@ -443,29 +482,32 @@ def _interleave_rows(a, b):
     return torch.stack([a, b], dim=-2).reshape(a.shape[:-2] + (2 * a.shape[-2], a.shape[-1]))
 
 
-def _quarter_expand(shaded, tri_full, tri_s, cov_s, bg):
+def _quarter_expand(shaded, tri_full, tri_s, cov_s, bg, halo=None):
     """(3, H/2, W/2) shaded (even x, even y) lattice -> ((3, H, W) frame,
     (3, H/2, W/2) suspect scores, one plane per rebuilt class).
 
     H (odd x, even y) is rebuilt from its left and right shaded
     neighbours, V (even x, odd y) from its upper and lower ones, D (odd x,
-    odd y) from its four diagonal ones (``_rebuild``); the last row and
-    column clamp to the edge."""
+    odd y) from its four diagonal ones (``_rebuild``); the last column
+    clamps to the edge, and the row below the last is the halo row below
+    (``aa.halo_rows``: the clamp, or the shard below's first row)."""
     tri_h, tri_v, tri_d = tri_full[0::2, 1::2], tri_full[1::2, 0::2], tri_full[1::2, 1::2]
+    planes = (tri_s, cov_s, shaded)
+    below = [dn for _, dn in halo_rows(planes, halo)]
 
-    def right(a):
-        return torch.cat([a[..., :, 1:], a[..., :, -1:]], dim=-1)
+    def right(k, a):
+        return _right(a)
 
-    def down(a):
-        return torch.cat([a[..., 1:, :], a[..., -1:, :]], dim=-2)
+    def down(k, a):
+        return _dn(a, below[k])
 
-    def down_right(a):
-        return down(right(a))
+    def down_right(k, a):  # the row below shifted too
+        return torch.cat([_right(a)[..., 1:, :], _right(below[k])], dim=-2)
 
-    def ident(a):
+    def ident(k, a):
         return a
 
-    recons, scores = zip(*(_rebuild(shaded, tri_s, cov_s, tri_u, nbs, bg) for tri_u, nbs in (
+    recons, scores = zip(*(_rebuild(planes, tri_u, nbs, bg) for tri_u, nbs in (
         (tri_h, (ident, right)), (tri_v, (ident, down)),
         (tri_d, (ident, right, down, down_right)))))
     frame = _interleave_rows(_interleave_last(shaded, recons[0]),
@@ -480,20 +522,18 @@ def quarter_fix_capacity(p_full: int) -> int:
     return min(p_u - p_u % 8, max(2048, -(-p_full // QFIX_K_DIV) // 8 * 8))
 
 
-def _quarter_fix(color, scores, vis, y0: int, run, bary=None):
+def _quarter_fix(color, scores, vis, y0: int, run, bary=None, halo=None):
     """Exactly re-shade the worst quarter-rebuilt pixels: up to K =
     quarter_fix_capacity(P) suspects over all three classes at once by
     score, those above FIX_TAU, through the frame's own closure ``run`` on
     an (8, K/8) batch, scattered into the (3, H, W) frame (the others into
-    a trash column). ``bary`` as in ``_checkerboard_fix``."""
+    a trash column). ``bary`` and ``halo`` as in ``_checkerboard_fix``."""
     _, h2, w2 = scores.shape
     p_u = h2 * w2
     fh_, fw_ = vis.depth.shape
     p_full = fh_ * fw_
-    k = quarter_fix_capacity(p_full)
-    vals, idx = torch.topk(scores.reshape(3 * p_u), k)
-    idx, perm = torch.sort(idx)
-    good = vals[perm] > FIX_TAU
+    k = quarter_fix_capacity(p_full * (1 if halo is None else halo.axis_size()))
+    idx, good = _top_suspects(scores, k, halo, axis=1)
     cls, rem = idx // p_u, idx % p_u
     # class -> pixel: H (0) = (2j + 1, 2i), V (1) = (2j, 2i + 1), D (2) = (2j + 1, 2i + 1)
     xx = 2 * (rem % w2) + (cls != 1).long()

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from renderer_tpu_torch.ops.aa import halo_rows
 from renderer_tpu_torch.ops.geometry import clip_rows, coarse_cull, expand_clip_only
 from renderer_tpu_torch.ops.occlusion_cuda import O_BB, O_OK, occlusion_kernel, occlusion_tiles_plain
 from renderer_tpu_torch.ops.raster_cuda import BLOCK, TILE_H, TILE_W, bin_blocks_from_masks
@@ -166,18 +167,28 @@ def occlusion_grid(clip, valid, lx, ly, ld) -> torch.Tensor:
     return occ[:h, :w]
 
 
-def _bilateral_upsample(low, tri_lo, tri_full, s: int, off: int):
+def _bilateral_upsample(low, tri_lo, tri_full, s: int, off: int, y0: int = 0,
+                        total_lo: int = None, above=None):
     """(h/s + 1, w/s) occlusion with one halo row below -> (H, W) by
     triangle-ID-aware bilinear: corner weights are bilinear x same
     triangle, so shadow never bleeds across surfaces; where no corner shares
-    the pixel's triangle the plain bilinear stands."""
+    the pixel's triangle the plain bilinear stands.
+
+    A band of a larger grid: the (H, W) grid is rows [y0, y0 + H) of one
+    of ``total_lo`` low-resolution rows (y0 % s == 0), ``above`` the
+    band's halo row above, (occlusion (1, w/s), triangle ids (1, w/s)).
+    Row coordinates are then the whole grid's, so a band computes what the
+    whole grid computes on its rows."""
     big_h, big_w = tri_full.shape
     h_lo, w_lo = low.shape[0] - 1, low.shape[1]
     dev = low.device
-    fy = (torch.arange(big_h, dtype=torch.float32, device=dev) - off) / s
-    i0 = torch.clamp(torch.floor(fy), 0, h_lo - 1).long()
-    i1 = i0 + 1  # the halo row when i0 is the last real row
+    fy = (torch.arange(big_h, dtype=torch.float32, device=dev) + float(y0) - off) / s
+    i0 = torch.clamp(torch.floor(fy), 0, (total_lo or h_lo) - 1).long()
     wy = torch.clamp(fy - i0.float(), 0.0, 1.0)[:, None]
+    if above is not None:  # into the band's rows, the halo row above first
+        low, tri_lo = torch.cat([above[0], low], dim=0), torch.cat([above[1], tri_lo], dim=0)
+        i0 = i0 - (y0 // s - 1)
+    i1 = i0 + 1  # the halo row below when i0 is the last real row
     fx = (torch.arange(big_w, dtype=torch.float32, device=dev) - off) / s
     j0 = torch.clamp(torch.floor(fx), 0, w_lo - 1).long()
     j1 = torch.clamp(j0 + 1, max=w_lo - 1)
@@ -233,6 +244,7 @@ def rt_shadow_grid(
     tri: torch.Tensor = None,  # (H, W) triangle ids, needed when rt_scale > 1
     rt_scale: int = 1,
     depth_eps: float = DEPTH_EPS,
+    halo=None,  # the shard of a split frame (aa.halo_rows)
 ) -> list:
     """Per shadow slot, the (H, W) occlusion plane of its light (1 lit, 0
     shadowed); a slot without a light is a plane of ones and costs no
@@ -243,7 +255,9 @@ def rt_shadow_grid(
     in light-centred world space with the LOD by distance to the light,
     then traces each cube face; every receiver traces only in the face of
     its major axis. rt_scale > 1 traces the [off::s, off::s] subgrid and
-    upsamples it by triangle id."""
+    upsamples it by triangle id; under a split frame (``halo``, each
+    shard's grid a band of equal rows) the rows at the band's edges come
+    from the neighbouring shards, so each band equals the whole grid's."""
     if rt_scale > 1:
         if tri is None:
             raise ValueError("rt_scale > 1 needs the triangle-id plane")
@@ -254,15 +268,22 @@ def rt_shadow_grid(
             caster_capacity, slots, depth_eps=depth_eps,
         )
         tri_lo = tri[off::s, off::s]
-        # one halo row below, clamped to the edge (the JAX package's
-        # row-sharded halo on one device)
-        tri_ext = torch.cat([tri_lo, tri_lo[-1:]], dim=0)
+        live = [k for k, slot in enumerate(slots) if slot is not None]
+        # one halo row below, clamped to the edge on one shard; under a split
+        # frame the neighbouring shards' rows below and above (the JAX package
+        # passes the row below only, so its bands' first rows differ from the
+        # whole grid's)
+        rows = halo_rows([tri_lo] + [planes_lo[k] for k in live], halo)
+        band = {} if halo is None else dict(y0=halo.axis_index() * tri.shape[0],
+                                            total_lo=halo.axis_size() * tri_lo.shape[0])
+        tri_ext = torch.cat([tri_lo, rows[0][1]], dim=0)
         ones = torch.ones((), dtype=torch.float32, device=world.device).expand(tri.shape)
-        return [
-            ones if slot is None else _bilateral_upsample(
-                torch.cat([occ, occ[-1:]], dim=0), tri_ext, tri, s, off)
-            for slot, occ in zip(slots, planes_lo)
-        ]
+        planes = [ones] * len(slots)
+        for k, (up, dn) in zip(live, rows[1:]):
+            planes[k] = _bilateral_upsample(
+                torch.cat([planes_lo[k], dn], dim=0), tri_ext, tri, s, off,
+                above=None if halo is None else (up, rows[0][0]), **band)
+        return planes
 
     dev = world.device
     lights = scene.lights

@@ -34,13 +34,15 @@ def _background(background, device) -> torch.Tensor:
 
 def shade_lambert(vis: VisibilityBuffer, soup: TriangleSoup, scene, camera_pos: torch.Tensor,
                   viewproj_inv: torch.Tensor, background=(0.05, 0.05, 0.08),
-                  ambient: float = 0.15) -> torch.Tensor:
+                  ambient: float = 0.15, y0: int = 0, full_height: int = None) -> torch.Tensor:
     """(H, W, 3) Lambert-shaded linear colour: the instance material's base
     colour times ambient plus every live light's n.l (point lights fall off
-    with 1/d^2), plus emissive; the background where nothing is covered."""
+    with 1/d^2), plus emissive; the background where nothing is covered.
+    The buffer holds rows [y0, y0 + H) of a full_height frame."""
     covered = vis.tri_id != NO_TRIANGLE
     h, w = vis.depth.shape
-    world = unproject_depth(vis.depth, viewproj_inv, w, h)  # (3, H, W)
+    world = unproject_depth(vis.depth, viewproj_inv, w, h, y0=y0,
+                            full_height=full_height)  # (3, H, W)
     normal = interpolate(vis, soup.normal)
     n = normal / torch.clamp(torch.sqrt((normal * normal).sum(dim=0, keepdim=True)), min=1e-8)
     mat_id = scene.instances.material_id.long()[soup.instance[torch.clamp(vis.tri_id,

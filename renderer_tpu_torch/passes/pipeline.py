@@ -36,6 +36,24 @@ frame and the atlas with barycentrics, shading interpolates with those,
 and ``rt`` traces by brute force against the culled soup (``ops/rt.py``).
 ``cluster_cull`` has no effect there, as in the JAX package, where only
 ``build_draw_stream`` reads it.
+
+``PipelineConfig.spmd_devices`` = n > 1 makes the same plan the split
+frame, run by ``Renderer(spmd_mesh=...)`` on n shards, each reading its
+``parallel.sharding.Shard`` (the JAX plan's SPMD branches): each shard
+culls and expands every n-th instance (strided, at 1/n of the
+capacities) and the culled soups and shade records are gathered once;
+each shard rasterizes and shades its rows [i H/n, (i + 1) H/n) of the
+frame, with halo rows from its neighbours where shading reads across a
+shard edge; ``cull_occluded`` gathers the previous depth first; the
+shadow atlas, the frozen and debug soups are made whole on every shard;
+``present``, ``overlay_pass`` and ``reference_view`` gather the rows. It
+needs the tile raster, as the JAX package needs Pallas. Two steps go
+past the JAX plan so that the split frame is the single-shard frame
+(while no shard's capacity overflows): the gathered stream, whose valid
+mask is segmented by shard, is put back in the cull's order
+(``geometry.draw_order``), so a depth tie falls to the triangle that wins
+it on one shard; and the checkerboard and quarter fixes pick their
+suspects over the whole frame (``ops/pbr.py``).
 """
 
 from __future__ import annotations
@@ -66,6 +84,7 @@ from renderer_tpu_torch.ops.shadow import (
     ShadowMaps, directional_light_matrices, initial_cache, light_matrices_cube,
     render_shadow_atlas_cached, render_shadow_atlas_per_light, signature_weights,
 )
+from renderer_tpu_torch.parallel.sharding import current_shard
 
 # given to every frame by the Renderer: the scene, the camera, the
 # animation clock (a () tensor, under skinning) and the 2D overlay tables
@@ -124,6 +143,9 @@ class PipelineConfig:
     # docstring). The default differs from the JAX package's (False) on
     # purpose: the port's main path is kernel 1
     tile_raster: bool = True
+    # > 1: the split frame over that many shards (the module docstring),
+    # rendered by Renderer(spmd_mesh=...)
+    spmd_devices: int = 1
 
     @property
     def expand_capacity(self) -> int:
@@ -172,6 +194,20 @@ class PipelineConfig:
             if self.shade_rate != "full" and rw % 2 or self.shade_rate == "quarter" and rh % 2:
                 raise ValueError("the shade-rate tiers need an even render width (and height, "
                                  "quarter)")
+        n = self.spmd_devices
+        if n < 1:
+            raise ValueError(f"spmd_devices={n}")
+        if n > 1:  # the JAX checks, in the tile raster's units
+            rw, rh = self.render_size
+            if not self.tile_raster:
+                raise ValueError("the split frame needs tile_raster=True, as the JAX "
+                                 "package's needs use_pallas=True")
+            if (rh % (n * TILE_H) or self.tri_capacity % (BLOCK * n)
+                    or self.expand_capacity % n or rh // n % self.ssaa):
+                raise ValueError(
+                    f"spmd_devices={n} needs height * ssaa % ({n} * {TILE_H}) == 0, "
+                    f"tri_capacity % ({BLOCK} * {n}) == 0 and each shard's rows a multiple "
+                    "of ssaa")
         if self.shadow_progressive > 1 and not (
                 self.shadow_cache and self.shadow_update_budget == 1
                 and self.shadow_size % (self.shadow_progressive * band_rows) == 0):
@@ -181,13 +217,15 @@ class PipelineConfig:
 
 def initial_state(cfg: PipelineConfig, device) -> dict:
     """The persistent resources before frame 1: an empty draw list, an
-    all-far visibility buffer at the render size, the identity viewproj
+    all-far visibility buffer at the render size (a shard's rows of it
+    under the split frame), the identity viewproj
     and the cached atlas's state when ``cfg.shadow_cache``, as in the JAX
     package. Under the identity, occlusion culling on frame 1 culls the
     instances whose world AABB lies wholly at z > 1 against the all-far
     depth (a fault shared with the JAX package, whose resource note says
     nothing can be culled on frame 1)."""
     w, h = cfg.render_size
+    h //= cfg.spmd_devices
     state = {
         "draw_list": geometry.DrawList.empty(cfg.tri_capacity, device),
         "vis": VisibilityBuffer(
@@ -245,6 +283,29 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
                          f"width and height divisible by {1 << LEVELS}")
     lambert = cfg.shading == "lambert"
     plain = not cfg.tile_raster
+    n_sp = cfg.spmd_devices
+    rows = h // n_sp  # the rows a shard rasterizes and shades
+    if rt and n_sp > 1 and rows % cfg.rt_scale:
+        raise ValueError(f"the split frame's rt needs each shard's {rows} rows a multiple of "
+                         f"rt_scale {cfg.rt_scale}")
+
+    def shard():
+        """The running shard under the split frame, else None."""
+        if n_sp == 1:
+            return None
+        s = current_shard()
+        if s is None or s.axis_size() != n_sp:
+            raise RuntimeError(f"a plan for spmd_devices={n_sp} runs on a mesh of as many "
+                               "shards: Renderer(spmd_mesh=...)")
+        return s
+
+    def first_row(s) -> int:
+        return 0 if s is None else s.axis_index() * rows
+
+    def assemble(image):
+        """The whole frame: the shards' rows gathered under the split frame."""
+        s = shard()
+        return image if s is None else s.all_gather(image)
 
     def pose(scene, time=None):
         return {"scene_view": pose_scene(scene, time) if cfg.skinning else scene}
@@ -253,8 +314,41 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         prepared = geometry.prepare_frame_columns(scene_view, camera)
         return {"prepared": prepared, "prev_vp": prepared.vp}
 
+    def cull_sharded(s, scene, prepared):
+        """This shard's instances, local i <- global d + n i (strided, so
+        one mesh's instances spread over the shards; the n_inst % n last
+        are dropped, as in the JAX plan), built at 1/n of the capacities;
+        local instance ids lifted to global, then one gather of the soups
+        and records and a sum of the counts, and the gathered stream put in
+        the single-shard cull's order."""
+        d = s.axis_index()
+        shard_len = scene.instances.mesh_id.shape[0] // n_sp
+
+        def sl(x):
+            return x[d: d + n_sp * shard_len: n_sp]
+
+        inst = scene.instances
+        inst = inst._replace(**{f: sl(getattr(inst, f)) for f in inst._fields if f != "count"})
+        prepared = prepared._replace(model=sl(prepared.model), clip_mats=sl(prepared.clip_mats),
+                                     visible=sl(prepared.visible), lod=sl(prepared.lod))
+        soup, rec = geometry.build_draw_stream(
+            scene._replace(instances=inst), prepared, cfg.expand_capacity // n_sp,
+            cfg.tri_capacity // n_sp, w, h, cull_backface=cfg.cull_backface,
+            cluster_cull=cfg.cluster_cull, want_soup_attrs=lambert,
+        )
+        instance = soup.instance * n_sp + d
+        rec[:, geometry.SR_INSTANCE] = instance.float()
+        soup, rec = s.all_gather((soup._replace(instance=instance), rec))
+        order = geometry.draw_order(soup, scene.meshes.indices.shape[0])
+        soup = geometry.TriangleSoup(**{f: v if v is None or f == "count" else v[order]
+                                        for f, v in soup._asdict().items()})
+        return soup._replace(count=s.psum(soup.count)), rec[order]
+
     def cull(scene_view, prepared):
-        if plain:
+        s = shard()
+        if s is not None:
+            soup, rec = cull_sharded(s, scene_view, prepared)
+        elif plain:
             soup = geometry.expand_draw_stream(scene_view, prepared.visible, prepared.lod,
                                                prepared.clip_mats, prepared.model,
                                                cfg.tri_capacity)
@@ -272,9 +366,10 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
 
     def cull_occluded(scene_view, prepared, vis_prev, prev_vp_prev):
         """The coarse cull refined against frame N-1's depth pyramid, the
-        instances projected with frame N-1's viewproj (ops/occlusion.py)."""
+        instances projected with frame N-1's viewproj (ops/occlusion.py);
+        under the split frame, the shards' rows of that depth gathered first."""
         visible = occlusion_cull(scene_view, prepared.model, prev_vp_prev, prepared.visible,
-                                 vis_prev.depth)
+                                 assemble(vis_prev.depth))
         return cull(scene_view, prepared._replace(visible=visible))
 
     def transform_frozen(scene_view, prepared, draw_list_prev):
@@ -298,14 +393,15 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         if plain:
             return {"vis": rasterize_scan(soup.clip, soup.valid, w, h,
                                           cull_backface=cfg.cull_backface, count=soup.count)}
-        return {"vis": rasterize_cuda(soup.clip, soup.valid, w, h,
-                                      cull_backface=cfg.cull_backface, with_bary=with_bary)}
+        return {"vis": rasterize_cuda(soup.clip, soup.valid, w, rows,
+                                      cull_backface=cfg.cull_backface, with_bary=with_bary,
+                                      y0=first_row(shard()), full_height=h)}
 
     def raster_dbg(soup):
         return raster(soup, with_bary=True)
 
     slots = slot_lights(light_casts, cfg.shadow_slots)
-    sig_weights = {}  # the signature's fold weights, made at the first shadowed frame
+    sig_weights = {}  # the signature's fold weights per device, made at the first shadowed frame
 
     def shadow_pass(scene_view, prepared, shadow_cache_prev=None):
         """The shadow-map atlas: cached (the previous frame's state in,
@@ -319,25 +415,27 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
             atlas = render_shadow_atlas_per_light(*args, scene_min=smin, scene_max=smax,
                                                   tile_raster=cfg.tile_raster)
             return {"shadow": ShadowMaps(atlas, mats, light_casts)}
-        n = prepared.model.shape[0]
-        if n not in sig_weights:
-            sig_weights[n] = signature_weights(n, prepared.model.device)
+        key = (prepared.model.shape[0], prepared.model.device)
+        if key not in sig_weights:
+            sig_weights[key] = signature_weights(*key)
         atlas, cache = render_shadow_atlas_cached(
             *args, prev=shadow_cache_prev, budget=cfg.shadow_update_budget,
             progressive=cfg.shadow_progressive, scene_min=smin, scene_max=smax,
-            weights=sig_weights[n], tile_raster=cfg.tile_raster)
+            weights=sig_weights[key], tile_raster=cfg.tile_raster)
         return {"shadow": ShadowMaps(atlas, mats, light_casts), "shadow_cache": cache}
 
     img_res = "image_hires" if cfg.ssaa > 1 else "image_pre"
 
     def _shade(vis, soup, shade_rec, scene, camera, prepared, rt_grid=None, shadow_maps=None,
                rt=None):
+        s = shard()
+        y0 = first_row(s)
         if lambert:
             return shade_lambert(vis, soup, scene, camera.position, prepared.vp_inv,
-                                 background=cfg.background)
+                                 background=cfg.background, y0=y0, full_height=h)
         return shade_pbr(
-            vis, shade_rec, scene, camera.position, prepared.vp_inv,
-            background=cfg.background, enable_textures=cfg.enable_textures,
+            vis, shade_rec, scene, camera.position, prepared.vp_inv, y0=y0, full_height=h,
+            halo=s, background=cfg.background, enable_textures=cfg.enable_textures,
             enable_normal_maps=cfg.enable_normal_maps, trilinear=cfg.trilinear,
             light_slots=cfg.shade_light_slots, aa=(cfg.aa == "edge"), rt_grid=rt_grid, rt=rt,
             shadow=shadow_maps, checkerboard=(cfg.shade_rate == "checkerboard"),
@@ -377,10 +475,11 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
     def resolve(image_hires):
         """The SSAA box resolve: the mean of each ssaa x ssaa block."""
         k = cfg.ssaa
-        return {"image_pre": image_hires.reshape(h // k, k, w // k, k, 3).mean(dim=(1, 3))}
+        hh, ww = image_hires.shape[:2]  # a shard's rows under the split frame
+        return {"image_pre": image_hires.reshape(hh // k, k, ww // k, k, 3).mean(dim=(1, 3))}
 
     def present(image_pre):
-        return {"image": image_pre}
+        return {"image": assemble(image_pre)}
 
     def reference_view(image_pre, soup, shade_rec, scene_view, camera, prepared):
         """The same soup through the independent scan rasterizer at 1/4 of
@@ -395,7 +494,7 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
                         background=cfg.background, enable_textures=cfg.enable_textures,
                         enable_normal_maps=cfg.enable_normal_maps, trilinear=cfg.trilinear,
                         bary_from_records=False)
-        main = image_pre
+        main = assemble(image_pre)
         mlo = main[: hlo * k, : wlo * k].reshape(hlo, k, wlo, k, 3).mean(dim=(1, 3))
         heat = (mlo - ref).abs().mean(dim=-1)
         heat_up = heat.repeat_interleave(k, 0).repeat_interleave(k, 1)
@@ -411,7 +510,8 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         dev = image_pre.device
         if dev not in fonts:
             fonts[dev] = host_to_device(build_font_atlas(), dev)
-        return {"image": compose_overlay(image_pre, overlay or Overlay.empty(), fonts[dev])}
+        return {"image": compose_overlay(assemble(image_pre), overlay or Overlay.empty(),
+                                         fonts[dev])}
 
     geo_reads = ("scene_view", "prepared")
     culled = ("soup", "shade_rec", "draw_list")

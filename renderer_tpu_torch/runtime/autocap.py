@@ -103,9 +103,11 @@ class AutoCapacityRenderer:
         if self._switches:
             new.set_config(**self._switches)
         new.apply_config_now()
+        carried = dict(new.state)
         for name, val in old.state.items():
-            if name in new.state and _shapes_match(val, new.state[name]):
-                new.state[name] = val
+            if name in carried and _shapes_match(val, carried[name]):
+                carried[name] = val
+        new.state = carried
         self.stats["tier_switches"] += 1
 
     def demand(self, camera) -> int:

@@ -24,6 +24,15 @@
 - Construction fixes the build directory of the kernels
   (``utils.compile_cache.enable_persistent_cache``), as the JAX Renderer
   enables its compilation cache.
+- The split frame: ``Renderer(scene, cfg, spmd_mesh=mesh)`` with
+  ``cfg.spmd_devices == len(mesh)`` runs the same plan on every shard of
+  the mesh (``parallel.sharding.run_shards``), as the JAX Renderer runs it
+  in one ``shard_map``. The scene and camera are copied to each shard's
+  device; each shard keeps its own state (``shard_states``: its rows of
+  ``vis``, full copies of the rest). ``state`` reads and writes the whole
+  frame's, so checkpoints hold the single-shard layout. ``render``
+  returns shard 0's outputs, the image gathered, with ``vis`` joined over
+  the shards' rows; ``shard_outputs`` keeps each shard's.
 """
 
 from __future__ import annotations
@@ -36,8 +45,11 @@ from typing import Optional
 import torch
 
 from renderer_tpu_torch.mathx.camera import Camera
+from renderer_tpu_torch.ops.raster_cuda import VisibilityBuffer
+from renderer_tpu_torch.parallel.sharding import Mesh, run_shards
 from renderer_tpu_torch.passes.pipeline import PipelineConfig, build_forward_plan, initial_state
 from renderer_tpu_torch.scene.types import Scene
+from renderer_tpu_torch.utils import tree
 from renderer_tpu_torch.utils.compile_cache import enable_persistent_cache
 
 
@@ -92,16 +104,30 @@ def execute_plan(passes, outputs, state: dict, wrap=_record_pass, **external):
     return {o: env[o] for o in outputs}, {k: env.get(k, v) for k, v in state.items()}
 
 
+def to_device(x, device, copy: bool = False):
+    """A container of tensors (``utils.tree``) with its tensors on
+    ``device``; copies of them, even where they lie there, with ``copy``."""
+    leaves, structure = tree.flatten(x)
+    return tree.unflatten(structure, [v.to(device, copy=copy) if isinstance(v, torch.Tensor)
+                                      else v for v in leaves])
+
+
 class Renderer:
     def __init__(self, scene: Scene, cfg: Optional[PipelineConfig] = None,
-                 outputs=("image", "vis"), device=None):
+                 outputs=("image", "vis"), device=None, spmd_mesh: Optional[Mesh] = None):
         enable_persistent_cache()
+        self.cfg = cfg or PipelineConfig()
+        self.spmd_mesh = spmd_mesh
+        if (len(spmd_mesh) if spmd_mesh is not None else 1) != self.cfg.spmd_devices:
+            raise ValueError(f"PipelineConfig.spmd_devices={self.cfg.spmd_devices} must match "
+                             "the mesh's shard count (spmd_mesh)")
         scene_device = scene.lights.count.device
         # normalized ("cuda" -> "cuda:0") so it compares with tensor devices
         self.device = scene_device if device is None else torch.empty(0, device=device).device
-        if scene_device != self.device:
+        if spmd_mesh is not None:
+            self.device = spmd_mesh.devices[0]  # where the gathered outputs live
+        elif scene_device != self.device:
             raise ValueError(f"scene lives on {scene_device}, renderer on {self.device}")
-        self.cfg = cfg or PipelineConfig()
         self._auto_light_slots = self.cfg.shade_light_slots is None
         if self._auto_light_slots:
             self.cfg = dataclasses.replace(
@@ -116,8 +142,40 @@ class Renderer:
         self.plan_builder = build_forward_plan
         self._plans = {}
         self.scene = scene
-        self.state = initial_state(self.cfg, self.device)
+        if spmd_mesh is None:
+            self.state = initial_state(self.cfg, self.device)
+        else:
+            self.shard_states = [initial_state(self.cfg, d) for d in spmd_mesh.devices]
+            self.shard_outputs = None
         self.stats = {"frames": 0, "last_ms": 0.0}
+
+    @property
+    def state(self) -> dict:
+        """The persistent resources. Under the split frame the whole
+        frame's: ``vis`` joined over the shards' rows on ``device``, the
+        replicated entries as shard 0 holds them."""
+        if self.spmd_mesh is None:
+            return self._state
+        return {**self.shard_states[0], "vis": self._join_rows(
+            [st["vis"] for st in self.shard_states])}
+
+    @state.setter
+    def state(self, state: dict) -> None:
+        """Under the split frame, ``vis`` is cut into the shards' rows and
+        every other entry copied to each shard's device."""
+        if self.spmd_mesh is None:
+            self._state = state
+            return
+        n = len(self.spmd_mesh)
+        self.shard_states = [
+            {k: VisibilityBuffer(*(f.chunk(n, dim=-2)[i].to(d).contiguous() for f in v))
+             if k == "vis" else to_device(v, d, copy=True) for k, v in state.items()}
+            for i, d in enumerate(self.spmd_mesh.devices)]
+
+    def _join_rows(self, parts) -> VisibilityBuffer:
+        """The shards' visibility buffers joined over rows, on ``device``."""
+        return VisibilityBuffer(*(torch.cat([getattr(v, f).to(self.device) for v in parts],
+                                            dim=-2) for f in VisibilityBuffer._fields))
 
     # -- switches (two-frame latch) -----------------------------------------
     def set_config(self, **switches) -> None:
@@ -141,11 +199,45 @@ class Renderer:
                                                  **vars(self.config))
         return self._plans[key]
 
-    def _external(self, camera: Camera, time_s: float = 0.0, overlay=None) -> dict:
-        camera = Camera(*(t.to(self.device) for t in camera))
-        t = (torch.full((), float(time_s), dtype=torch.float32, device=self.device)
+    def _external(self, camera: Camera, time_s: float = 0.0, overlay=None, device=None) -> dict:
+        device = device or self.device
+        camera = Camera(*(t.to(device) for t in camera))
+        t = (torch.full((), float(time_s), dtype=torch.float32, device=device)
              if self.cfg.skinning else None)
-        return {"scene": self.scene, "camera": camera, "time": t, "overlay": overlay}
+        scene = self.scene if self.scene.lights.count.device == device else self._scene_on(device)
+        return {"scene": scene, "camera": camera, "time": t, "overlay": overlay}
+
+    def _scene_on(self, device):
+        """The scene copied to a shard's device, once per scene object."""
+        copies = getattr(self, "_scene_copies", None)
+        if copies is None or copies[0] is not self.scene:
+            copies = self._scene_copies = (self.scene, {})
+        if device not in copies[1]:
+            copies[1][device] = to_device(self.scene, device)
+        return copies[1][device]
+
+    def _run(self, wrap=None, commit=True, **frame) -> dict:
+        """One frame of the active plan, on one device or split over the
+        mesh; with ``commit`` its state becomes the renderer's."""
+        passes = self.passes
+        kw = {} if wrap is None else {"wrap": wrap}
+        if self.spmd_mesh is None:
+            outputs, state = execute_plan(passes, self.outputs, self.state,
+                                          **kw, **self._external(**frame))
+            if commit:
+                self.state = state
+            return outputs
+        ext = [self._external(**frame, device=d) for d in self.spmd_mesh.devices]
+        results = run_shards(self.spmd_mesh, lambda s: execute_plan(
+            passes, self.outputs, self.shard_states[s.index], **kw, **ext[s.index]))
+        if not commit:
+            return results[0][0]
+        self.shard_outputs = [out for out, _ in results]
+        self.shard_states = [state for _, state in results]
+        outputs = dict(self.shard_outputs[0])
+        if "vis" in outputs:
+            outputs["vis"] = self._join_rows([o["vis"] for o in self.shard_outputs])
+        return outputs
 
     def render(self, camera: Camera, scene: Optional[Scene] = None, time_s: float = 0.0,
                overlay=None) -> dict:
@@ -159,8 +251,7 @@ class Renderer:
                 self._check_light_contract(scene)
             self.scene = scene
         t0 = time.perf_counter()
-        outputs, self.state = execute_plan(self.passes, self.outputs, self.state,
-                                           **self._external(camera, time_s, overlay))
+        outputs = self._run(camera=camera, time_s=time_s, overlay=overlay)
         self.stats["last_ms"] = (time.perf_counter() - t0) * 1e3
         self.stats["frames"] += 1
         if self.config != self._pending_config:  # the latch: next frame's switches
@@ -190,7 +281,9 @@ class Renderer:
                      overlay=None) -> dict:
         """Mean device milliseconds of each pass, from CUDA events around
         the pass over ``iters`` runs (not counted as frames; the state is
-        not advanced)."""
+        not advanced). Under the split frame the mean is over the shards
+        too; shards on one card share its stream, so a pass's span there
+        holds the other shards' work queued meanwhile."""
         if self.device.type != "cuda":
             raise RuntimeError("pass timings need a CUDA device")
         pairs: dict[str, list] = {}
@@ -206,7 +299,7 @@ class Renderer:
             pairs.setdefault(name, []).append((start, end))
 
         for _ in range(iters):
-            execute_plan(self.passes, self.outputs, self.state, wrap=timed,
-                         **self._external(camera, time_s, overlay))
-        torch.cuda.synchronize(self.device)
+            self._run(wrap=timed, commit=False, camera=camera, time_s=time_s, overlay=overlay)
+        for d in set(self.spmd_mesh.devices if self.spmd_mesh is not None else (self.device,)):
+            torch.cuda.synchronize(d)
         return {n: sum(s.elapsed_time(e) for s, e in v) / len(v) for n, v in pairs.items()}

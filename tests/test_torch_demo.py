@@ -1,7 +1,8 @@
 """The demo CLI (renderer_tpu_torch/demo.py) on the CPU: every scene (the
 colonnade through the committed GLB, and a glb:<path>) and the HUD,
 reference-view, plan-dump and --watch flags write a PNG of the asked
-size; the flag not ported yet (--spmd) exits naming its ROADMAP item."""
+size; --spmd 2 splits the frame over two CPU shards with --device cpu,
+and exits naming the virtual mesh on a host with fewer cards."""
 
 import os
 
@@ -46,12 +47,23 @@ def test_demo_flags(tmp_path, capsys, flags):
         assert "steady-state" in printed
 
 
-@pytest.mark.parametrize("args,item", [(("--spmd", "2"), 12)])
-def test_demo_refuses_what_is_not_ported(tmp_path, args, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, item {item}"):
-        demo.main(["--size", str(SIZE), "--out", str(tmp_path / "x.png"), "--device", "cpu",
-                   *args])
+@pytest.mark.parametrize("args", [("--spmd", "2")])
+def test_demo_refuses_what_is_not_ported(tmp_path, args, monkeypatch):
+    """A split over more cards than the host has exits naming the virtual
+    mesh that puts the shards on one card, and renders nothing."""
+    monkeypatch.setattr(demo.torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match=r"only 1 CUDA devices.*make_mesh\(\[dev\] \* 2\)"):
+        demo.main(["--size", str(SIZE), "--out", str(tmp_path / "x.png"), *args])
     assert not (tmp_path / "x.png").exists()
+
+
+def test_demo_split_frame_on_cpu(tmp_path, capsys):
+    """--spmd 2 --device cpu renders the frame over two CPU shards: the
+    PNG of the single-shard frame, within one level."""
+    split = run(tmp_path, "--scene", "textured", "--spmd", "2")
+    one = run(tmp_path, "--scene", "textured")
+    assert split.std() > 2.0
+    assert np.abs(split.astype(int) - one).max() <= 1
 
 
 def test_demo_glb_scene_is_the_colonnade(tmp_path):

@@ -1,4 +1,5 @@
-"""The port runs without jax and without the JAX package: the port package,
+"""The port runs without jax and without the JAX package: the port package
+(the split frame over a CPU mesh included),
 chip_smoke.py, chip_ab.py and bench_torch.py import neither, directly or
 indirectly, and bench_torch.py does not import bench.py (the machine with
 the card has no jax installed, and the port stands alone). Nor does it need
@@ -42,6 +43,14 @@ for switches in ({}, dict(rt=True), dict(shadows=True)):
     plain.apply_config_now()
     assert np.isfinite(plain.render(cam)["image"].numpy()).all()
 img, _ = render_forward(r.scene, cam, 128, 64, 2048)
+assert np.isfinite(img.numpy()).all()
+from renderer_tpu_torch.parallel import make_mesh, render_frame_spmd
+split = Renderer(r.scene, dataclasses.replace(r.cfg, spmd_devices=2),
+                 spmd_mesh=make_mesh(["cpu"] * 2))
+split.set_config(rt=True)
+split.apply_config_now()
+assert split.render(cam)["image"].shape == (64, 128, 3)
+img, _, _ = render_frame_spmd(r.scene, cam, make_mesh(["cpu"] * 2), 128, 64, 1024)
 assert np.isfinite(img.numpy()).all()
 from renderer_tpu_torch.models import city_scene
 city = Renderer(city_scene(3, device="cpu"),

@@ -3,13 +3,17 @@ the base, rt, shadowed exact and shadowed checkerboard+fix frames, the
 occlusion-culled, frozen, debug-AABB and cluster-culled ones, and the
 skinned (pose pass and per-corner cull), quarter-rate, SSAA, Lambert,
 reference-view and HUD ones, the plain configuration's frames
-(``tile_raster=False``: the scan rasterizer, brute-force rt) and
-``render_forward`` render, and the scene streamer's pumps and
+(``tile_raster=False``: the scan rasterizer, brute-force rt),
+``render_forward`` and the split frame over two shards of the card
+(base, checkerboard+fix, shadowed checkerboard+fix, rt) render, and the scene streamer's pumps and
 the projectile step run, under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
 operation that waits for the card (a blocking copy between host and card,
 ``.item()``, ``nonzero``, a stream synchronization). The cameras are made
 by ``orbit_camera`` inside that window, as a render loop makes them, and
-so are the HUD's overlay tables (host numpy, copied pinned). On the card
+so are the HUD's overlay tables (host numpy, copied pinned). The split frame's
+shards also hand each other work in the order it was queued: on one card
+(and across two, where the host has them) a shard reads what another
+wrote before a collective, and each works on the caller's stream. On the card
 only:
 
     python -m pytest tests/test_torch_sync.py -m gpu -q
@@ -19,6 +23,8 @@ import dataclasses
 
 import pytest
 import torch
+
+from renderer_tpu_torch.parallel import make_mesh, run_shards
 
 from renderer_tpu_torch.mathx import orbit_camera
 from renderer_tpu_torch.models import sponza_like_scene
@@ -162,3 +168,104 @@ def test_render_forward_makes_no_blocking_sync():
         torch.cuda.set_sync_debug_mode("default")
     assert img.shape == (CFG.height, CFG.width, 3) and bool(torch.isfinite(img).all())
     assert bool((vis.tri_id >= 0).any())
+
+
+SPLIT_FRAMES = {  # name -> (config changes, switches), over two shards of the card
+    "base": ({}, {}),
+    "checkerboard_fix": (dict(shade_rate="checkerboard"), {}),
+    "shadowed_checkerboard_fix": (dict(shade_rate="checkerboard"), dict(shadows=True)),
+    "rt": ({}, dict(rt=True)),
+}
+
+
+def _split_frames(name: str, devices):
+    """The single-shard frame on the first device and the split frame over
+    ``devices``, after warm-up, the split frames under sync-debug "error";
+    asserts they are the same frame (tri_id equal, image within 2e-6)."""
+    dev = torch.device(devices[0])
+    changes, switches = SPLIT_FRAMES[name]
+    scene = sponza_like_scene(256, device=dev)
+    cfg = dataclasses.replace(CFG, **changes)
+    renderers = [Renderer(scene, cfg, device=dev),
+                 Renderer(scene, dataclasses.replace(cfg, spmd_devices=len(devices)),
+                          spmd_mesh=make_mesh(devices))]
+    aspect = CFG.width / CFG.height
+    for r in renderers:
+        r.set_config(**switches)
+        r.apply_config_now()
+        for k in range(2):  # warm-up: kernels built, plans and the atlas made
+            r.render(orbit_camera(0.3 + 0.01 * k, aspect, dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(2, 5):
+            out = renderers[1].render(orbit_camera(0.3 + 0.01 * k, aspect, dev))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    one = renderers[0].render(orbit_camera(0.3 + 0.01 * 4, aspect, dev))
+    img = out["image"]
+    assert img.shape == (CFG.height, CFG.width, 3) and bool(torch.isfinite(img).all())
+    assert torch.equal(out["vis"].tri_id, one["vis"].tri_id)
+    assert (img - one["image"]).abs().max().item() <= 2e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SPLIT_FRAMES))
+def test_split_frame_makes_no_blocking_sync(name):
+    """Two shards on the card wait for each other on the host only, and
+    render the single-shard frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _split_frames(name, ["cuda:0"] * 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SPLIT_FRAMES))
+def test_split_frame_across_cards(name):
+    """One shard per card (up to four), the same frame."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    _split_frames(name, [f"cuda:{i}" for i in range(min(4, torch.cuda.device_count()))])
+
+
+def _handoff(devices, side_stream: bool):
+    """Shard 0 writes a tensor through a long queue of work and hands it to
+    shard 1 before that work has run; shard 1 must read the written
+    values. Returns what shard 1 read and the streams the shards ran on."""
+    mesh = make_mesh(devices)
+    a = torch.randn(2048, 2048, device=mesh.devices[0])
+
+    def fn(s):
+        x = torch.zeros(2048, 2048, device=s.device)
+        if s.axis_index() == 0:
+            for _ in range(20):  # tens of ms of queued work before the value is final
+                x = x + a @ a * 1e-3
+        got = s.all_gather(x)[:2048]  # shard 0's
+        return got.sum(), torch.cuda.current_stream(s.device)
+
+    stream = torch.cuda.Stream(mesh.devices[0]) if side_stream else None
+    with torch.cuda.stream(stream):
+        results = run_shards(mesh, fn)
+        want = a @ a * 1e-3 * 20
+    torch.cuda.synchronize()
+    return results, want.sum(), stream
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side_stream", [False, True])
+def test_shards_on_one_card_are_ordered(side_stream):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    results, want, stream = _handoff(["cuda:0"] * 2, side_stream)
+    assert torch.allclose(results[1][0], want, rtol=1e-3)
+    if stream is not None:
+        assert all(r[1] == stream for r in results)
+
+
+@pytest.mark.gpu
+def test_shards_across_cards_are_ordered():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    results, want, _ = _handoff(["cuda:0", "cuda:1"], False)
+    assert results[1][0].device == torch.device("cuda:1")
+    assert torch.allclose(results[1][0].to(want.device), want, rtol=1e-3)
