@@ -15,7 +15,8 @@ the JAX package, nor bench.py.
 What it times, as bench.py does: ``sponza_like_scene(10000)`` at
 1920x1088, ``tri_capacity`` 131072, PBR with normal maps, edge AA,
 bilinear; 30 frames of the orbit at angles 0.3 + 0.01k after one warm-up
-frame, host clock with ``torch.cuda.synchronize()`` on both sides of the
+frame (on the card the Renderer's default: the warm-up frame captures the
+plan's CUDA graph and every timed frame is one replay, runtime/program.py), host clock with ``torch.cuda.synchronize()`` on both sides of the
 timed loop (the counterpart of bench.py's one host fetch at each end), in
 five tiers: base exact and checkerboard+fix, shadowed static exact and
 checkerboard+fix, and shadowed dynamic (checkerboard+fix, shadow update

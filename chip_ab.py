@@ -19,7 +19,12 @@ and prints one JSON line with what chip_smoke.py measures at the bench
   frames after one warm-up; a checkout whose port has no shadows switch
   has no shadowed_cb metrics;
 - base_busy_ms, rt_busy_ms, shadowed_cb_busy_ms: device busy time per
-  frame over a window of 10 frames traced with device activity only.
+  frame over a window of 10 frames traced with device activity only;
+- base_graph_ms, base_graph_busy_ms, shadowed_cb_graph_ms,
+  shadowed_cb_graph_busy_ms: the same for the replayed frame (one CUDA
+  graph per frame, runtime/program.py), where the checkout's Renderer has
+  programs; the metrics above are then of its eager frame
+  (``Renderer(replay=False)``), as in a checkout without programs.
 
 Then, per checkout and metric, the runs and their median, and against the
 first checkout the difference per round, its median and the rounds in
@@ -28,6 +33,7 @@ which the checkout read higher. Needs one card; imports no jax.
 
 import argparse
 import dataclasses
+import inspect
 import json
 import os
 import statistics
@@ -41,7 +47,8 @@ TRI_CAPACITY = 1 << 17
 FRAMES = 30
 PROFILE_FRAMES = 10
 METRICS = ("raster_ms", "raster_device_us", "base_ms", "base_busy_ms", "rt_ms", "rt_busy_ms",
-           "shadowed_cb_ms", "shadowed_cb_busy_ms")
+           "shadowed_cb_ms", "shadowed_cb_busy_ms", "base_graph_ms", "base_graph_busy_ms",
+           "shadowed_cb_graph_ms", "shadowed_cb_graph_busy_ms")
 
 
 def measure(tree: str) -> dict:
@@ -102,8 +109,14 @@ def measure(tree: str) -> dict:
     if "shade_rate" in {f.name for f in dataclasses.fields(PipelineConfig)}:
         tiers.append(("shadowed_cb", dataclasses.replace(cfg, shade_rate="checkerboard"),
                       dict(shadows=True)))
-    for name, c, switches in tiers:
-        renderer = Renderer(scene, c, device=dev)
+    programs = "replay" in inspect.signature(Renderer).parameters
+    kinds = [(name, c, switches, {"replay": False} if programs else {})
+             for name, c, switches in tiers]
+    if programs:
+        kinds += [(f"{name}_graph", c, switches, {"replay": True})
+                  for name, c, switches in tiers if name != "rt"]
+    for name, c, switches, kw in kinds:
+        renderer = Renderer(scene, c, device=dev, **kw)
         renderer.set_config(**switches)
         renderer.apply_config_now()
         frame(renderer, 0)  # warm-up

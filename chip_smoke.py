@@ -10,8 +10,9 @@ code is non-zero:
 1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
    TF32 off for matmuls and cuDNN;
 2. build every kernel from renderer_tpu_torch/csrc/ (raster.cu,
-   occlusion.cu, probe.cu, scan_raster.cu, rt_brute.cu; one nvcc each,
-   started together), with ptxas's registers and spills;
+   occlusion.cu, probe.cu, scan_raster.cu, rt_brute.cu, and graph_cond.cu,
+   the conditional nodes of the captured frames; one nvcc each, started
+   together), with ptxas's registers and spills;
 3. raster kernel against its plain PyTorch version on the test cases of
    tests/torch_raster_cases.py (bit-identical; the CPU tests hold the plain
    version to the float64 numpy reference rasterizer);
@@ -36,9 +37,10 @@ code is non-zero:
    checks, the last frame written to renderer_tpu_torch/_build/;
 8. one frame of the main path with the raster kernel against the same
    frame with the plain raster version swapped in;
-9. torch.profiler over the main path: the device's busy and idle share of
-   one traced window (device activity only), then device and host time per
-   pass in a second window that also traces the host (a pass's device time
+9. torch.profiler over the main path: the device's busy time in one traced
+   window (device activity only) and its idle share against as many
+   untraced frames, then device and host time per pass in a second window
+   of eager frames that also traces the host (a pass's device time
    is that of the work launched inside its range, matched through the
    profiler's correlation ids, kernels launched through ctypes included);
 10. the rt path's occlusion inputs at the bench camera (slot 0, the sun)
@@ -197,7 +199,23 @@ code is non-zero:
     rows (y0 = 544) of the gathered soup (its valid mask segmented by
     shard) and of the same soup in the cull's order (the frame's), and
     kernel 2 at shard 1's receivers, against their plain versions bit for
-    bit, and kernel 1's rows equal to shard 1's visibility buffer.
+    bit, and kernel 1's rows equal to shard 1's visibility buffer;
+41. one CUDA graph replay per frame (runtime/program.py): for every
+    captured tier at the bench frame (GRAPH_TIERS) and the plain
+    configuration's 512x512 orbit of the JAX demo's scenes, an eager and a
+    replayed Renderer in lockstep (image, visibility buffer and state
+    equal bit for bit), ms/frame of both in turns, their device busy and
+    idle (against the untraced ms), the program's capture seconds and
+    pool ([graph_<tier>]); then
+    the shadow pass's device time at no update with and without
+    conditional nodes, and a fresh base path's launches ([graph]).
+
+Every Renderer on the card replays one captured graph per
+frame after its switch set's first frame (the capture), so the timed
+paths above are replayed; a frame whose kernel calls are recorded, or
+that runs with a plain version swapped in, is rendered eagerly
+(``Renderer(replay=False)``), and the per-pass windows of the profile
+phases render eager frames (a replay runs no pass's range).
 
 Every main path runs with every kernel's launch count set to 0 just
 before it and read just after (the raster kernel once per frame and per
@@ -234,7 +252,7 @@ from renderer_tpu_torch.mathx import Camera, orbit_camera, quat_from_axis_angle,
 from renderer_tpu_torch.models import (  # noqa: E402
     city_scene, colonnade_scene, skinned_scene, sponza_like_scene)
 from renderer_tpu_torch.models.scenes import _colonnade_lights, colonnade_spec  # noqa: E402
-from renderer_tpu_torch.ops import cuda_build, geometry, occlusion_cuda as oc  # noqa: E402
+from renderer_tpu_torch.ops import control, cuda_build, geometry, occlusion_cuda as oc  # noqa: E402
 from renderer_tpu_torch.ops import probe_cuda, raster_cuda as rc, rt_grid as trt  # noqa: E402
 from renderer_tpu_torch.ops import raster_scan as rs, rt as brute  # noqa: E402
 from renderer_tpu_torch.ops import shadow as tshadow  # noqa: E402
@@ -252,6 +270,7 @@ from renderer_tpu_torch.runtime.camera_controller import to_camera  # noqa: E402
 from renderer_tpu_torch.runtime.checkpoint import load_renderer, save_renderer  # noqa: E402
 from renderer_tpu_torch.runtime.gameplay import ProjectileSystem  # noqa: E402
 from renderer_tpu_torch.runtime.hud import format_hud  # noqa: E402
+from renderer_tpu_torch.ops.overlay import hud_overlay  # noqa: E402
 from renderer_tpu_torch.runtime.streaming import CHUNK_VERTS, SceneStreamer  # noqa: E402
 from renderer_tpu_torch.scene import SceneBuilder, SceneLimits, primitives  # noqa: E402
 from renderer_tpu_torch.scene.gltf import load_gltf  # noqa: E402
@@ -266,7 +285,7 @@ WIDTH, HEIGHT = 1920, 1088
 N_INSTANCES = 10000
 TRI_CAPACITY = 1 << 17
 FRAMES = 30
-PROFILE_FRAMES = 5  # per traced window; the profiler's processing, not the frames, takes the time
+PROFILE_FRAMES = 3  # per traced window; the profiler's processing, not the frames, takes the time
 PSNR_GATE_DB = 60.0  # main path, kernel vs plain version (display-clamped)
 DEPTH_TOL = 1e-6  # raster kernel vs plain version (they should agree bit for bit)
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
@@ -375,6 +394,34 @@ with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
 after = b._measure_mode(scene, cfg, dev, shadows=False)[0]
 print(before * 1e3, after * 1e3)
 """
+# phase 41: replay against eager per captured tier (name -> (config changes,
+# switches)); the shadowed dynamic tier takes cfg_dyn, freeze its switch
+# after a culled frame, hud an overlay per frame
+GRAPH_TIERS = {
+    "base_exact": ({}, {}),
+    "base_checkerboard_fix": (dict(shade_rate="checkerboard"), {}),
+    "quarter_fix": (dict(shade_rate="quarter"), {}),
+    "ssaa2": (dict(ssaa=SSAA, aa="none"), {}),
+    "lambert": (dict(shading="lambert", aa="none"), {}),
+    "skinned": (dict(skinning=True), {}),
+    "rt_scale1": (dict(rt_scale=1), dict(rt=True)),
+    "rt_scale2": ({}, dict(rt=True)),
+    "rt_scale4": (dict(rt_scale=4), dict(rt=True)),
+    "shadowed_static_exact": ({}, dict(shadows=True)),
+    "shadowed_static_checkerboard_fix": (dict(shade_rate="checkerboard"), dict(shadows=True)),
+    "shadowed_dynamic": ({}, dict(shadows=True)),
+    "freeze": ({}, dict(freeze_culling=True)),
+    "debug_aabbs": ({}, dict(debug_aabbs=True)),
+    "occlusion": ({}, dict(occlusion_culling=True)),
+    "cluster_cull": (dict(cluster_cull=True), {}),
+    "reference_image": ({}, dict(reference_image=True)),
+    "hud": ({}, dict(hud=True)),
+    "plain_bench": (dict(tile_raster=False), {}),
+}
+GRAPH_CHECK_FRAMES = 3  # lockstep frames, eager against replayed (the first captures)
+GRAPH_FRAMES = 5  # frames per timed turn
+GRAPH_PROFILE_FRAMES = 2  # frames per traced window
+GRAPH_SHADOW_REPLAYS = 20  # replays per timed turn of the cut plans
 ASSET = os.path.join(ROOT, "assets", "colonnade.glb")
 COLONNADE_CAPACITY = 1 << 16  # expansion 2^17 holds the asset's 36k triangles
 COLONNADE_FRAMES = 30
@@ -631,17 +678,22 @@ def bench_camera(k, dev):
     return orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev)
 
 
-def traced_window(renderer, dev, activities, cam_at=bench_camera, frames: int = PROFILE_FRAMES):
+def traced_window(renderer, dev, activities, cam_at=bench_camera, frames: int = PROFILE_FRAMES,
+                  eager: bool = False):
     """Render ``frames`` frames (frame k at ``cam_at(k, dev)``) under
-    torch.profiler. Returns the profile and the window's host-clock ms per
-    frame."""
+    torch.profiler; with ``eager``, eager frames of the renderer's plan that
+    do not advance its state (a replay runs no pass's range). Returns the
+    profile and the window's host-clock ms per frame."""
     from torch.profiler import profile
 
     with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for k in range(frames):
-            renderer.render(cam_at(k, dev))
+            if eager:
+                renderer._run(commit=False, camera=cam_at(k, dev), time_s=0.0, overlay=None)
+            else:
+                renderer.render(cam_at(k, dev))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     return prof, wall_ms
@@ -690,20 +742,23 @@ def pass_device_ms(events, n_frames: int):
 
 
 def profile_main_path(name, renderer, dev, card: str, cam_at=bench_camera) -> dict:
-    """Device busy time against wall time in one traced window, and per-pass
-    device and host time in a second window that also traces the host. A
-    pass's device time is that of the work launched inside its range
-    (pass_device_ms); the passes and the unattributed rest add up to the
-    second window's device busy time."""
+    """Device busy time of the renderer's frames (replays) in one traced
+    window, against their wall time in an untraced window of as many frames
+    (the traced window's own wall holds the profiler's start); and per-pass
+    device and host time in a second traced window of eager frames of its
+    plan that also traces the host. A pass's device time is that of the
+    work launched inside its range (pass_device_ms); the passes and the
+    unattributed rest add up to the second window's device busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    prof, wall_ms = traced_window(renderer, dev, [ProfilerActivity.CUDA], cam_at)
+    wall_ms = frames_ms(renderer, PROFILE_FRAMES, lambda r, k: r.render(cam_at(k, dev)))
+    prof, _ = traced_window(renderer, dev, [ProfilerActivity.CUDA], cam_at)
     device_ops, busy_ms = traced_busy(prof, PROFILE_FRAMES)
     ops = sum(e.count for e in device_ops) / PROFILE_FRAMES
     top = sorted(device_ops, key=lambda e: -e.self_device_time_total)[:4]
     if busy_ms > 0:
-        share = (f"device busy {busy_ms:.3f} ms/frame in a {wall_ms:.3f} ms/frame traced window "
+        share = (f"device busy {busy_ms:.3f} ms/frame, {wall_ms:.3f} ms/frame untraced "
                  f"= idle {100.0 * (1.0 - busy_ms / wall_ms):.1f}%, {ops:.0f} device ops/frame; "
                  "longest: " + ", ".join(
                      f"{e.key[:48]} {e.self_device_time_total / 1e3 / PROFILE_FRAMES:.3f} ms/frame"
@@ -711,14 +766,14 @@ def profile_main_path(name, renderer, dev, card: str, cam_at=bench_camera) -> di
     else:
         share = "device time not measured (the profiler saw no device activity)"
     prof, wall_ms = traced_window(renderer, dev, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                                  cam_at)
+                                  cam_at, eager=True)
     host = {e.key[len("forward."):]: e.cpu_time_total / 1e3 / PROFILE_FRAMES
             for e in prof.key_averages()
             if e.key.startswith("forward.") and e.device_type == DeviceType.CPU}
     per_pass, other = pass_device_ms(prof.events(), PROFILE_FRAMES)
     busy2 = sum(per_pass.values()) + other
-    phase(name, f"{PROFILE_FRAMES} frames ({card}): {share}; host+device traced window "
-                f"{wall_ms:.3f} ms/frame, per pass device/host ms/frame (device: the work "
+    phase(name, f"{PROFILE_FRAMES} frames ({card}): {share}; host+device traced window of "
+                f"eager frames {wall_ms:.3f} ms/frame, per pass device/host ms/frame (device: the work "
                 "launched inside the pass's range): "
                 + ", ".join(f"{k} {d:.3f}/{host.get(k, 0.0):.3f}" for k, d in per_pass.items())
                 + f"; passes sum to {sum(per_pass.values()):.3f} + {other:.3f} launched outside "
@@ -758,7 +813,10 @@ def check_image(out):
 
 class Recorder:
     """Wraps ``module.name`` while active: keeps each call's positional
-    arguments, keyword arguments and result."""
+    arguments, keyword arguments and result, made by an eager frame (a
+    program's first frame or a ``Renderer(replay=False)`` one; a replay
+    calls nothing, and a call inside a capture computes nothing and is not
+    kept)."""
 
     def __init__(self, module, name: str):
         self.module, self.name = module, name
@@ -769,7 +827,8 @@ class Recorder:
 
         def record(*args, **kwargs):
             out = self._orig(*args, **kwargs)
-            self.calls.append((args, kwargs, out))
+            if not torch.cuda.is_current_stream_capturing():
+                self.calls.append((args, kwargs, out))
             return out
 
         setattr(self.module, self.name, record)
@@ -792,16 +851,37 @@ def mover_tables(scene, ks, dev):
     return torch.from_numpy(tables).to(dev)
 
 
-def shadow_updates(renderer, dev, scene_at):
+def atlas_views(slots) -> list:
+    """Kernel 1's launches per slot when the slot renders: a directional
+    slot (or band) one view, a point slot six cube faces, none without a
+    light."""
+    return [0 if sl is None else (1 if sl[1] else 6) for sl in slots]
+
+
+def shadow_updates(renderer, dev, scene_at, slots):
     """Units of the cached atlas re-rendered per frame over UPDATE_FRAMES
     frames after the timed ones, counted from ``Renderer.state`` as
-    bench.py:157-170 counts them (a unit whose signature changed)."""
+    bench.py:157-170 counts them (a unit whose signature changed: the
+    units the frame selected). Each of these frames must launch kernel 1
+    once for the camera and once per view of each slot with a selected
+    unit, with conditional nodes (``control.cond``), else of every slot:
+    the launches counted, replays and conditional bodies included."""
+    cond_on = control.conditional_nodes()[0]
+    views = atlas_views(slots)
     sig_prev = renderer.state["shadow_cache"][1].clone()
     changed = []
     for k in range(FRAMES, FRAMES + UPDATE_FRAMES):
+        before = rc.RASTER_TILES.launches
         renderer.render(orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev), scene=scene_at(k))
         sig = renderer.state["shadow_cache"][1]
-        changed.append(int((sig != sig_prev).reshape(-1, sig.shape[-1]).any(dim=-1).sum()))
+        unit = (sig != sig_prev).any(dim=-1)  # (slots,) or (slots, bands)
+        changed.append(int(unit.sum()))
+        slot_on = unit.reshape(len(slots), -1).any(dim=-1).tolist()
+        want = 1 + sum(v for v, on in zip(views, slot_on) if on or not cond_on)
+        got = rc.RASTER_TILES.launches - before
+        if got != want:
+            raise AssertionError(f"frame {k}: kernel 1 launched {got} times, want {want} (slots "
+                                 f"selected {slot_on}, conditional nodes {cond_on})")
         sig_prev = sig.clone()
     return statistics.mean(changed)
 
@@ -893,7 +973,8 @@ def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, 
     cfg_dyn = dataclasses.replace(cfg_cb, shadow_update_budget=1,
                                   shadow_progressive=SHADOW_PROGRESSIVE,
                                   shadow_tri_capacity=SHADOW_BAND_CAPACITY)
-    views = sum(0 if sl is None else (1 if sl[1] else 6) for sl in slots)  # atlas views per frame
+    views = sum(atlas_views(slots))  # atlas views per frame that renders every slot
+    cond_on = control.conditional_nodes()[0]
     tier_ms, tier_launches, tier_renderers = {"base_exact": frame_ms}, {}, {"base_exact": renderer}
     warmup = cfg_dyn.shadow_slots * SHADOW_PROGRESSIVE + 1
     tables = mover_tables(scene, range(-warmup, FRAMES + UPDATE_FRAMES), dev)
@@ -916,14 +997,22 @@ def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, 
             kernel.launches = 0
         tier_ms[tier], out = run_orbit(r, dev, scene_at, n_warm)
         tier_launches[tier] = {kn.symbol: kn.launches for kn in KERNELS}
-        per_frame = 1 + (views if shadows else 0)
+        # the first frame (eager, before the capture) renders every view; a
+        # replay renders a slot's views only where the cache selected it
+        # (static: never), with conditional nodes
+        n = FRAMES + n_warm
         want = {kn.symbol: 0 for kn in KERNELS}
-        want[rc.RASTER_TILES.symbol] = (FRAMES + n_warm) * per_frame
-        if tier_launches[tier] != want:
-            raise AssertionError(f"{tier}: launches {tier_launches[tier]}, want {want}")
+        want[rc.RASTER_TILES.symbol] = n + (0 if not shadows else views if cond_on else n * views)
+        got = dict(tier_launches[tier])
+        if scene_at is moved_scene:  # data-dependent: bounded here, exact in shadow_updates
+            lo, hi = n + views, n * (1 + views)
+            if lo <= got[rc.RASTER_TILES.symbol] <= hi:
+                want[rc.RASTER_TILES.symbol] = got[rc.RASTER_TILES.symbol]
+        if got != want:
+            raise AssertionError(f"{tier}: launches {got}, want {want}")
         check_image(out)
         if shadows:
-            updates = shadow_updates(r, dev, scene_at)
+            updates = shadow_updates(r, dev, scene_at, slots)
             ok = updates == 0 if scene_at is static_scene else 0 < updates <= 1
             if not ok:
                 raise AssertionError(f"{tier}: {updates} shadow updates per frame")
@@ -978,7 +1067,7 @@ def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, 
 
     # 18. the shadowed checkerboard frame with the plain raster in both passes ---
     def shadowed_cb_image():
-        r = Renderer(scene, cfg_cb, device=dev)
+        r = Renderer(scene, cfg_cb, device=dev, replay=False)  # one frame, no capture
         r.set_config(shadows=True)
         r.apply_config_now()
         return r.render(gate_cam)["image"]
@@ -1105,9 +1194,9 @@ def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launch
     cfg_city = PipelineConfig(width=WIDTH, height=HEIGHT, tri_capacity=CITY_CAPACITY,
                               enable_normal_maps=False, aa="edge", trilinear=False)
 
-    def city_renderer(capacity, occlusion):
+    def city_renderer(capacity, occlusion, replay=None):
         r = Renderer(city, dataclasses.replace(cfg_city, tri_capacity=capacity),
-                     outputs=("image", "vis", "soup"), device=dev)
+                     outputs=("image", "vis", "soup"), device=dev, replay=replay)
         r.set_config(occlusion_culling=occlusion)
         r.apply_config_now()
         return r
@@ -1116,7 +1205,7 @@ def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launch
     for mode, cap, occ in (("frustum", CITY_CAPACITY, False), ("occlusion", CITY_OCC_CAPACITY, True)):
         tried = []
         while True:
-            demand, count = city_counts(city_renderer(cap, occ), dev)
+            demand, count = city_counts(city_renderer(cap, occ, replay=False), dev)
             # the steady frames (after the warm-up) expand and keep all they ask for
             if not occ or (max(demand[1:]) <= 2 * cap and max(count[1:]) < cap):
                 break
@@ -1147,11 +1236,11 @@ def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launch
     held_prep = geometry.prepare_frame_columns(city, held)
     frustum_demand = int(geometry.expansion_demand(city, held_prep.visible, held_prep.lod))
     cap_ref = max(CITY_CAPACITY, pow2_at_least(-(-frustum_demand // 2)))
-    r_occ = city_renderer(cap_ref, True)
+    r_occ = city_renderer(cap_ref, True, replay=False)  # its second frame is recorded
     r_occ.render(held)
     with Recorder(pipeline_module, "rasterize_cuda") as ras:
         occluded = r_occ.render(held)
-    plain = city_renderer(cap_ref, False).render(held)
+    plain = city_renderer(cap_ref, False, replay=False).render(held)
     same = float((visible_identity(occluded) == visible_identity(plain)).float().mean())
     held_psnr = psnr(np.clip(occluded["image"].cpu().numpy(), 0, 1),
                      np.clip(plain["image"].cpu().numpy(), 0, 1))
@@ -1256,7 +1345,9 @@ def pose_cost(scene, dev):
 
 
 def swapped_plain_image(make_image):
-    """``make_image()`` with the plain raster version swapped in for kernel 1."""
+    """``make_image()`` with the plain raster version swapped in for kernel 1
+    (its Renderer eager: the plain version waits for the card, and a
+    capture refuses that)."""
     kernel_fn = rc.raster_kernel
     rc.raster_kernel = rc.raster_tiles_plain  # the plain version on CUDA tensors
     try:
@@ -1321,13 +1412,13 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
     sk_ms, out = launches_of(lambda: run_orbit(r_sk, dev), FRAMES + 1, "skinned")
     path_launches["skinned"] = FRAMES + 1
     check_image(out)
-    with Recorder(pipeline_module, "rasterize_cuda") as ras:
-        sk_frame = r_sk.render(cam0)
+    with Recorder(pipeline_module, "rasterize_cuda") as ras:  # r_sk's frames are replays
+        sk_frame = Renderer(scene, cfg_sk, outputs=outputs, device=dev, replay=False).render(cam0)
     flat = renderer.render(cam0)
     (clip, valid, *_), _, _ = ras.calls[0]
     soup_line, *_ = kernel_at_soup("per-corner soup", clip, valid, False, card, exact=True)
     ref = Renderer(scene, cfg_sk, device=dev).render(cam0)["image"]
-    plain = swapped_plain_image(lambda: Renderer(scene, cfg_sk, device=dev).render(cam0)["image"])
+    plain = swapped_plain_image(lambda: Renderer(scene, cfg_sk, device=dev, replay=False).render(cam0)["image"])
     if not torch.equal(ref, plain):
         raise AssertionError("skinned frame differs between kernel and plain raster")
     same = float((sk_frame["vis"].tri_id == flat["vis"].tri_id).float().mean())
@@ -1342,8 +1433,10 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
 
     # 26. the skinned scene animated over its clip --------------------------------
     sk_scene = skinned_scene(device=dev)
+    # eager: every frame's pose pass is recorded (the bench's skinned tier is
+    # replayed in phase 41)
     r_anim = Renderer(sk_scene, PipelineConfig(width=WIDTH, height=HEIGHT, tri_capacity=16384,
-                                               skinning=True, aa="edge"), device=dev)
+                                               skinning=True, aa="edge"), device=dev, replay=False)
     cam = Camera.create((0.0, 1.2, 4.0), fov_y=0.9, aspect=WIDTH / HEIGHT, near=0.1, far=50.0,
                         device=dev)
 
@@ -1401,8 +1494,8 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
     ss_ms, out = launches_of(lambda: run_orbit(r_ss, dev), FRAMES + 1, "ssaa")
     path_launches["ssaa2"] = FRAMES + 1
     check_image(out)
-    with Recorder(pipeline_module, "rasterize_cuda") as ras:
-        r_ss.render(cam0)
+    with Recorder(pipeline_module, "rasterize_cuda") as ras:  # r_ss's frames are replays
+        Renderer(scene, cfg_ss, outputs=outputs, device=dev, replay=False).render(cam0)
     (clip, valid, *_), _, _ = ras.calls[0]
     ss_line, *_ = kernel_at_soup(f"SSAA {SSAA} soup ({size_ss[0]}x{size_ss[1]})", clip, valid,
                                  False, card, band_rows=SSAA_BAND_ROWS, size=size_ss, exact=True)
@@ -1541,7 +1634,7 @@ def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, car
     path_launches["colonnade"] = COLONNADE_FRAMES + 1
     check_image(out)
     t0 = time.perf_counter()
-    plain = swapped_plain_image(lambda: Renderer(glb, cfg_col, device=dev).render(cam)["image"])
+    plain = swapped_plain_image(lambda: Renderer(glb, cfg_col, device=dev, replay=False).render(cam)["image"])
     if not torch.equal(plain, Renderer(glb, cfg_col, device=dev).render(cam)["image"]):
         raise AssertionError("colonnade frame differs between kernel and plain raster")
     t_swap = time.perf_counter() - t0
@@ -1655,7 +1748,7 @@ def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, car
     if live_allocs:
         raise AssertionError(f"streaming: {live_allocs} arena blocks live after close()")
     t0 = time.perf_counter()
-    plain = swapped_plain_image(lambda: Renderer(live, cfg, device=dev).render(cam_last)["image"])
+    plain = swapped_plain_image(lambda: Renderer(live, cfg, device=dev, replay=False).render(cam_last)["image"])
     if not torch.equal(plain, Renderer(live, cfg, device=dev).render(cam_last)["image"]):
         raise AssertionError("streamed frame differs between kernel and plain raster")
     t_swap = time.perf_counter() - t0
@@ -1869,12 +1962,15 @@ def plain_run(name: str, changes: dict, switches: dict, dev, frames: int, warmup
 
 def plain_launches_wanted(switches: dict, rendered: int, slots) -> dict:
     """Each kernel's launches for ``rendered`` plain frames: kernel 5 once
-    per frame and per atlas view (shadows), kernel 6 once per traced
-    directional slot (rt), no other kernel."""
-    views = sum(0 if sl is None else (1 if sl[1] else 6) for sl in slots)
+    per frame and per atlas view rendered (shadows), kernel 6 once per
+    traced directional slot (rt), no other kernel."""
+    views = sum(atlas_views(slots))
     traced = sum(1 for sl in slots if sl is not None and sl[1])
     want = {k.symbol: 0 for k in KERNELS}
-    want[rs.SCAN_RASTER.symbol] = rendered * (1 + (views if switches.get("shadows") else 0))
+    # the atlas's views on the first (eager) frame only: the demo scenes are
+    # static, so a replay's conditional nodes skip every slot
+    atlas = views * (1 if control.conditional_nodes()[0] else rendered)
+    want[rs.SCAN_RASTER.symbol] = rendered + (atlas if switches.get("shadows") else 0)
     want[brute.RT_BRUTE.symbol] = rendered * (traced if switches.get("rt") else 0)
     return want
 
@@ -2049,7 +2145,7 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
     pscene = build_demo_scene("mixed", dev)
     pscene.lights.shadow_slot[0] = POINT_SLOT  # the point light casts: six cube faces
     pcfg = PipelineConfig(width=DEMO_SIZE, height=DEMO_SIZE, tri_capacity=PLAIN_CAPACITY)
-    pr = Renderer(pscene, pcfg, device=dev)
+    pr = Renderer(pscene, pcfg, device=dev, replay=False)  # its second frame is recorded
     pr.set_config(rt=True)
     pr.apply_config_now()
     pcam = make_demo_camera("mixed", 0.5, dev)
@@ -2249,8 +2345,9 @@ def scan_raster_phase(dev, card) -> dict:
                      f"{clip.shape[0]}, {pairs} pixel pairs; kernel by events / device "
                      f"{k_ms:.4f} / {k_dev:.4f} ms (unbounded walk {u_ms:.4f} / {u_dev:.4f}), "
                      f"plain {p_ms:.1f} ms, bound {b_ms:.5f} ms by {b_by} = "
-                     f"{100 * b_ms / k_ms:.1f}% of the events' time, {100 * b_ms / k_dev:.1f}% "
-                     "of the device time")
+                     f"{100 * b_ms / k_ms:.1f}% of the events' time, "
+                     + (f"{100 * b_ms / k_dev:.1f}% of the device time" if k_dev > 0 else
+                        "the device time not measured (the profiler saw no device event)"))
         if entry is None:  # the plain frame's camera soup: the main path's call
             entry = dict(name="scan_raster", route="cuda",
                          source="renderer_tpu_torch/csrc/scan_raster.cu",
@@ -2306,7 +2403,8 @@ def rt_brute_phase(dev, card) -> dict:
                      f"by events / device {k_ms:.4f} / {k_dev:.4f} ms (unbounded walk "
                      f"{u_ms:.4f} / {u_dev:.4f}), plain {p_ms:.1f} ms, bound {b_ms:.5f} ms by "
                      f"{b_by} = {100 * b_ms / k_ms:.1f}% of the events' time, "
-                     f"{100 * b_ms / k_dev:.1f}% of the device time")
+                     + (f"{100 * b_ms / k_dev:.1f}% of the device time" if k_dev > 0 else
+                        "the device time not measured (the profiler saw no device event)"))
         if entry is None:
             entry = dict(name="rt_brute", route="cuda",
                          source="renderer_tpu_torch/csrc/rt_brute.cu",
@@ -2391,7 +2489,7 @@ def split_phase(scene, cfg, path_launches, kernels, dev, card) -> None:
     lines, checks = [], []
     for name, (changes, switches) in SPLIT_TIERS.items():
         tcfg = dataclasses.replace(cfg, **changes)
-        one = Renderer(scene, tcfg, outputs=outputs, device=dev)
+        one = Renderer(scene, tcfg, outputs=outputs, device=dev, replay=False)  # eager, as split
         split = Renderer(scene, dataclasses.replace(tcfg, spmd_devices=SPLIT_SHARDS),
                          outputs=outputs, spmd_mesh=mesh)
         for r in (one, split):
@@ -2494,6 +2592,176 @@ def split_phase(scene, cfg, path_launches, kernels, dev, card) -> None:
                    f"(make_mesh([dev] * {SPLIT_SHARDS})), sponza_like_scene({N_INSTANCES}): "
           + "; ".join(lines + checks) + f" ({card})")
 
+def nan_equal(a, b) -> bool:
+    """Bit-for-bit equality of two trees of tensors, NaN equal to NaN."""
+    la, sa = tree.flatten(a)
+    lb, sb = tree.flatten(b)
+    return repr(sa) == repr(sb) and all(
+        torch.equal(x, y) if not x.is_floating_point()
+        else torch.equal(torch.nan_to_num(x, nan=7.0), torch.nan_to_num(y, nan=7.0))
+        for x, y in zip(la, lb))
+
+
+def frames_ms(renderer, frames: int, frame) -> float:
+    """Host-clock ms per frame of ``frames`` calls ``frame(renderer, k)``,
+    synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(frames):
+        frame(renderer, k)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / frames
+
+
+def graph_tier(label, make, switches, cam_at, scene_at=lambda k: None, prep=False, hud=False):
+    """One captured tier: an eager and a replayed Renderer (``make(replay)``)
+    in lockstep over GRAPH_CHECK_FRAMES frames (image, visibility buffer and
+    state equal bit for bit on each; with ``prep`` the switches are taken up
+    after the first frame, as freeze culling needs a culled frame), then
+    ms/frame of both in turns, their device busy per frame over a traced
+    window and idle share against the turns' ms (the traced window's own
+    wall holds the profiler's start), and the program's capture seconds
+    and pool. Returns (the phase line's entry, ms and busy of both, the
+    replayed renderer)."""
+    from torch.profiler import ProfilerActivity
+
+    eager, replay = make(False), make(None)
+    if not replay.replay or eager.replay:
+        raise AssertionError(f"graph {label}: the default renderer must replay on the card")
+
+    def frame(r, k):
+        overlay = hud_overlay(f"frame {k}", r.cfg.width) if hud else None
+        return r.render(cam_at(k, r.device), scene=scene_at(k), time_s=k / 60.0, overlay=overlay)
+
+    for k in range(GRAPH_CHECK_FRAMES):
+        if k == int(prep):
+            for r in (eager, replay):
+                r.set_config(**switches)
+                r.apply_config_now()
+        a, b = frame(eager, k), frame(replay, k)
+        if not (nan_equal(a, b) and nan_equal(eager.state, replay.state)):
+            raise AssertionError(f"graph {label}: frame {k} replayed differs from eager")
+    program = next(p for key, p in replay.programs.items()
+                   if dict(key[0]) == vars(replay.config))
+    if program.graph is None:
+        raise AssertionError(f"graph {label}: no graph captured")
+    ms = {"eager": [], "replay": []}
+    for name in ("eager", "replay", "replay", "eager"):
+        r = eager if name == "eager" else replay
+        ms[name].append(frames_ms(r, GRAPH_FRAMES,
+                                  lambda r, k: frame(r, GRAPH_CHECK_FRAMES + k)))
+    busy = {}  # device busy ms/frame (a traced window), idle against the untraced turns' ms
+    for name, r in (("eager", eager), ("replay", replay)):
+        prof, _ = traced_window(r, r.device, [ProfilerActivity.CUDA],
+                                cam_at=lambda k, d: cam_at(GRAPH_CHECK_FRAMES + k, d),
+                                frames=GRAPH_PROFILE_FRAMES)
+        b = traced_busy(prof, GRAPH_PROFILE_FRAMES)[1]
+        busy[name] = (b, 100.0 * (1.0 - b / statistics.mean(ms[name])))
+    entry = (f"{label}: replay = eager bit for bit on {GRAPH_CHECK_FRAMES} frames; ms/frame in turns "
+             f"eager {ms['eager'][0]:.2f}, replay {ms['replay'][0]:.2f}, replay "
+             f"{ms['replay'][1]:.2f}, eager {ms['eager'][1]:.2f}; busy ms/frame eager "
+             f"{busy['eager'][0]:.3f} (idle {busy['eager'][1]:.1f}%), replay "
+             f"{busy['replay'][0]:.3f} (idle {busy['replay'][1]:.1f}%); capture "
+             f"{program.capture_s:.2f} s, pool {program.pool_bytes / 2**20:.1f} MiB")
+    return entry, ms, busy, replay
+
+
+def shadow_pass_ms(scene, cfg, dev) -> dict:
+    """Device ms per replay of the shadowed static checkerboard+fix plan
+    cut after the shadow pass, less the same plan cut before it, at no
+    update (the cache converged), with and without conditional nodes: the
+    shadow pass's device time. Each cut plan is a FrameProgram over a copy
+    of a converged renderer's state, timed by CUDA events over
+    GRAPH_SHADOW_REPLAYS replays, in turns."""
+    from renderer_tpu_torch.runtime.frame import execute_plan
+    from renderer_tpu_torch.runtime.program import FrameProgram
+
+    r = Renderer(scene, dataclasses.replace(cfg, shade_rate="checkerboard"), device=dev)
+    r.set_config(shadows=True)
+    r.apply_config_now()
+    cam = bench_camera(0, dev)
+    for _ in range(2):
+        r.render(cam)
+    passes = r.passes
+    cut = [p.name for p in passes].index("shadow_pass")
+    programs = {}
+    for name, n, cond in (("before", cut, True), ("with nodes", cut + 1, True),
+                          ("without nodes", cut + 1, False)):
+        control.ENABLED = cond
+        try:
+            state = {k: tree.unflatten(tree.flatten(v)[1], [t.clone() for t in tree.leaves(v)])
+                     for k, v in r.state.items()}
+            prog = FrameProgram(passes[:n], (), state, scene, cam, dev, False, execute_plan)
+            prog.run(scene, cam)  # warm-up and capture
+        finally:
+            control.ENABLED = True
+        if (prog.conditional is None) != (cond and control.conditional_nodes()[0]):
+            raise AssertionError(f"shadow pass {name}: conditional nodes {prog.conditional}")
+        programs[name] = prog
+    ms = {name: [] for name in programs}
+    for name in ("before", "with nodes", "without nodes", "without nodes", "with nodes", "before"):
+        ms[name].append(cuda_ms(lambda: programs[name].graph.replay(), GRAPH_SHADOW_REPLAYS))
+    atlas = programs["with nodes"].state["shadow_cache"][0]
+    if not torch.equal(atlas, programs["without nodes"].state["shadow_cache"][0]):
+        raise AssertionError("shadow pass: the atlas differs with and without conditional nodes")
+    for p in programs.values():
+        p.close()
+    base = statistics.mean(ms["before"])
+    return {name: statistics.mean(v) - base for name, v in ms.items() if name != "before"}
+
+
+def graph_phase(scene, cfg, path_launches, dev, card) -> None:
+    """Phase 41: one CUDA graph replay per frame (runtime/program.py). Every
+    captured tier at the bench frame and the plain configuration's 512x512
+    orbit (graph_tier), the shadow pass's device time at no update with
+    and without conditional nodes, and the launches of a replayed path."""
+    ok, why = control.conditional_nodes()
+    outputs = ("image", "vis")
+    cfg_dyn = dataclasses.replace(cfg, shade_rate="checkerboard", shadow_update_budget=1,
+                                  shadow_progressive=SHADOW_PROGRESSIVE,
+                                  shadow_tri_capacity=SHADOW_BAND_CAPACITY)
+    tables = mover_tables(scene, range(GRAPH_CHECK_FRAMES + 2 * GRAPH_FRAMES
+                                       + GRAPH_PROFILE_FRAMES), dev)
+
+    def moved_scene(k):
+        return scene._replace(instances=scene.instances._replace(translation=tables[k]))
+
+    for label, (changes, switches) in GRAPH_TIERS.items():
+        tcfg = cfg_dyn if label == "shadowed_dynamic" else dataclasses.replace(cfg, **changes)
+
+        def make(replay, tcfg=tcfg):
+            return Renderer(scene, tcfg, outputs=outputs, device=dev, replay=replay)
+
+        entry, *_ = graph_tier(label, make, switches, bench_camera,
+                               scene_at=moved_scene if label == "shadowed_dynamic" else
+                               (lambda k: None), prep=label == "freeze", hud=label == "hud")
+        phase(f"graph_{label}", entry + f" ({card})")
+    for name in PLAIN_SCENES:
+        pcfg = PipelineConfig(width=DEMO_SIZE, height=DEMO_SIZE, tri_capacity=PLAIN_CAPACITY,
+                              skinning=name == "skinned", tile_raster=False)
+        pscene = build_demo_scene(name, dev)
+
+        def make(replay, pscene=pscene, pcfg=pcfg):
+            return Renderer(pscene, pcfg, outputs=outputs, device=dev, replay=replay)
+
+        entry, *_ = graph_tier(f"plain_{name}", make, {},
+                               lambda k, d, name=name: make_demo_camera(name, 0.5 + 0.02 * k, d))
+        phase(f"graph_plain_{name}", entry + f" ({card})")
+    shadow = shadow_pass_ms(scene, cfg, dev)
+    r = Renderer(scene, cfg, device=dev)
+    launches_of(lambda: [r.render(bench_camera(k, dev)) for k in range(GRAPH_FRAMES)],
+                GRAPH_FRAMES, "graph: a replayed path")
+    path_launches["graph_base"] = GRAPH_FRAMES
+    phase("graph", f"one CUDA graph replay per frame, captured at each switch set's first frame; "
+                   f"conditional nodes: "
+                   f"{'yes (csrc/graph_cond.cu)' if ok else f'no, torch.where in the graph: {why}'}; "
+                   f"the shadowed static checkerboard+fix frame's shadow pass at no update, device "
+                   f"ms per replay: with conditional nodes {shadow['with nodes']:.3f}, without "
+                   f"{shadow['without nodes']:.3f} (the plan cut after it less the plan cut "
+                   f"before it, CUDA events over {GRAPH_SHADOW_REPLAYS} replays, in turns); "
+                   f"{GRAPH_FRAMES} frames of a fresh base renderer (1 eager + capture, "
+                   f"{GRAPH_FRAMES - 1} replays) launch kernel 1 {GRAPH_FRAMES} times ({card})")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2517,7 +2785,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libraries = {"raster.cu": rc.LIBRARY, "occlusion.cu": oc.LIBRARY,
                  "probe.cu": probe_cuda.LIBRARY, "scan_raster.cu": rs.LIBRARY,
-                 "rt_brute.cu": brute.LIBRARY}
+                 "rt_brute.cu": brute.LIBRARY, "graph_cond.cu": control.LIBRARY}
     cuda_build.build_all(libraries.values())
     for kernel in KERNELS:
         kernel.load()
@@ -2668,11 +2936,11 @@ def main() -> int:
 
     # 8. main path, kernel vs plain raster ------------------------------------
     cam = orbit_camera(0.3, WIDTH / HEIGHT, dev)
-    ref_out = Renderer(scene, cfg, device=dev).render(cam)
+    ref_out = Renderer(scene, cfg, device=dev, replay=False).render(cam)
     kernel_fn = rc.raster_kernel
     rc.raster_kernel = rc.raster_tiles_plain  # the plain version on CUDA tensors
-    try:
-        plain_out = Renderer(scene, cfg, device=dev).render(cam)
+    try:  # eager: the plain version waits for the card, which a capture refuses
+        plain_out = Renderer(scene, cfg, device=dev, replay=False).render(cam)
     finally:
         rc.raster_kernel = kernel_fn
     if not torch.equal(ref_out["vis"].tri_id, plain_out["vis"].tri_id):
@@ -2792,7 +3060,7 @@ def main() -> int:
 
     # 12. rt frame, kernel vs plain occlusion ------------------------------------
     def rt_frame():
-        r = Renderer(scene, rt_cfgs[2], device=dev)
+        r = Renderer(scene, rt_cfgs[2], device=dev, replay=False)  # one frame, maybe the plain walk
         r.set_config(rt=True)
         r.apply_config_now()
         with Recorder(trt, "occlusion_grid") as rec:
@@ -2829,6 +3097,7 @@ def main() -> int:
     kernels["rt_brute"] = rt_brute_phase(dev, card)
     bench_phase(tier_ms, scene, cfg, dev, card)
     split_phase(scene, cfg, path_launches, kernels, dev, card)
+    graph_phase(scene, cfg, path_launches, dev, card)
     kernels["raster_tiles"]["launches"] = sum(path_launches.values())
     for name, k in (("scan_raster", rs.SCAN_RASTER), ("rt_brute", brute.RT_BRUTE)):
         kernels[name]["launches"] = sum(plain_path_launches[k.symbol].values())

@@ -25,6 +25,7 @@ import os
 import subprocess
 import threading
 import time
+import weakref
 
 import torch
 
@@ -138,15 +139,35 @@ class CudaKernel:
     the first launch. Each launch passes PyTorch's current stream of the
     device, looked up anew every time (through ``torch.accelerator``, the
     cheapest public route to its handle), raises if the function returns
-    an error, and adds one to ``launches``."""
+    an error, and adds one to ``launches``.
+
+    A captured frame program (``runtime/program.py``) does not call the
+    function at a replay: it adds its capture's launches with ``count``,
+    and those inside a conditional node's body through a tally on the
+    device (``add_tally``), which reading or setting ``launches`` adds in
+    (a device read: it waits for the card)."""
 
     def __init__(self, library: CudaLibrary, symbol: str, argtypes: list):
         self.library = library
         self.symbol = symbol
         self.argtypes = [*argtypes, ctypes.c_void_p]
-        self.launches = 0
+        self._launches = 0
         self._fn = None
         library.kernels.append(self)
+
+    @property
+    def launches(self) -> int:
+        settle_tallies()
+        return self._launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        settle_tallies()
+        self._launches = n
+
+    def count(self, n: int) -> None:
+        """Add ``n`` launches made without a call of the function (a replay)."""
+        self._launches += n
 
     def load(self):
         if self._fn is None:
@@ -157,7 +178,53 @@ class CudaKernel:
         rc = (self._fn or self.load())(*args, torch.accelerator.current_stream(device_index).native_handle)
         if rc:
             raise RuntimeError(f"{self.symbol} failed: cudaError {rc}")
-        self.launches += 1
+        self._launches += 1
+
+
+def all_kernels() -> list:
+    """Every CudaKernel of every library made so far."""
+    return [k for lib in LIBRARIES.values() for k in lib.kernels]
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches counted on the host so far (no device read)."""
+    return {k: k._launches for k in all_kernels()}
+
+
+# (a weak reference to a (1,) int64 tally on the device, {kernel: launches
+# per run}): the conditional bodies of captured programs, each tally the
+# runs of its body (the program holds the tally); _RETIRED holds the
+# tallies of dropped programs until they are read
+_TALLIES: list = []
+_RETIRED: list = []
+
+
+def add_tally(tally: torch.Tensor, per_run: dict) -> None:
+    """Count ``per_run`` launches of each kernel per run of a conditional
+    body; ``tally`` (zeroed) is the body's run count, added to on the
+    device."""
+    _TALLIES.append((weakref.ref(tally), per_run))
+
+
+def retire_tallies(tallies) -> None:
+    """Keep ``tallies`` (of a dropped program) until the next read."""
+    _RETIRED.extend(tallies)
+
+
+def settle_tallies() -> None:
+    """Add the runs counted on the device to ``launches`` and zero the
+    tallies (a device read); forget those no program holds."""
+    if not _TALLIES and not _RETIRED:
+        return
+    retired = {id(t) for t, _ in _RETIRED}
+    _TALLIES[:] = [(r, p) for r, p in _TALLIES if r() is not None and id(r()) not in retired]
+    for tally, per_run in [(r(), p) for r, p in _TALLIES] + _RETIRED:
+        runs = int(tally.sum())
+        if runs:
+            tally.zero_()
+            for kernel, n in per_run.items():
+                kernel._launches += runs * n
+    _RETIRED.clear()
 
 
 def check_inputs(kernel: str, *specs) -> int:

@@ -18,19 +18,23 @@ The Renderer's light-cast pattern is static (``runtime.frame.light_casts``),
 so which slot holds which kind of light is known on the host: a slot
 without a light is a fill of 1.0 and costs no work. Whether a slot renders
 this frame (the cache's choice) is a device tensor and is never read on
-the host: an unselected slot culls against an empty set, so its raster
-walks no triangle (the scan raster's count is 0: no block), and the
-result keeps the previous depth through ``torch.where``.
+the host. Eagerly an unselected slot culls against an empty set, so its
+raster walks no triangle (the scan raster's count is 0: no block), and the
+result keeps the previous depth through ``torch.where``; in a captured
+frame program its chain is the body of a conditional node
+(``ops/control.cond``, the JAX package's ``lax.cond``) and does not run.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 from renderer_tpu_torch.mathx.camera import look_at, matmul4, orthographic, perspective
+from renderer_tpu_torch.ops.control import cond
 from renderer_tpu_torch.ops.geometry import clip_rows, coarse_cull, expand_clip_only
 from renderer_tpu_torch.ops.raster_cuda import rasterize_cuda
 from renderer_tpu_torch.ops.raster_scan import rasterize_scan
@@ -413,15 +417,8 @@ def render_shadow_atlas_per_light(scene, light_mats, model, lod, slots: tuple, s
     def ones(h):
         return torch.ones((h, s), dtype=torch.float32, device=dev)
 
-    out = []
-    for slot, light in enumerate(slots):
-        if light is None:
-            out.append(ones(s))
-            continue
-        li, directional = light
-        prev = None if atlas_prev is None else atlas_prev[slot]
-        row = None if selected is None else selected[slot]
-        on = None if row is None else (row.any() if progressive > 1 else row)
+    def render_slot(li, directional, on, row, prev):
+        """The slot's depth (S, S): its views' cull, expansion and raster."""
         if directional:
             if scene_min is not None:
                 center, radius = _scene_sphere(scene_min, scene_max)
@@ -436,15 +433,25 @@ def render_shadow_atlas_per_light(scene, light_mats, model, lod, slots: tuple, s
                 band = torch.argmax(row.to(torch.int32))
                 depth = render_view(band_matrix(m, band, progressive), on, s, bh, lod_pick)
                 rows = band * bh + torch.arange(bh, device=dev)
-                fresh = prev.index_copy(0, rows, depth)
-            else:
-                fresh = render_view(m, on, s, s, lod_pick)
-        else:
-            lod_l = lod_by_distance(scene, model, scene.lights.position[li], bias=bias)
-            grid = [torch.cat([render_view(light_mats[li, 2 * r + c], on, fw, fh, lod_l)
-                               for c in range(2)], dim=1) for r in range(3)]
-            fresh = torch.cat(grid + [ones(s - 3 * fh)], dim=0)
-        out.append(fresh if on is None else torch.where(on, fresh, prev))
+                return prev.index_copy(0, rows, depth)
+            return render_view(m, on, s, s, lod_pick)
+        lod_l = lod_by_distance(scene, model, scene.lights.position[li], bias=bias)
+        grid = [torch.cat([render_view(light_mats[li, 2 * r + c], on, fw, fh, lod_l)
+                           for c in range(2)], dim=1) for r in range(3)]
+        return torch.cat(grid + [ones(s - 3 * fh)], dim=0)
+
+    out = []
+    for slot, light in enumerate(slots):
+        if light is None:
+            out.append(ones(s))
+            continue
+        prev = None if atlas_prev is None else atlas_prev[slot]
+        row = None if selected is None else selected[slot]
+        on = None if row is None else (row.any() if progressive > 1 else row)
+        fresh = functools.partial(render_slot, *light, on, row, prev)
+        # lax.cond's counterpart: an unselected slot skips its chain under a
+        # captured frame program with conditional nodes (ops/control.py)
+        out.append(fresh() if on is None else cond(on, fresh, prev))
     return torch.stack(out)
 
 

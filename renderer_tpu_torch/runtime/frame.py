@@ -33,6 +33,18 @@
   frame's, so checkpoints hold the single-shard layout. ``render``
   returns shard 0's outputs, the image gathered, with ``vis`` joined over
   the shards' rows; ``shard_outputs`` keeps each shard's.
+- One program per plan, as the JAX Renderer jits one program per switch
+  set and donates the state to it: on a CUDA device ``render`` replays a
+  captured CUDA graph of the plan (``runtime/program.py``), one per switch
+  set and shapes of the scene and camera, captured at its first frame
+  (``stats["compiles"]`` counts the captures). The persistent state then
+  lives in fixed buffers that every program reads and overwrites in place:
+  ``state`` returns them, and assigning it copies into them.
+  ``Renderer(..., replay=False)`` gives the eager frame (the counterpart of
+  ``jax.disable_jit``), which chip_smoke and the tests compare against;
+  ``replay=True`` on the CPU runs the programs' static buffers without a
+  capture. The split frame, ``pass_timings`` and the HUD's overlay pass
+  (after the replay) stay eager.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from renderer_tpu_torch.mathx.camera import Camera
 from renderer_tpu_torch.ops.raster_cuda import VisibilityBuffer
 from renderer_tpu_torch.parallel.sharding import Mesh, run_shards
 from renderer_tpu_torch.passes.pipeline import PipelineConfig, build_forward_plan, initial_state
+from renderer_tpu_torch.runtime.program import FrameProgram, donate, same_layout, tree_key
 from renderer_tpu_torch.scene.types import Scene
 from renderer_tpu_torch.utils import tree
 from renderer_tpu_torch.utils.compile_cache import enable_persistent_cache
@@ -114,7 +127,8 @@ def to_device(x, device, copy: bool = False):
 
 class Renderer:
     def __init__(self, scene: Scene, cfg: Optional[PipelineConfig] = None,
-                 outputs=("image", "vis"), device=None, spmd_mesh: Optional[Mesh] = None):
+                 outputs=("image", "vis"), device=None, spmd_mesh: Optional[Mesh] = None,
+                 replay: Optional[bool] = None):
         enable_persistent_cache()
         self.cfg = cfg or PipelineConfig()
         self.spmd_mesh = spmd_mesh
@@ -141,30 +155,46 @@ class Renderer:
         # reloader swaps it and clears the plans
         self.plan_builder = build_forward_plan
         self._plans = {}
+        # one program per plan and shapes (None: replayed on a CUDA device);
+        # never under the split frame
+        if replay is None:
+            replay = self.device.type == "cuda"
+        self.replay = bool(replay) and spmd_mesh is None
+        self._programs = {}
+        self._program_scene = (None, None)  # (scene, its tree_key)
+        self._times = {}  # device -> the animation clock of eager frames
         self.scene = scene
         if spmd_mesh is None:
+            self._state = None
             self.state = initial_state(self.cfg, self.device)
         else:
             self.shard_states = [initial_state(self.cfg, d) for d in spmd_mesh.devices]
             self.shard_outputs = None
-        self.stats = {"frames": 0, "last_ms": 0.0}
+        self.stats = {"frames": 0, "last_ms": 0.0, "compiles": 0}
 
     @property
     def state(self) -> dict:
-        """The persistent resources. Under the split frame the whole
-        frame's: ``vis`` joined over the shards' rows on ``device``, the
-        replicated entries as shard 0 holds them."""
+        """The persistent resources. Replayed, the buffers the programs
+        read and overwrite (a frame changes them in place). Under the split
+        frame the whole frame's: ``vis`` joined over the shards' rows on
+        ``device``, the replicated entries as shard 0 holds them."""
         if self.spmd_mesh is None:
-            return self._state
+            return dict(self._state) if self.replay else self._state
         return {**self.shard_states[0], "vis": self._join_rows(
             [st["vis"] for st in self.shard_states])}
 
     @state.setter
     def state(self, state: dict) -> None:
-        """Under the split frame, ``vis`` is cut into the shards' rows and
-        every other entry copied to each shard's device."""
+        """Replayed, the state is copied into the programs' buffers (a
+        state of another layout takes their place, and the programs are
+        captured anew). Under the split frame, ``vis`` is cut into the
+        shards' rows and every other entry copied to each shard's device."""
         if self.spmd_mesh is None:
-            self._state = state
+            if self.replay and self._state is not None and same_layout(self._state, state):
+                donate(self._state, state)
+            else:
+                self.drop_plans(programs_only=True)
+                self._state = dict(state) if self.replay else state
             return
         n = len(self.spmd_mesh)
         self.shard_states = [
@@ -190,6 +220,21 @@ class Renderer:
         pending)."""
         self.config = dataclasses.replace(self._pending_config)
 
+    def drop_plans(self, programs_only: bool = False) -> None:
+        """Forget the captured programs (their graphs hold the kernels'
+        functions and the state's buffers) and, unless ``programs_only``,
+        the plans (after ``plan_builder`` changed)."""
+        for program in self._programs.values():
+            program.close()
+        self._programs.clear()
+        if not programs_only:
+            self._plans.clear()
+
+    @property
+    def programs(self) -> dict:
+        """The frame programs made so far, by (switch set, shapes)."""
+        return dict(self._programs)
+
     @property
     def passes(self) -> list:
         """The plan of the active switch set, built on first use."""
@@ -202,8 +247,12 @@ class Renderer:
     def _external(self, camera: Camera, time_s: float = 0.0, overlay=None, device=None) -> dict:
         device = device or self.device
         camera = Camera(*(t.to(device) for t in camera))
-        t = (torch.full((), float(time_s), dtype=torch.float32, device=device)
-             if self.cfg.skinning else None)
+        t = None
+        if self.cfg.skinning:  # a fill of a kept scalar: no tensor made of a host float
+            t = self._times.get(device)
+            if t is None:
+                t = self._times[device] = torch.empty((), dtype=torch.float32, device=device)
+            t.fill_(float(time_s))
         scene = self.scene if self.scene.lights.count.device == device else self._scene_on(device)
         return {"scene": scene, "camera": camera, "time": t, "overlay": overlay}
 
@@ -220,6 +269,8 @@ class Renderer:
         """One frame of the active plan, on one device or split over the
         mesh; with ``commit`` its state becomes the renderer's."""
         passes = self.passes
+        if self.replay and wrap is None and commit:
+            return self._program(passes, frame["camera"]).run(self.scene, **frame)
         kw = {} if wrap is None else {"wrap": wrap}
         if self.spmd_mesh is None:
             outputs, state = execute_plan(passes, self.outputs, self.state,
@@ -238,6 +289,23 @@ class Renderer:
         if "vis" in outputs:
             outputs["vis"] = self._join_rows([o["vis"] for o in self.shard_outputs])
         return outputs
+
+    def _program(self, passes, camera) -> FrameProgram:
+        """The program of the active switch set for the scene's and the
+        camera's shapes, made on first use; a capture counts as a compile."""
+        scene, key = self._program_scene
+        if scene is not self.scene:
+            key = tree_key(self.scene)
+            self._program_scene = (self.scene, key)
+        key = (tuple(sorted(vars(self.config).items())), key, tree_key(camera))
+        program = self._programs.get(key)
+        if program is None:
+            program = self._programs[key] = FrameProgram(
+                passes, self.outputs, self._state, self.scene, camera, self.device,
+                self.cfg.skinning, execute_plan)
+        if program.graph is None and self.device.type == "cuda":
+            self.stats["compiles"] += 1  # this frame captures it
+        return program
 
     def render(self, camera: Camera, scene: Optional[Scene] = None, time_s: float = 0.0,
                overlay=None) -> dict:

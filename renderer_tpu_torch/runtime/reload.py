@@ -124,7 +124,7 @@ class KernelReloader:
         for k in changed:
             self._mtimes[k] = self._mtime(k)
         r.plan_builder = builder
-        r._plans.clear()
+        r.drop_plans()  # the plans and the programs captured from them
         self.stats["reloads"] += 1
         self.last_error = None
         return True

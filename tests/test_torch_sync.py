@@ -1,10 +1,11 @@
-"""The frame makes no blocking host-device synchronization: after warm-up,
-the base, rt, shadowed exact and shadowed checkerboard+fix frames, the
+"""The frame makes no blocking host-device synchronization: after warm-up
+(each switch set's first frame captures its program), the replayed
+base, rt, shadowed exact and shadowed checkerboard+fix frames, the
 occlusion-culled, frozen, debug-AABB and cluster-culled ones, and the
 skinned (pose pass and per-corner cull), quarter-rate, SSAA, Lambert,
 reference-view and HUD ones, the plain configuration's frames
-(``tile_raster=False``: the scan rasterizer, brute-force rt),
-``render_forward`` and the split frame over two shards of the card
+(``tile_raster=False``: the scan rasterizer, brute-force rt), a few of
+them eagerly (``Renderer(replay=False)``), ``render_forward`` and the split frame over two shards of the card
 (base, checkerboard+fix, shadowed checkerboard+fix, rt) render, and the scene streamer's pumps and
 the projectile step run, under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
 operation that waits for the card (a blocking copy between host and card,
@@ -60,16 +61,34 @@ FRAMES = {  # name -> (config changes, switches)
 }
 
 
+# frames also rendered eagerly (Renderer(replay=False)); FRAMES are replayed
+EAGER_FRAMES = ("base", "hud", "shadowed_checkerboard_fix", "shadowed_progressive", "rt",
+                "plain_rt")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(FRAMES))
 def test_frame_makes_no_blocking_sync(name):
+    """The frames after each switch set's first (its capture) are replays."""
+    r = _frames_without_sync(name, replay=True)
+    assert r.stats["compiles"] >= 1 and all(p.graph is not None for p in r.programs.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", EAGER_FRAMES)
+def test_eager_frame_makes_no_blocking_sync(name):
+    r = _frames_without_sync(name, replay=False)
+    assert r.stats["compiles"] == 0 and not r.programs
+
+
+def _frames_without_sync(name: str, replay: bool) -> Renderer:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     changes, switches = FRAMES[name]
     aspect = CFG.width / CFG.height
     r = Renderer(sponza_like_scene(256, device=dev), dataclasses.replace(CFG, **changes),
-                 device=dev)
+                 device=dev, replay=replay)
     def frame(k):
         overlay = hud_overlay(f"frame {k}\nHUD 1.25 ms", CFG.width) if "hud" in switches else None
         return r.render(orbit_camera(0.3 + 0.01 * k, aspect, dev), time_s=k / 60.0,
@@ -89,6 +108,7 @@ def test_frame_makes_no_blocking_sync(name):
         torch.cuda.set_sync_debug_mode("default")
     img = out["image"]
     assert img.shape == (CFG.height, CFG.width, 3) and bool(torch.isfinite(img).all())
+    return r
 
 
 @pytest.mark.gpu
