@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --split-cards 2 4
 
 Run from the root of the repository, on a machine with a CUDA device, the
 CUDA toolkit (nvcc) and g++. It imports neither jax nor the JAX package
@@ -183,19 +184,33 @@ code is non-zero:
 38. kernel 6, the count-bounded brute-force rt (csrc/rt_brute.cu), against
     its plain version at phase 36's mixed rt soup, rt_scale 2 and 1, at
     counts 0, 129 and the frame's (identical planes), timed beside its
-    bound (the pairs the early exit leaves);
+    bound (the pairs the early exit leaves); kernels 5 and 6 are timed per
+    call inside a captured graph of 100 calls (the kernels line's ms), by
+    CUDA events around single calls and by the profiler; at the main
+    path's soup also by a graph of one call, and under the profiler in a
+    replay of the graph of 100 and over 100 eager calls (device events
+    seen, their mean, first start to last end);
 39. bench_torch.py in a subprocess: exit 0, its last line one JSON object
     with bench.result_line's keys and a _gpu metric, printed;
 40. the split frame (renderer_tpu_torch/parallel) over make_mesh([card] * 2),
     two shards of 1920x544 rows on the one card, in bench.py's base exact,
-    base checkerboard+fix, shadowed static checkerboard+fix and rt tiers:
-    per tier the gathered frame against the single-shard frame (covered
-    mask equal, max abs difference <= 2e-6, the JAX package's gate; and
-    whether tri_id is equal too), ms/frame of both over the same frames,
-    both under sync-debug "error", device busy and idle of each over 3
-    traced frames, the launches of each path
-    counted from 0 (the split path twice the single one's: each shard
-    rasterizes its rows and makes the atlas whole); kernel 1 at shard 1's
+    base checkerboard+fix, shadowed static checkerboard+fix and rt tiers,
+    each through four Renderers: the eager single and split frames
+    (replay=False) and the replayed ones (the default: a captured graph
+    per shard and stretch between collectives for the split frame). Per
+    tier: the replayed split frame against the eager split frame (outputs
+    and state) and the replayed single frame (image and visibility
+    buffer) bit for bit over 3 frames, the first its capture; the eager
+    split frame against the eager single one (covered mask equal, max abs
+    difference <= 2e-6, the JAX package's gate; and whether tri_id is
+    equal too); ms/frame of the four in turns (3 frames a turn eager, 10
+    replayed), each under sync-debug "error"; device busy of each over 2
+    traced frames (per card) and idle against its untraced ms (the busiest
+    card's); the replayed split
+    program's capture seconds, pool and graph replays per frame; the
+    launches per frame of each path, counted from 0 (each split path's
+    twice its single path's: each shard rasterizes its rows and makes the
+    atlas whole); kernel 1 at shard 1's
     rows (y0 = 544) of the gathered soup (its valid mask segmented by
     shard) and of the same soup in the cull's order (the frame's), and
     kernel 2 at shard 1's receivers, against their plain versions bit for
@@ -225,8 +240,13 @@ never). Then a line of each path kernel's launches per path, each
 phase's host seconds, the run's total seconds, one JSON
 line listing every kernel, the card's name and power limit, and, last,
 the JSON result line.
+
+With ``--split-cards N [N ...]`` the script runs phases 1 and 2 and then
+phase 40 only, once for each N over ``make_mesh`` of the first N cards
+(one shard per card, its line ``[split_<N>_cards]``), and needs N cards.
 """
 
+import argparse
 import bisect
 import ctypes
 import dataclasses
@@ -366,6 +386,8 @@ BENCH_KEYS = (
     "shadow_updates_per_frame", "shadow_progressive_bands", "shadow_caster_capacity")
 BENCH_GOLDEN_KEY = "psnr_vs_golden_db"
 # phase 40: the split frame over two shards of the card, in bench.py's tiers
+GRAPH_CALLS = 100  # calls per captured graph (graph_ms_per_call: kernels 5 and 6)
+GRAPH_CALL_REPLAYS = 10  # replays of it timed
 SPLIT_SHARDS = 2
 SPLIT_TIERS = {  # name -> (config changes, switches)
     "base_exact": ({}, {}),
@@ -373,8 +395,10 @@ SPLIT_TIERS = {  # name -> (config changes, switches)
     "shadowed_static_checkerboard_fix": (dict(shade_rate="checkerboard"), dict(shadows=True)),
     "rt": ({}, dict(rt=True)),
 }
-SPLIT_FRAMES = 10  # timed frames per tier and path
-SPLIT_PROFILE_FRAMES = 3  # frames per traced window
+SPLIT_FRAMES = 10  # timed replayed frames per tier, path and turn
+SPLIT_EAGER_FRAMES = 3  # timed eager frames per tier, path and turn
+SPLIT_CHECK_FRAMES = 3  # lockstep frames, the replayed split against the eager split and single
+SPLIT_PROFILE_FRAMES = 2  # frames per traced window
 SPLIT_ATOL = 2e-6  # split against single-shard image (tests/test_parallel.py's gate)
 # phase 39: bench_torch's base exact tier in a fresh process, before and
 # after one traced window of torch.profiler (host and device activity)
@@ -464,6 +488,71 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def captured(fn, calls: int):
+    """A CUDA graph of ``calls`` calls of fn, after one warm-up; the calls'
+    launches are not counted as launches."""
+    fn()
+    before = {k: k.launches for k in KERNELS}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=control.own_stream(torch.cuda.current_device(),
+                                                           "timing")):
+        for _ in range(calls):
+            fn()
+    for k, n in before.items():
+        k.launches = n
+    return graph
+
+
+def graph_ms_per_call(fn, calls: int = GRAPH_CALLS, replays: int = GRAPH_CALL_REPLAYS) -> float:
+    """Device ms per call of fn: CUDA events around ``replays`` replays of
+    one captured CUDA graph of ``calls`` calls, over their count. No
+    wrapper's host path lies in it (a replay calls none), unlike
+    ``cuda_ms``."""
+    graph = captured(fn, calls)
+    ms = cuda_ms(graph.replay, replays) / calls
+    graph.reset()
+    return ms
+
+
+def device_events(run, calls: int) -> tuple:
+    """The device events (kernels, memsets, copies) of run() under
+    torch.profiler: their number, mean ms, and the span from the first
+    one's start to the last one's end over ``calls``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    if not events:
+        return 0, math.nan, math.nan
+    span = max(e.end_ns() for e in events) - min(e.start_ns() for e in events)
+    return (len(events), sum(e.duration_ns() for e in events) / len(events) / 1e6,
+            span / 1e6 / calls)
+
+
+def call_readings(fn, calls: int = GRAPH_CALLS) -> str:
+    """What sets fn's time a call (phases 37-38): a graph of one call
+    replayed ``calls`` times (CUDA events, ms a replay), and under
+    torch.profiler one replay of a graph of ``calls`` calls and ``calls``
+    eager calls, each as ``device_events`` reads it."""
+    graph = captured(fn, calls)
+    in_replay = device_events(graph.replay, calls)
+    graph.reset()
+    one = captured(fn, 1)
+    one_ms = cuda_ms(one.replay, calls)
+    one.reset()
+    eager = device_events(lambda: [fn() for _ in range(calls)], calls)
+    return (f"a graph of 1 call {one_ms:.5f} ms a replay; profiled, one replay of a graph of "
+            f"{calls} calls: {in_replay[0]} device events, {in_replay[1]:.5f} ms each, first "
+            f"start to last end {in_replay[2]:.5f} ms a call; {calls} eager calls: "
+            f"{eager[0]} device events, {eager[1]:.5f} ms each, first start to last end "
+            f"{eager[2]:.5f} ms a call")
 
 
 def host_us_per_call(fn, calls: int = LAUNCH_CALLS) -> float:
@@ -687,14 +776,14 @@ def traced_window(renderer, dev, activities, cam_at=bench_camera, frames: int = 
     from torch.profiler import profile
 
     with profile(activities=activities) as prof:
-        torch.cuda.synchronize()
+        synchronize_cards()
         t0 = time.perf_counter()
         for k in range(frames):
             if eager:
                 renderer._run(commit=False, camera=cam_at(k, dev), time_s=0.0, overlay=None)
             else:
                 renderer.render(cam_at(k, dev))
-        torch.cuda.synchronize()
+        synchronize_cards()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
     return prof, wall_ms
 
@@ -707,6 +796,18 @@ def traced_busy(prof, frames: int) -> tuple:
     device_ops = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and not e.key.startswith("forward.")]
     return device_ops, sum(e.self_device_time_total for e in device_ops) / 1e3 / frames
+
+
+def busy_by_card(prof, frames: int) -> dict:
+    """A traced window's device busy ms per frame on each card (device
+    index -> ms), the ``forward.`` ranges left out."""
+    from torch.autograd import DeviceType
+
+    busy = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("forward."):
+            busy[e.device_index] = busy.get(e.device_index, 0.0) + e.time_range.elapsed_us()
+    return {i: us / 1e3 / frames for i, us in sorted(busy.items())}
 
 
 def pass_device_ms(events, n_frames: int):
@@ -2340,20 +2441,25 @@ def scan_raster_phase(dev, card) -> dict:
             lambda: rs.scan_raster_kernel(inp, count, w, h, tb, with_bary), 20).values()) / 1e3
         u_dev = sum(device_us_by_kernel(
             lambda: rs.scan_raster_kernel(inp, None, w, h, tb, with_bary), 5).values()) / 1e3
+        k_graph = graph_ms_per_call(lambda: rs.scan_raster_kernel(inp, count, w, h, tb, with_bary))
         b_ms, b_by, walked, pairs = scan_bound(inp, count, w, h, tb)
         lines.append(f"{label}: count {int(count)}, {walked} triangles walked of "
-                     f"{clip.shape[0]}, {pairs} pixel pairs; kernel by events / device "
-                     f"{k_ms:.4f} / {k_dev:.4f} ms (unbounded walk {u_ms:.4f} / {u_dev:.4f}), "
-                     f"plain {p_ms:.1f} ms, bound {b_ms:.5f} ms by {b_by} = "
+                     f"{clip.shape[0]}, {pairs} pixel pairs; kernel in a graph of {GRAPH_CALLS} "
+                     f"calls {k_graph:.5f} ms a call, by events / device {k_ms:.4f} / "
+                     f"{k_dev:.4f} ms (unbounded walk {u_ms:.4f} / {u_dev:.4f}), plain "
+                     f"{p_ms:.1f} ms, bound {b_ms:.5f} ms by {b_by} = "
+                     f"{100 * b_ms / k_graph:.1f}% of the graph's time a call, "
                      f"{100 * b_ms / k_ms:.1f}% of the events' time, "
                      + (f"{100 * b_ms / k_dev:.1f}% of the device time" if k_dev > 0 else
                         "the device time not measured (the profiler saw no device event)"))
         if entry is None:  # the plain frame's camera soup: the main path's call
+            lines.append("its time a call read otherwise: " + call_readings(
+                lambda: rs.scan_raster_kernel(inp, count, w, h, tb, with_bary)))
             entry = dict(name="scan_raster", route="cuda",
                          source="renderer_tpu_torch/csrc/scan_raster.cu",
                          replaces="renderer_tpu/ops/raster_jax.py:183", launches=None,
-                         max_abs_err=0.0, ms=k_dev, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None)
+                         max_abs_err=0.0, ms=k_graph, plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
     phase("scan_raster", f"kernel 5 against its plain version, identical depth, tri_id and "
                          f"barycentrics: {len(CASES)} raster cases x cull on/off x counts "
                          f"{list(SCAN_COUNTS)} and capacity x bary on/off ({worst_cases} calls); "
@@ -2395,21 +2501,27 @@ def rt_brute_phase(dev, card) -> dict:
                     .values()) / 1e3
         u_dev = sum(device_us_by_kernel(lambda: brute.rt_brute_kernel(inp, None), 5)
                     .values()) / 1e3
+        k_graph = graph_ms_per_call(lambda: brute.rt_brute_kernel(inp, count))
         b_ms, b_by, walked, pairs, n_ops = brute_bound(inp, count)
         lines.append(f"rt_scale {s}: {inp.origin.shape[1]} receivers, count {int(count)}, "
                      f"{walked} triangles walked of {tri.shape[0]}, {pairs} pairs left by the "
                      f"early exit ({n_ops} FP32 operations as far as each test needs), "
-                     f"{100 * float((got == 0).float().mean()):.1f}% occluded; kernel "
-                     f"by events / device {k_ms:.4f} / {k_dev:.4f} ms (unbounded walk "
-                     f"{u_ms:.4f} / {u_dev:.4f}), plain {p_ms:.1f} ms, bound {b_ms:.5f} ms by "
-                     f"{b_by} = {100 * b_ms / k_ms:.1f}% of the events' time, "
+                     f"{100 * float((got == 0).float().mean()):.1f}% occluded; kernel in a "
+                     f"graph of {GRAPH_CALLS} calls {k_graph:.5f} ms a call, by events / device "
+                     f"{k_ms:.4f} / {k_dev:.4f} ms (unbounded walk {u_ms:.4f} / {u_dev:.4f}), "
+                     f"plain {p_ms:.1f} ms, bound {b_ms:.5f} ms by {b_by} = "
+                     f"{100 * b_ms / k_graph:.1f}% of the graph's time a call, "
+                     f"{100 * b_ms / k_ms:.1f}% of the events' time, "
                      + (f"{100 * b_ms / k_dev:.1f}% of the device time" if k_dev > 0 else
                         "the device time not measured (the profiler saw no device event)"))
         if entry is None:
+            lines.append("its time a call read otherwise: " + call_readings(
+                lambda: brute.rt_brute_kernel(inp, count)))
             entry = dict(name="rt_brute", route="cuda",
                          source="renderer_tpu_torch/csrc/rt_brute.cu",
                          replaces="renderer_tpu/ops/rt.py:99", launches=None, max_abs_err=0.0,
-                         ms=k_dev, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                         ms=k_graph, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
     phase("rt_brute", f"kernel 6 against its plain version on {BRUTE_SCENE}'s rt soup at "
                       f"{DEMO_SIZE}x{DEMO_SIZE}, counts {list(BRUTE_COUNTS)} and the frame's: "
                       "identical planes, count 0 all lit, the frame's own call equal; "
@@ -2475,63 +2587,51 @@ def bench_phase(tier_ms: dict, scene, cfg, dev, card) -> None:
                    f"its line: {out[-1]}")
 
 
-def split_phase(scene, cfg, path_launches, kernels, dev, card) -> None:
+def split_phase(scene, cfg, path_launches, kernels, dev, card, devices=None) -> None:
     """Phase 40: the split frame over two shards of the card (the module
-    docstring). Its raster and occlusion launches join the kernels line's."""
+    docstring), or one shard per device of ``devices``, eager and replayed,
+    beside the single frame on ``dev``. The replayed split path's raster
+    and occlusion launches join the kernels line's."""
     from torch.profiler import ProfilerActivity
 
     from renderer_tpu_torch.parallel import make_mesh
 
-    mesh = make_mesh([dev] * SPLIT_SHARDS)
-    rows = HEIGHT // SPLIT_SHARDS
+    devices = [torch.device(d) for d in devices or [dev] * SPLIT_SHARDS]
+    mesh, shards = make_mesh(devices), len(devices)
+    rows = HEIGHT // shards
+    card1 = devices[1]  # kernels 1 and 2 are held to their plain versions at shard 1's work
     outputs = ("image", "vis", "soup")
     cam = bench_camera(0, dev)
     lines, checks = [], []
     for name, (changes, switches) in SPLIT_TIERS.items():
         tcfg = dataclasses.replace(cfg, **changes)
-        one = Renderer(scene, tcfg, outputs=outputs, device=dev, replay=False)  # eager, as split
-        split = Renderer(scene, dataclasses.replace(tcfg, spmd_devices=SPLIT_SHARDS),
-                         outputs=outputs, spmd_mesh=mesh)
-        for r in (one, split):
+        scfg = dataclasses.replace(tcfg, spmd_devices=shards)
+        paths = {"eager single": Renderer(scene, tcfg, outputs=outputs, device=dev, replay=False),
+                 "eager split": Renderer(scene, scfg, outputs=outputs, spmd_mesh=mesh,
+                                         replay=False),
+                 "replayed single": Renderer(scene, tcfg, outputs=outputs, device=dev),
+                 "replayed split": Renderer(scene, scfg, outputs=outputs, spmd_mesh=mesh)}
+        one, split, rone, rsplit = paths.values()
+        if one.replay or split.replay or not (rone.replay and rsplit.replay):
+            raise AssertionError("split: the default Renderer must replay on the card, split too")
+        for r in paths.values():
             r.set_config(**switches)
             r.apply_config_now()
-            r.render(cam)  # warm-up: plans, fonts, the atlas cache
-        ms, launched = {}, {}
-        for label, r in (("single", one), ("split", split)):
-            for kernel in KERNELS:
-                kernel.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with no_blocking_sync(True):
-                for k in range(SPLIT_FRAMES):
-                    r.render(bench_camera(k, dev))
-            torch.cuda.synchronize()
-            ms[label] = (time.perf_counter() - t0) * 1e3 / SPLIT_FRAMES
-            launched[label] = {kn.symbol: kn.launches for kn in KERNELS}
-        want = {k: SPLIT_SHARDS * v for k, v in launched["single"].items()}
-        if launched["split"] != want or not launched["split"][rc.RASTER_TILES.symbol] or (
-                switches.get("rt") and not launched["split"][oc.OCCLUSION_TILES.symbol]):
-            raise AssertionError(f"split {name}: launches {launched['split']}, want {want} "
-                                 f"(the single-shard path's {launched['single']} per shard)")
-        path_launches[f"split_{name}"] = launched["split"][rc.RASTER_TILES.symbol]
-        kernels["occlusion_tiles"]["launches"] += launched["split"][oc.OCCLUSION_TILES.symbol]
-        calls, gathered = [], []
-        record, order = trt.occlusion_grid, geometry.draw_order
-
-        def occlusion_grid(*args):  # kernel 2's inputs, by the shard that traced them
-            calls.append((threading.current_thread().name, args))
-            return record(*args)
-
-        def draw_order(soup, n):  # the gathered soup, before it is put in the cull's order
-            gathered.append(soup)
-            return order(soup, n)
-
-        trt.occlusion_grid, geometry.draw_order = occlusion_grid, draw_order
-        try:
-            a, b = one.render(cam), split.render(cam)
-            shard_vis = split.shard_outputs[1]["vis"]
-        finally:
-            trt.occlusion_grid, geometry.draw_order = record, order
+        # lockstep; frame 0 is the replayed paths' eager frame and capture
+        for k in range(SPLIT_CHECK_FRAMES):
+            out = {label: r.render(bench_camera(k, dev)) for label, r in paths.items()}
+            got = out["replayed split"]
+            differs = [what for what, ok in (
+                ("eager split's outputs", nan_equal(got, out["eager split"])),
+                ("eager split's state", nan_equal(rsplit.state, split.state)),
+                ("replayed single's image and vis", nan_equal(
+                    (got["image"], got["vis"]),
+                    (out["replayed single"]["image"], out["replayed single"]["vis"]))))
+                if not ok]
+            if differs:
+                raise AssertionError(f"split {name}: frame {k}: the replayed split frame differs "
+                                     f"from the {', '.join(differs)}")
+        a, b = out["eager single"], out["eager split"]
         same_cover = torch.equal(a["vis"].tri_id >= 0, b["vis"].tri_id >= 0)
         same_ids = torch.equal(a["vis"].tri_id, b["vis"].tri_id)
         err = (a["image"] - b["image"]).abs().max().item()
@@ -2540,57 +2640,125 @@ def split_phase(scene, cfg, path_launches, kernels, dev, card) -> None:
                                  f"difference {err} against the single-shard frame "
                                  f"({int((a['image'] != b['image']).any(-1).sum())} pixels "
                                  f"differ, tri_id equal {same_ids})")
-        busy = {}  # label -> (device busy ms/frame, wall ms/frame, idle %)
-        for label, r in (("single", one), ("split", split)):
-            prof, wall = traced_window(r, dev, [ProfilerActivity.CUDA],
-                                       frames=SPLIT_PROFILE_FRAMES)
-            busy_ms = traced_busy(prof, SPLIT_PROFILE_FRAMES)[1]
-            busy[label] = (busy_ms, wall, 100.0 * (1.0 - busy_ms / wall))
+        ms = {label: [] for label in paths}
+        launched = {}  # label -> launches per frame, from its first timed turn
+        turns = list(paths) + list(reversed(paths))
+        for turn, label in enumerate(turns):
+            r = paths[label]
+            frames = SPLIT_EAGER_FRAMES if label.startswith("eager") else SPLIT_FRAMES
+            first = label not in launched
+            if first:
+                for kernel in KERNELS:
+                    kernel.launches = 0
+            with no_blocking_sync(True):
+                ms[label].append(frames_ms(r, frames, lambda r, k: r.render(
+                    bench_camera(SPLIT_CHECK_FRAMES + turn * SPLIT_FRAMES + k, dev))))
+            if first:
+                counts = {kn.symbol: kn.launches for kn in KERNELS}
+                if any(n % frames for n in counts.values()):
+                    raise AssertionError(f"split {name}: {label}: launches {counts} over "
+                                         f"{frames} frames")
+                launched[label] = {k: n // frames for k, n in counts.items()}
+                if label == "replayed split":
+                    path_launches[f"split_{name}"] = counts[rc.RASTER_TILES.symbol]
+                    kernels["occlusion_tiles"]["launches"] += counts[oc.OCCLUSION_TILES.symbol]
+        for single, pair in (("eager single", "eager split"),
+                             ("replayed single", "replayed split")):
+            want = {k: shards * v for k, v in launched[single].items()}
+            if launched[pair] != want or not want[rc.RASTER_TILES.symbol] or (
+                    switches.get("rt") and not want[oc.OCCLUSION_TILES.symbol]):
+                raise AssertionError(f"split {name}: {pair} launches {launched[pair]} per frame, "
+                                     f"want {want} (the {single} path's per shard)")
+        # label -> (device busy ms/frame over a traced window, idle % of the turns' ms; per
+        # card, the busiest card's idle)
+        busy = {}
+        for label, r in paths.items():
+            prof, _ = traced_window(r, dev, [ProfilerActivity.CUDA], frames=SPLIT_PROFILE_FRAMES,
+                                    cam_at=lambda k, d: bench_camera(SPLIT_CHECK_FRAMES + k, d))
+            per_card = busy_by_card(prof, SPLIT_PROFILE_FRAMES)
+            busy[label] = (per_card, 100.0 * (1.0 - max(per_card.values())
+                                              / statistics.mean(ms[label])))
+        (program,) = rsplit.programs.values()
+        (single_program,) = rone.programs.values()
         lines.append(
-            f"{name}: covered equal, tri_id {'equal' if same_ids else 'not equal'}, max abs "
-            f"difference {err:.3g}; ms/frame over {SPLIT_FRAMES} "
-            f"frames, both under sync-debug error, single {ms['single']:.2f}, split "
-            f"{ms['split']:.2f}; "
-            + ", ".join(f"{label} busy {v[0]:.3f} ms/frame in {v[1]:.2f} = idle {v[2]:.1f}%"
-                        for label, v in busy.items())
-            + f"; launches split {json.dumps(launched['split'])}")
-        if name == "base_exact":  # kernel 1 at shard 1's rows, y0 = rows
-            seg, soup = gathered[-1], b["soup"]
-            count = int(soup.count)
-            if bool(seg.valid[:count].all()) or not bool(soup.valid[:count].all()):
-                raise AssertionError("split soup: want the gathered valid mask segmented and "
-                                     "the ordered one a prefix")
-            k1 = []
-            for label, s in (("gathered (segmented)", seg), ("ordered (the frame's)", soup)):
-                args = rc.raster_inputs(s.clip, s.valid, WIDTH, rows, y0=rows,
-                                        full_height=HEIGHT)
-                got = rc.raster_kernel(*args, False)
-                if not all(torch.equal(g, w)
-                           for g, w in zip(got, rc.raster_tiles_plain(*args, False))):
-                    raise AssertionError(f"split: kernel 1 at shard 1's rows of the {label} "
-                                         "soup differs from its plain version")
-                k1.append(f"{label} {cuda_ms(lambda: rc.raster_kernel(*args, False), 10):.4f} ms")
-            if not (torch.equal(got[0], shard_vis.depth) and torch.equal(got[1], shard_vis.tri_id)):
-                raise AssertionError("split: kernel 1 at shard 1's rows differs from the "
-                                     "shard's visibility buffer")
-            checks.append(f"kernel 1 at shard 1's rows {rows}..{HEIGHT - 1} of the gathered soup "
-                          f"({count} live of {seg.valid.numel()}, segments "
-                          f"{[int(v.sum()) for v in seg.valid.chunk(SPLIT_SHARDS)]}) and of the "
-                          "ordered one: each equal to its plain version, the ordered one to the "
-                          f"shard's buffer; kernel {', '.join(k1)}")
-        if switches.get("rt"):  # kernel 2 at shard 1's receivers
-            shard1 = [args for thread, args in calls if thread == "shard-1"]
-            if not shard1:
-                raise AssertionError("split rt: shard 1 traced no slot")
-            args = trt.occlusion_inputs(*shard1[0])
-            if not torch.equal(oc.occlusion_kernel(*args), oc.occlusion_tiles_plain(*args)):
-                raise AssertionError("split rt: kernel 2 at shard 1's receivers differs from "
-                                     "its plain version")
-            checks.append(f"kernel 2 at shard 1's receivers ({tuple(shard1[0][2].shape)} "
-                          f"grid, {len(shard1)} traced slots): equal to its plain version")
-    phase("split", f"{SPLIT_SHARDS} shards of {WIDTH}x{rows} on one card "
-                   f"(make_mesh([dev] * {SPLIT_SHARDS})), sponza_like_scene({N_INSTANCES}): "
+            f"{name}: replayed split = eager split (outputs, state) = replayed single (image, "
+            f"vis) bit for bit on {SPLIT_CHECK_FRAMES} frames; eager split against eager single:"
+            f" covered equal, tri_id {'equal' if same_ids else 'not equal'}, max abs difference "
+            f"{err:.3g}; ms/frame in turns, each under sync-debug error ({SPLIT_EAGER_FRAMES} "
+            f"eager, {SPLIT_FRAMES} replayed frames a turn): "
+            + ", ".join(f"{label} {ms[label][0]:.2f} / {ms[label][1]:.2f}" for label in paths)
+            + "; busy ms/frame (idle): "
+            + ", ".join(f"{label} " + " + ".join(f"{b:.3f}" for b in v[0].values())
+                        + (f" on cards {list(v[0])}" if len(v[0]) > 1 else "")
+                        + f" ({v[1]:.1f}%)" for label, v in busy.items())
+            + f"; replayed split: capture {program.capture_s:.2f} s, pool "
+              f"{program.pool_bytes / 2**20:.1f} MiB, {len(program.graphs)} graph replays per "
+              f"frame (replayed single: {single_program.capture_s:.2f} s, "
+              f"{single_program.pool_bytes / 2**20:.1f} MiB, {len(single_program.graphs)}); "
+              f"kernel 1 / 2 launches per frame: "
+            + ", ".join(f"{label} {v[rc.RASTER_TILES.symbol]} / {v[oc.OCCLUSION_TILES.symbol]}"
+                        for label, v in launched.items()))
+        calls, gathered = [], []
+        record, order = trt.occlusion_grid, geometry.draw_order
+
+        def occlusion_grid(*args):  # kernel 2's inputs, by the shard that traced them
+            calls.append((threading.current_thread().name, args))
+            return record(*args)
+
+        def draw_order(soup, n):  # the gathered soup, before it is put in the cull's order
+            gathered.append((threading.current_thread().name, soup))
+            return order(soup, n)
+
+        trt.occlusion_grid, geometry.draw_order = occlusion_grid, draw_order
+        try:  # eager frames: a replay calls no recorder
+            b = split.render(cam)
+            shard_vis = split.shard_outputs[1]["vis"]
+        finally:
+            trt.occlusion_grid, geometry.draw_order = record, order
+        with torch.cuda.device(card1):  # shard 1's inputs, on its card
+            if name == "base_exact":  # kernel 1 at shard 1's rows, y0 = rows
+                seg = [soup for thread, soup in gathered if thread == "shard-1"][-1]
+                soup = b["soup"]
+                count = int(soup.count)
+                if bool(seg.valid[:count].all()) or not bool(soup.valid[:count].all()):
+                    raise AssertionError("split soup: want the gathered valid mask segmented "
+                                         "and the ordered one a prefix")
+                k1 = []
+                for label, s in (("gathered (segmented)", seg), ("ordered (the frame's)", soup)):
+                    args = rc.raster_inputs(s.clip.to(card1), s.valid.to(card1), WIDTH, rows,
+                                            y0=rows, full_height=HEIGHT)
+                    got = rc.raster_kernel(*args, False)
+                    if not all(torch.equal(g, w)
+                               for g, w in zip(got, rc.raster_tiles_plain(*args, False))):
+                        raise AssertionError(f"split: kernel 1 at shard 1's rows of the "
+                                             f"{label} soup differs from its plain version")
+                    k_ms = cuda_ms(lambda: rc.raster_kernel(*args, False), 10)
+                    k1.append(f"{label} {k_ms:.4f} ms")
+                if not (torch.equal(got[0], shard_vis.depth)
+                        and torch.equal(got[1], shard_vis.tri_id)):
+                    raise AssertionError("split: kernel 1 at shard 1's rows differs from the "
+                                         "shard's visibility buffer")
+                checks.append(f"kernel 1 at shard 1's rows {rows}..{2 * rows - 1} of the "
+                              f"gathered soup ({count} live of {seg.valid.numel()}, segments "
+                              f"{[int(v.sum()) for v in seg.valid.chunk(shards)]}) and of the "
+                              "ordered one: each equal to its plain version, the ordered one to "
+                              f"the shard's buffer; kernel {', '.join(k1)}")
+            if switches.get("rt"):  # kernel 2 at shard 1's receivers
+                shard1 = [args for thread, args in calls if thread == "shard-1"]
+                if not shard1:
+                    raise AssertionError("split rt: shard 1 traced no slot")
+                args = trt.occlusion_inputs(*shard1[0])
+                if not torch.equal(oc.occlusion_kernel(*args), oc.occlusion_tiles_plain(*args)):
+                    raise AssertionError("split rt: kernel 2 at shard 1's receivers differs "
+                                         "from its plain version")
+                checks.append(f"kernel 2 at shard 1's receivers ({tuple(shard1[0][2].shape)} "
+                              f"grid, {len(shard1)} traced slots): equal to its plain version")
+    where = (f"on one card (make_mesh([dev] * {shards}))" if len(set(devices)) == 1 else
+             f"one per card (make_mesh({[str(d) for d in devices]}))")
+    phase("split" if devices == [dev] * SPLIT_SHARDS else f"split_{shards}_cards",
+          f"{shards} shards of {WIDTH}x{rows} {where}, sponza_like_scene({N_INSTANCES}): "
           + "; ".join(lines + checks) + f" ({card})")
+
 
 def nan_equal(a, b) -> bool:
     """Bit-for-bit equality of two trees of tensors, NaN equal to NaN."""
@@ -2602,14 +2770,20 @@ def nan_equal(a, b) -> bool:
         for x, y in zip(la, lb))
 
 
+def synchronize_cards() -> None:
+    """Wait for every card (a split frame may end on each)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def frames_ms(renderer, frames: int, frame) -> float:
     """Host-clock ms per frame of ``frames`` calls ``frame(renderer, k)``,
-    synchronized on both sides."""
-    torch.cuda.synchronize()
+    every card synchronized on both sides."""
+    synchronize_cards()
     t0 = time.perf_counter()
     for k in range(frames):
         frame(renderer, k)
-    torch.cuda.synchronize()
+    synchronize_cards()
     return (time.perf_counter() - t0) * 1e3 / frames
 
 
@@ -2643,7 +2817,7 @@ def graph_tier(label, make, switches, cam_at, scene_at=lambda k: None, prep=Fals
             raise AssertionError(f"graph {label}: frame {k} replayed differs from eager")
     program = next(p for key, p in replay.programs.items()
                    if dict(key[0]) == vars(replay.config))
-    if program.graph is None:
+    if not program.graphs:
         raise AssertionError(f"graph {label}: no graph captured")
     ms = {"eager": [], "replay": []}
     for name in ("eager", "replay", "replay", "eager"):
@@ -2700,7 +2874,7 @@ def shadow_pass_ms(scene, cfg, dev) -> dict:
         programs[name] = prog
     ms = {name: [] for name in programs}
     for name in ("before", "with nodes", "without nodes", "without nodes", "with nodes", "before"):
-        ms[name].append(cuda_ms(lambda: programs[name].graph.replay(), GRAPH_SHADOW_REPLAYS))
+        ms[name].append(cuda_ms(programs[name].replay, GRAPH_SHADOW_REPLAYS))
     atlas = programs["with nodes"].state["shadow_cache"][0]
     if not torch.equal(atlas, programs["without nodes"].state["shadow_cache"][0]):
         raise AssertionError("shadow pass: the atlas differs with and without conditional nodes")
@@ -2763,9 +2937,17 @@ def graph_phase(scene, cfg, path_launches, dev, card) -> None:
                    f"{GRAPH_FRAMES - 1} replays) launch kernel 1 {GRAPH_FRAMES} times ({card})")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke test of the port on NVIDIA GPUs.")
+    ap.add_argument("--split-cards", type=int, nargs="+", metavar="N",
+                    help="phases 1, 2 and then only phase 40, over the first N cards for each N")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    if opts.split_cards and max(opts.split_cards) > torch.cuda.device_count():
+        print(f"chip_smoke: --split-cards {opts.split_cards} needs "
+              f"{max(opts.split_cards)} cards, {torch.cuda.device_count()} seen", file=sys.stderr)
         return 1
     t_start = _phase_clock[0] = time.perf_counter()
     dev = torch.device("cuda")
@@ -2793,6 +2975,16 @@ def main() -> int:
                    f"{time.perf_counter() - t0:.2f} s; " + "; ".join(
                        f"{name}: {lib.build_log.splitlines()[0] if lib.build_log else 'cached'}, "
                        f"{cuda_build.ptxas_summary(lib)}" for name, lib in libraries.items()))
+    if opts.split_cards:
+        scene = sponza_like_scene(N_INSTANCES, device=dev)
+        cfg = PipelineConfig(width=WIDTH, height=HEIGHT, tri_capacity=TRI_CAPACITY,
+                             enable_normal_maps=True, aa="edge", trilinear=False)
+        for n in opts.split_cards:
+            split_phase(scene, cfg, {}, {"occlusion_tiles": {"launches": 0}}, dev, card,
+                        devices=[f"cuda:{i}" for i in range(n)])
+        phase("total", f"chip_smoke --split-cards ran {time.perf_counter() - t_start:.1f} s "
+                       f"({card})")
+        return 0
 
     # 3. raster kernel vs plain on the test cases -------------------------------
     worst = 0.0

@@ -25,7 +25,7 @@ from renderer_tpu_torch.ops import cuda_build
 LIBRARY = cuda_build.library("graph_cond.cu")
 _PTR = ctypes.c_void_p
 MIN_CUDA = (12, 4)  # cudaStreamBeginCaptureToGraph and conditional nodes
-MAX_BODIES = 64  # conditional nodes per capture (one per shadow slot)
+MAX_BODIES = 64  # conditional nodes per capture and device (one per shadow slot and shard)
 # False: captures keep torch.where (chip_smoke.py measures what the nodes save)
 ENABLED = True
 
@@ -68,8 +68,9 @@ def own_stream(device, use: str) -> torch.cuda.ExternalStream:
 
 
 class Conditional:
-    """What a capture's conditional nodes share on ``device``: the stream
-    their bodies are captured on (one per device, captures never overlap),
+    """What a capture's conditional nodes share on ``device`` (the nodes of
+    every shard there, under a split frame): the stream their bodies are
+    captured on (one per device, captures never overlap),
     the memory pool of the bodies' tensors (kept as long as the program),
     and per body its tally of runs on the device with the launches it
     counts per run."""
@@ -116,14 +117,17 @@ class Conditional:
                                     if after[k] != before.get(k, 0)}))
 
 
-_ACTIVE: list = []  # the Conditional of the capture in progress, if it has one
+# the Conditionals of the capture in progress by device ({}: none); a
+# module global, so the shard threads of a split frame's capture see it
+_ACTIVE: list = []
 
 
 @contextlib.contextmanager
-def capturing(conditional):
-    """Within: ``cond`` makes conditional nodes through ``conditional``
-    (None: it keeps ``torch.where``)."""
-    _ACTIVE.append(conditional)
+def capturing(conditionals: dict):
+    """Within: ``cond`` makes conditional nodes through the Conditional of
+    its predicate's device in ``conditionals`` (none there: it keeps
+    ``torch.where``)."""
+    _ACTIVE.append(conditionals)
     try:
         yield
     finally:
@@ -133,7 +137,7 @@ def capturing(conditional):
 def cond(pred: torch.Tensor, body, prev: torch.Tensor) -> torch.Tensor:
     """``body()`` where the 0-d bool ``pred`` holds, else ``prev`` (the
     shape of both)."""
-    conditional = _ACTIVE[-1] if _ACTIVE else None
+    conditional = _ACTIVE[-1].get(pred.device) if _ACTIVE else None
     if conditional is None:
         return torch.where(pred, body(), prev)
     out = prev.clone()

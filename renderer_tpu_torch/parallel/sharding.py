@@ -24,6 +24,13 @@ device, so on one card the shards' work is ordered as the host queued it:
 what a shard wrote before a collective is read after it. A tensor handed
 to a shard on another card moves by ``Tensor.to``, which orders the copy
 after the work queued on both devices' current streams.
+
+This is how the eager split frame runs (``Renderer(..., replay=False)``)
+and how the frame program captures it once (``runtime/program.py``):
+given ``segments``, ``run_shards`` has each shard's thread end a captured
+segment before every collective and begin the next one after it, and the
+exchange keeps the values it hands over. Later frames are replays of those
+segments from the caller's thread, with no shard thread.
 """
 
 from __future__ import annotations
@@ -78,8 +85,8 @@ class _Exchange:
     puts its value of collective r and hands the turn to the next shard;
     when the turn comes back round, every shard has put its value of r."""
 
-    def __init__(self, n: int, timeout: float):
-        self.n, self.timeout = n, timeout
+    def __init__(self, n: int, timeout: float, segments=None):
+        self.n, self.timeout, self.segments = n, timeout, segments
         self.cond = threading.Condition()
         self.turn = 0
         self.rounds = []  # per collective: every shard's value, and how many have read them
@@ -117,7 +124,9 @@ class _Exchange:
         self.wait_turn(i)
         values = self.rounds[r][0]
         self.rounds[r][1] += 1
-        if self.rounds[r][1] == self.n:  # read by all: let the values go
+        if self.rounds[r][1] == self.n:  # read by all: let the values go (a capture keeps them)
+            if self.segments is not None:
+                self.segments.keep(values)
             self.rounds[r][0] = None
         return values
 
@@ -151,8 +160,22 @@ class Shard:
         return len(self.mesh)
 
     def _swap(self, value) -> list:
+        """Every shard's ``value`` of this collective; under a capture the
+        shard's segment ends before and the next one begins after."""
         self._round += 1
-        return self._exchange.swap(self.index, self._round - 1, value)
+        segments = self._exchange.segments
+        if segments is not None:
+            segments.end(self.index)
+        values = self._exchange.swap(self.index, self._round - 1, value)
+        if segments is not None:
+            segments.begin(self.index)
+        return values
+
+    def _out(self, value):
+        """A collective's result, kept by a capture."""
+        if self._exchange.segments is not None:
+            self._exchange.segments.keep(value)
+        return value
 
     def all_gather(self, x):
         """Every shard's ``x`` joined along dim 0 in shard order; ``x`` may
@@ -161,9 +184,9 @@ class Shard:
         ``_gather`` does."""
         leaves, structure = tree.flatten(x)
         parts = self._swap(leaves)
-        return tree.unflatten(structure, [
+        return self._out(tree.unflatten(structure, [
             leaf if leaf.dim() == 0 else torch.cat([p[k].to(self.device) for p in parts], dim=0)
-            for k, leaf in enumerate(leaves)])
+            for k, leaf in enumerate(leaves)]))
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every shard's ``x``, added in shard order."""
@@ -171,7 +194,7 @@ class Shard:
         total = parts[0].to(self.device)
         for p in parts[1:]:
             total = total + p.to(self.device)
-        return total
+        return self._out(total)
 
     def halo_rows(self, *arrays) -> list:
         """Per (..., H, W) array, (the row above its first, the row below
@@ -183,9 +206,9 @@ class Shard:
         own = [(a[..., :1, :], a[..., -1:, :]) for a in arrays]
         parts = self._swap(own)
         i, last = self.index, len(self.mesh) - 1
-        return [(up if i == 0 else parts[i - 1][k][1].to(self.device),
+        return self._out([(up if i == 0 else parts[i - 1][k][1].to(self.device),
                  dn if i == last else parts[i + 1][k][0].to(self.device))
-                for k, (up, dn) in enumerate(own)]
+                for k, (up, dn) in enumerate(own)])
 
 
 def current_shard():
@@ -202,16 +225,18 @@ def _streams(devices) -> list:
     return [torch.cuda.current_stream(d) for d in seen]
 
 
-def run_shards(mesh: Mesh, fn, timeout: float = TIMEOUT_S) -> list:
+def run_shards(mesh: Mesh, fn, timeout: float = TIMEOUT_S, segments=None) -> list:
     """``fn(shard)`` for every shard of ``mesh``, each in its own thread on
     the caller's current streams, its shard's device current, the shards
     taking turns between collectives. Returns the results in shard order.
     If a shard raises, the others are released from their collectives and
     the first shard's error is raised; a shard that waits more than
     ``timeout`` seconds for its turn, or a frame whose shards do not all
-    finish within it, raises TimeoutError."""
+    finish within it, raises TimeoutError. With ``segments``
+    (``runtime.program.Segments``) every shard's work is captured, one
+    segment per stretch between collectives."""
     n = len(mesh)
-    exchange = _Exchange(n, timeout)
+    exchange = _Exchange(n, timeout, segments)
     streams = _streams(mesh.devices)
     results, errors = [None] * n, [None] * n
 
@@ -224,9 +249,15 @@ def run_shards(mesh: Mesh, fn, timeout: float = TIMEOUT_S) -> list:
                 # the shard's own device last: entering a stream makes its device current
                 for s in sorted(streams, key=lambda s: s.device == shard.device):
                     stack.enter_context(torch.cuda.stream(s))
+                if segments is not None:
+                    segments.begin(i)
                 results[i] = fn(shard)
+                if segments is not None:
+                    segments.end(i)
             exchange.finish(i)
         except BaseException as e:  # noqa: BLE001 - handed to the caller below
+            if segments is not None:
+                segments.abandon(i)
             errors[i] = e
             exchange.abort(e)
         finally:

@@ -34,17 +34,20 @@
   returns shard 0's outputs, the image gathered, with ``vis`` joined over
   the shards' rows; ``shard_outputs`` keeps each shard's.
 - One program per plan, as the JAX Renderer jits one program per switch
-  set and donates the state to it: on a CUDA device ``render`` replays a
-  captured CUDA graph of the plan (``runtime/program.py``), one per switch
-  set and shapes of the scene and camera, captured at its first frame
-  (``stats["compiles"]`` counts the captures). The persistent state then
-  lives in fixed buffers that every program reads and overwrites in place:
-  ``state`` returns them, and assigning it copies into them.
-  ``Renderer(..., replay=False)`` gives the eager frame (the counterpart of
-  ``jax.disable_jit``), which chip_smoke and the tests compare against;
-  ``replay=True`` on the CPU runs the programs' static buffers without a
-  capture. The split frame, ``pass_timings`` and the HUD's overlay pass
-  (after the replay) stay eager.
+  set and donates the state to it: on CUDA devices ``render`` replays the
+  plan's captured CUDA graphs (``runtime/program.py``), one program per
+  switch set and shapes of the scene and camera, captured after its first
+  frame (``stats["compiles"]`` counts the captures). On one device the
+  program is one graph; under ``spmd_mesh`` it is a graph per shard and
+  stretch between collectives, replayed from the caller's thread with no
+  shard thread. The persistent state then lives in fixed buffers (each
+  shard's) that every program reads and overwrites in place: ``state``
+  (``shard_states``) returns them, and assigning a state of the same
+  layout copies into them. ``Renderer(..., replay=False)`` gives the eager
+  frame (the counterpart of ``jax.disable_jit``), which chip_smoke and the
+  tests compare against; ``replay=True`` on the CPU runs the programs'
+  static buffers without a capture. ``pass_timings`` and the HUD's overlay
+  pass (after the replays) stay eager.
 """
 
 from __future__ import annotations
@@ -155,21 +158,19 @@ class Renderer:
         # reloader swaps it and clears the plans
         self.plan_builder = build_forward_plan
         self._plans = {}
-        # one program per plan and shapes (None: replayed on a CUDA device);
-        # never under the split frame
+        # one program per plan and shapes (None: replayed on a CUDA device)
         if replay is None:
             replay = self.device.type == "cuda"
-        self.replay = bool(replay) and spmd_mesh is None
+        self.replay = bool(replay)
         self._programs = {}
         self._program_scene = (None, None)  # (scene, its tree_key)
         self._times = {}  # device -> the animation clock of eager frames
         self.scene = scene
+        self._state = self.shard_states = self.shard_outputs = None
         if spmd_mesh is None:
-            self._state = None
             self.state = initial_state(self.cfg, self.device)
         else:
             self.shard_states = [initial_state(self.cfg, d) for d in spmd_mesh.devices]
-            self.shard_outputs = None
         self.stats = {"frames": 0, "last_ms": 0.0, "compiles": 0}
 
     @property
@@ -177,7 +178,7 @@ class Renderer:
         """The persistent resources. Replayed, the buffers the programs
         read and overwrite (a frame changes them in place). Under the split
         frame the whole frame's: ``vis`` joined over the shards' rows on
-        ``device``, the replicated entries as shard 0 holds them."""
+        ``device`` (a copy), the replicated entries as shard 0 holds them."""
         if self.spmd_mesh is None:
             return dict(self._state) if self.replay else self._state
         return {**self.shard_states[0], "vis": self._join_rows(
@@ -197,10 +198,15 @@ class Renderer:
                 self._state = dict(state) if self.replay else state
             return
         n = len(self.spmd_mesh)
-        self.shard_states = [
-            {k: VisibilityBuffer(*(f.chunk(n, dim=-2)[i].to(d).contiguous() for f in v))
-             if k == "vis" else to_device(v, d, copy=True) for k, v in state.items()}
-            for i, d in enumerate(self.spmd_mesh.devices)]
+        parts = [{k: VisibilityBuffer(*(f.chunk(n, dim=-2)[i].to(d).contiguous() for f in v))
+                  if k == "vis" else to_device(v, d, copy=True) for k, v in state.items()}
+                 for i, d in enumerate(self.spmd_mesh.devices)]
+        if self.replay and all(map(same_layout, self.shard_states, parts)):
+            for buffers, part in zip(self.shard_states, parts):
+                donate(buffers, part)
+        else:
+            self.drop_plans(programs_only=True)
+            self.shard_states = parts
 
     def _join_rows(self, parts) -> VisibilityBuffer:
         """The shards' visibility buffers joined over rows, on ``device``."""
@@ -269,23 +275,27 @@ class Renderer:
         """One frame of the active plan, on one device or split over the
         mesh; with ``commit`` its state becomes the renderer's."""
         passes = self.passes
-        if self.replay and wrap is None and commit:
-            return self._program(passes, frame["camera"]).run(self.scene, **frame)
         kw = {} if wrap is None else {"wrap": wrap}
-        if self.spmd_mesh is None:
+        if self.replay and wrap is None and commit:
+            outs = self._program(passes, frame["camera"]).run(self.scene, **frame)
+            if self.spmd_mesh is None:
+                return outs[0]
+        elif self.spmd_mesh is None:
             outputs, state = execute_plan(passes, self.outputs, self.state,
                                           **kw, **self._external(**frame))
             if commit:
                 self.state = state
             return outputs
-        ext = [self._external(**frame, device=d) for d in self.spmd_mesh.devices]
-        results = run_shards(self.spmd_mesh, lambda s: execute_plan(
-            passes, self.outputs, self.shard_states[s.index], **kw, **ext[s.index]))
-        if not commit:
-            return results[0][0]
-        self.shard_outputs = [out for out, _ in results]
-        self.shard_states = [state for _, state in results]
-        outputs = dict(self.shard_outputs[0])
+        else:
+            ext = [self._external(**frame, device=d) for d in self.spmd_mesh.devices]
+            results = run_shards(self.spmd_mesh, lambda s: execute_plan(
+                passes, self.outputs, self.shard_states[s.index], **kw, **ext[s.index]))
+            if not commit:
+                return results[0][0]
+            outs = [out for out, _ in results]
+            self.shard_states = [state for _, state in results]
+        self.shard_outputs = outs
+        outputs = dict(outs[0])
         if "vis" in outputs:
             outputs["vis"] = self._join_rows([o["vis"] for o in self.shard_outputs])
         return outputs
@@ -300,10 +310,12 @@ class Renderer:
         key = (tuple(sorted(vars(self.config).items())), key, tree_key(camera))
         program = self._programs.get(key)
         if program is None:
+            where, state = ((self.device, self._state) if self.spmd_mesh is None
+                            else (self.spmd_mesh, self.shard_states))
             program = self._programs[key] = FrameProgram(
-                passes, self.outputs, self._state, self.scene, camera, self.device,
-                self.cfg.skinning, execute_plan)
-        if program.graph is None and self.device.type == "cuda":
+                passes, self.outputs, state, self.scene, camera, where, self.cfg.skinning,
+                execute_plan)
+        if not program.graphs and self.device.type == "cuda":
             self.stats["compiles"] += 1  # this frame captures it
         return program
 

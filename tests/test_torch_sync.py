@@ -6,7 +6,9 @@ skinned (pose pass and per-corner cull), quarter-rate, SSAA, Lambert,
 reference-view and HUD ones, the plain configuration's frames
 (``tile_raster=False``: the scan rasterizer, brute-force rt), a few of
 them eagerly (``Renderer(replay=False)``), ``render_forward`` and the split frame over two shards of the card
-(base, checkerboard+fix, shadowed checkerboard+fix, rt) render, and the scene streamer's pumps and
+(base, checkerboard+fix, shadowed checkerboard+fix, rt; replayed and
+eager; and over one shard per card, up to four, where the host has two
+or more) render, and the scene streamer's pumps and
 the projectile step run, under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
 operation that waits for the card (a blocking copy between host and card,
 ``.item()``, ``nonzero``, a stream synchronization). The cameras are made
@@ -71,7 +73,7 @@ EAGER_FRAMES = ("base", "hud", "shadowed_checkerboard_fix", "shadowed_progressiv
 def test_frame_makes_no_blocking_sync(name):
     """The frames after each switch set's first (its capture) are replays."""
     r = _frames_without_sync(name, replay=True)
-    assert r.stats["compiles"] >= 1 and all(p.graph is not None for p in r.programs.values())
+    assert r.stats["compiles"] >= 1 and all(p.graphs for p in r.programs.values())
 
 
 @pytest.mark.gpu
@@ -198,17 +200,18 @@ SPLIT_FRAMES = {  # name -> (config changes, switches), over two shards of the c
 }
 
 
-def _split_frames(name: str, devices):
+def _split_frames(name: str, devices, replay=None):
     """The single-shard frame on the first device and the split frame over
-    ``devices``, after warm-up, the split frames under sync-debug "error";
-    asserts they are the same frame (tri_id equal, image within 2e-6)."""
+    ``devices`` (replayed by default), after warm-up, the split frames
+    under sync-debug "error"; asserts they are the same frame (tri_id
+    equal, image within 2e-6)."""
     dev = torch.device(devices[0])
     changes, switches = SPLIT_FRAMES[name]
     scene = sponza_like_scene(256, device=dev)
     cfg = dataclasses.replace(CFG, **changes)
     renderers = [Renderer(scene, cfg, device=dev),
                  Renderer(scene, dataclasses.replace(cfg, spmd_devices=len(devices)),
-                          spmd_mesh=make_mesh(devices))]
+                          spmd_mesh=make_mesh(devices), replay=replay)]
     aspect = CFG.width / CFG.height
     for r in renderers:
         r.set_config(**switches)
@@ -223,6 +226,8 @@ def _split_frames(name: str, devices):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     one = renderers[0].render(orbit_camera(0.3 + 0.01 * 4, aspect, dev))
+    programs = renderers[1].programs.values()
+    assert (replay is False) == (not programs) and all(p.graphs for p in programs)
     img = out["image"]
     assert img.shape == (CFG.height, CFG.width, 3) and bool(torch.isfinite(img).all())
     assert torch.equal(out["vis"].tri_id, one["vis"].tri_id)
@@ -232,8 +237,8 @@ def _split_frames(name: str, devices):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(SPLIT_FRAMES))
 def test_split_frame_makes_no_blocking_sync(name):
-    """Two shards on the card wait for each other on the host only, and
-    render the single-shard frame."""
+    """Two shards on the card, replayed (their segments launched from the
+    caller's thread), render the single-shard frame."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     _split_frames(name, ["cuda:0"] * 2)
@@ -241,11 +246,22 @@ def test_split_frame_makes_no_blocking_sync(name):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(SPLIT_FRAMES))
-def test_split_frame_across_cards(name):
-    """One shard per card (up to four), the same frame."""
+def test_eager_split_frame_makes_no_blocking_sync(name):
+    """Two shards on the card, eager, wait for each other on the host
+    only, and render the single-shard frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _split_frames(name, ["cuda:0"] * 2, replay=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("replay", [None, False], ids=["replayed", "eager"])
+@pytest.mark.parametrize("name", sorted(SPLIT_FRAMES))
+def test_split_frame_across_cards(name, replay):
+    """One shard per card (up to four), replayed and eager, the same frame."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
-    _split_frames(name, [f"cuda:{i}" for i in range(min(4, torch.cuda.device_count()))])
+    _split_frames(name, [f"cuda:{i}" for i in range(min(4, torch.cuda.device_count()))], replay)
 
 
 def _handoff(devices, side_stream: bool):
