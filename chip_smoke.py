@@ -175,16 +175,21 @@ code is non-zero:
 37. kernel 5, the count-bounded scan raster (csrc/scan_raster.cu), against
     its plain version bit for bit (depth, tri_id, barycentrics): on the
     raster cases with and without the backface cull at counts 0, 1, 127,
-    128, 129 and the capacity, and at the camera, reference-view and atlas
-    soups (the sun's slot, the point light's cube faces) of phase 36's
-    mixed frame at their own counts, where the bounded result also equals
-    the unbounded one; the launches of a plain and a tile frame with the
-    reference view; the kernel's time, the plain version's and the bound
-    (the pairs inside the walked triangles' bboxes);
-38. kernel 6, the count-bounded brute-force rt (csrc/rt_brute.cu), against
-    its plain version at phase 36's mixed rt soup, rt_scale 2 and 1, at
-    counts 0, 129 and the frame's (identical planes), timed beside its
-    bound (the pairs the early exit leaves); kernels 5 and 6 are timed per
+    128, 129 and the capacity, on the edge cases of its design
+    (tests/torch_plain_kernel_cases.py) at their counts, and at the
+    camera, reference-view and atlas soups (the sun's slot, the point
+    light's cube faces) of phase 36's mixed frame and the plain bench
+    frame's camera soup (1920x1088, orbit angle 0.3; its plain version run
+    once on the whole image) at their own counts, where the bounded result
+    also equals the unbounded one; the launches of a plain and a tile frame
+    with the reference view; per soup the design's sizes (region, warps per
+    area, cell, list capacity), the kernel's time, the plain version's and
+    the bound (the pairs inside the walked triangles' bboxes);
+38. kernel 6, the count-bounded brute-force rt (csrc/rt_brute.cu), with its
+    design's sizes, against its plain version on the edge cases of its
+    design and at phase 36's mixed rt soup, rt_scale 2 and 1, at counts 0,
+    129 and the frame's (identical planes), timed beside its bound (the
+    pairs the early exit leaves); kernels 5 and 6 are timed per
     call inside a captured graph of 100 calls (the kernels line's ms), by
     CUDA events around single calls and by the profiler; at the main
     path's soup also by a graph of one call, and under the profiler in a
@@ -299,6 +304,7 @@ from renderer_tpu_torch.utils.compile_cache import enable_persistent_cache  # no
 from renderer_tpu_torch.utils.image import psnr, read_png, resize_bilinear_u8, write_png  # noqa: E402
 from renderer_tpu_torch.utils.profiling import FrameStats  # noqa: E402
 from torch_occlusion_cases import CASES as OCCLUSION_CASES  # noqa: E402
+from torch_plain_kernel_cases import BRUTE_CASES, RASTER_CASES  # noqa: E402
 from torch_raster_cases import CASES  # noqa: E402
 
 WIDTH, HEIGHT = 1920, 1088
@@ -2356,28 +2362,32 @@ def brute_bound(inp, count):
     return ms, by, walked, pairs, ops
 
 
-def scan_raster_phase(dev, card) -> dict:
-    """Phase 37: kernel 5 against its plain version on the raster cases and
-    at phase 36's mixed soups; its launches on the reference view; its time
-    and bound. Returns its kernels-line entry, whose ms is the device time
-    from the profiler: CUDA events over back-to-back calls time the
-    wrapper's host path there."""
+def scan_raster_phase(scene, cfg, dev, card) -> dict:
+    """Phase 37: kernel 5 against its plain version on the raster cases,
+    the edge cases of its design, at phase 36's mixed soups and at the
+    plain bench frame's camera soup; its launches on the reference view;
+    its time and bound, and its design's sizes at each soup. Returns its
+    kernels-line entry, whose ms is the time per call inside a captured
+    graph of GRAPH_CALLS calls."""
     worst_cases = 0
-    for name, (build, w, h, _) in sorted(CASES.items()):
+    raster_cases = [(name, build, w, h, cull, (*SCAN_COUNTS, build()[0].shape[0]))
+                    for name, (build, w, h, _) in sorted(CASES.items()) for cull in (True, False)]
+    raster_cases += [(name, build, w, h, cull, counts)
+                     for name, (build, w, h, cull, counts) in sorted(RASTER_CASES.items())]
+    for name, build, w, h, cull, counts in raster_cases:
         clip, valid = build()
         t_cap = clip.shape[0]
-        for cull in (True, False):
-            inp = rs.scan_inputs(torch.from_numpy(clip).to(dev), torch.from_numpy(valid).to(dev),
-                                 w, h, cull)
-            for count in (*SCAN_COUNTS, t_cap):
-                c = torch.tensor(count, dtype=torch.int32, device=dev)
-                for with_bary in (True, False):
-                    got = rs.scan_raster_kernel(inp, c, w, h, min(128, t_cap), with_bary)
-                    want = rs.scan_raster_plain(inp, count, w, h, min(128, t_cap), with_bary)
-                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                        raise AssertionError(f"kernel 5 differs from its plain version on {name}, "
-                                             f"cull {cull}, count {count}, bary {with_bary}")
-                    worst_cases += 1
+        inp = rs.scan_inputs(torch.from_numpy(clip).to(dev), torch.from_numpy(valid).to(dev),
+                             w, h, cull)
+        for count in counts:
+            c = torch.tensor(count, dtype=torch.int32, device=dev)
+            for with_bary in (True, False):
+                got = rs.scan_raster_kernel(inp, c, w, h, min(128, t_cap), with_bary)
+                want = rs.scan_raster_plain(inp, count, w, h, min(128, t_cap), with_bary)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"kernel 5 differs from its plain version on {name}, "
+                                         f"cull {cull}, count {count}, bary {with_bary}")
+                worst_cases += 1
 
     # the soups of phase 36's mixed frame: camera and reference view, then
     # the atlas's views with the point light in a slot (sun slot + 6 faces)
@@ -2419,6 +2429,12 @@ def scan_raster_phase(dev, card) -> dict:
         launch_lines.append(f"{label}: kernel 5 launches {got[rs.SCAN_RASTER.symbol]}, kernel 1 "
                             f"{got[rc.RASTER_TILES.symbol]}")
         soups += [(f"{label}, {n} {c[0][2]}x{c[0][3]}", c) for n, c in zip(names, rec.calls)]
+    # the plain bench frame's camera soup (orbit angle 0.3)
+    r = Renderer(scene, dataclasses.replace(cfg, tile_raster=False),
+                 outputs=("image", "vis", "soup"), device=dev, replay=False)
+    with Recorder(pipeline_module, "rasterize_scan") as rec:
+        r.render(bench_camera(0, dev))
+    soups.append((f"plain bench frame, camera {WIDTH}x{HEIGHT}", rec.calls[0]))
     lines, entry = [], None
     for label, (args, kwargs, out) in soups:
         clip, valid, w, h = args
@@ -2444,7 +2460,9 @@ def scan_raster_phase(dev, card) -> dict:
         k_graph = graph_ms_per_call(lambda: rs.scan_raster_kernel(inp, count, w, h, tb, with_bary))
         b_ms, b_by, walked, pairs = scan_bound(inp, count, w, h, tb)
         lines.append(f"{label}: count {int(count)}, {walked} triangles walked of "
-                     f"{clip.shape[0]}, {pairs} pixel pairs; kernel in a graph of {GRAPH_CALLS} "
+                     f"{clip.shape[0]}, {pairs} pixel pairs, design "
+                     f"{json.dumps(rs.kernel_design(clip.shape[0], w, h))}; kernel in a graph "
+                     f"of {GRAPH_CALLS} "
                      f"calls {k_graph:.5f} ms a call, by events / device {k_ms:.4f} / "
                      f"{k_dev:.4f} ms (unbounded walk {u_ms:.4f} / {u_dev:.4f}), plain "
                      f"{p_ms:.1f} ms, bound {b_ms:.5f} ms by {b_by} = "
@@ -2462,16 +2480,31 @@ def scan_raster_phase(dev, card) -> dict:
                          bound_by=b_by, library_ms=None)
     phase("scan_raster", f"kernel 5 against its plain version, identical depth, tri_id and "
                          f"barycentrics: {len(CASES)} raster cases x cull on/off x counts "
-                         f"{list(SCAN_COUNTS)} and capacity x bary on/off ({worst_cases} calls); "
+                         f"{list(SCAN_COUNTS)} and capacity, and {len(RASTER_CASES)} edge cases "
+                         f"{sorted(RASTER_CASES)} at their counts, x bary on/off ({worst_cases} "
+                         f"calls); "
                          + "; ".join(launch_lines) + "; at each soup, bounded = unbounded = the "
                          "frame's own call: " + "; ".join(lines) + f" ({card})")
     return entry
 
 
 def rt_brute_phase(dev, card) -> dict:
-    """Phase 38: kernel 6 against its plain version at phase 36's mixed rt
-    soup, rt_scale 2 and 1; its time and bound. Returns its kernels-line
-    entry (rt_scale 2; ms is the device time, as in phase 37)."""
+    """Phase 38: kernel 6 against its plain version on the edge cases of its
+    design and at phase 36's mixed rt soup, rt_scale 2 and 1; its time and
+    bound. Returns its kernels-line entry (rt_scale 2; ms per call inside a
+    captured graph, as in phase 37)."""
+    n_edge = 0
+    for name, (build, counts) in sorted(BRUTE_CASES.items()):
+        world, normal, direction, tri, valid = build()
+        inp = brute.brute_inputs(*(torch.from_numpy(a).to(dev)
+                                   for a in (world, normal, direction, tri, valid)))
+        for c in counts:
+            got = brute.rt_brute_kernel(inp, torch.tensor(c, dtype=torch.int32, device=dev),
+                                        world.shape[2])
+            if not torch.equal(got, brute.rt_brute_plain(inp, c)):
+                raise AssertionError(f"kernel 6 differs from its plain version on {name}, "
+                                     f"count {c}")
+            n_edge += 1
     lines, entry = [], None
     for s in (2, 1):
         r = Renderer(build_demo_scene(BRUTE_SCENE, dev),
@@ -2483,25 +2516,26 @@ def rt_brute_phase(dev, card) -> dict:
             r.render(make_demo_camera(BRUTE_SCENE, 0.5, dev))
         (world, normal, direction, tri, tri_valid, count), _, out = rec.calls[0]
         inp = brute.brute_inputs(world, normal, direction, tri, tri_valid)
+        wd = world.shape[2]
         for c in (*BRUTE_COUNTS, int(count)):
-            got = brute.rt_brute_kernel(inp, torch.tensor(c, dtype=torch.int32, device=dev))
+            got = brute.rt_brute_kernel(inp, torch.tensor(c, dtype=torch.int32, device=dev), wd)
             if not torch.equal(got, brute.rt_brute_plain(inp, c)):
                 raise AssertionError(f"kernel 6 differs from its plain version at rt_scale {s}, "
                                      f"count {c}")
             if c == 0 and not (got == 1).all():
                 raise AssertionError("kernel 6 at count 0: a receiver is not lit")
-        got = brute.rt_brute_kernel(inp, count)
+        got = brute.rt_brute_kernel(inp, count, wd)
         if not torch.equal(got.reshape(out.shape), out):
             raise AssertionError(f"kernel 6 differs from the frame's own call at rt_scale {s}")
         want = [None]
         p_ms = host_ms(lambda: want.__setitem__(0, brute.rt_brute_plain(inp, count)))
-        k_ms = cuda_ms(lambda: brute.rt_brute_kernel(inp, count), 20)
-        u_ms = cuda_ms(lambda: brute.rt_brute_kernel(inp, None), 5)
-        k_dev = sum(device_us_by_kernel(lambda: brute.rt_brute_kernel(inp, count), 20)
+        k_ms = cuda_ms(lambda: brute.rt_brute_kernel(inp, count, wd), 20)
+        u_ms = cuda_ms(lambda: brute.rt_brute_kernel(inp, None, wd), 5)
+        k_dev = sum(device_us_by_kernel(lambda: brute.rt_brute_kernel(inp, count, wd), 20)
                     .values()) / 1e3
-        u_dev = sum(device_us_by_kernel(lambda: brute.rt_brute_kernel(inp, None), 5)
+        u_dev = sum(device_us_by_kernel(lambda: brute.rt_brute_kernel(inp, None, wd), 5)
                     .values()) / 1e3
-        k_graph = graph_ms_per_call(lambda: brute.rt_brute_kernel(inp, count))
+        k_graph = graph_ms_per_call(lambda: brute.rt_brute_kernel(inp, count, wd))
         b_ms, b_by, walked, pairs, n_ops = brute_bound(inp, count)
         lines.append(f"rt_scale {s}: {inp.origin.shape[1]} receivers, count {int(count)}, "
                      f"{walked} triangles walked of {tri.shape[0]}, {pairs} pairs left by the "
@@ -2516,15 +2550,18 @@ def rt_brute_phase(dev, card) -> dict:
                         "the device time not measured (the profiler saw no device event)"))
         if entry is None:
             lines.append("its time a call read otherwise: " + call_readings(
-                lambda: brute.rt_brute_kernel(inp, count)))
+                lambda: brute.rt_brute_kernel(inp, count, wd)))
             entry = dict(name="rt_brute", route="cuda",
                          source="renderer_tpu_torch/csrc/rt_brute.cu",
                          replaces="renderer_tpu/ops/rt.py:99", launches=None, max_abs_err=0.0,
                          ms=k_graph, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=None)
-    phase("rt_brute", f"kernel 6 against its plain version on {BRUTE_SCENE}'s rt soup at "
-                      f"{DEMO_SIZE}x{DEMO_SIZE}, counts {list(BRUTE_COUNTS)} and the frame's: "
-                      "identical planes, count 0 all lit, the frame's own call equal; "
+    phase("rt_brute", f"kernel 6, design {json.dumps(brute.kernel_design())}, against its "
+                      f"plain version: identical planes on {len(BRUTE_CASES)} edge cases "
+                      f"{sorted(BRUTE_CASES)} at their counts ({n_edge} calls) and on "
+                      f"{BRUTE_SCENE}'s rt soup at {DEMO_SIZE}x{DEMO_SIZE}, counts "
+                      f"{list(BRUTE_COUNTS)} and the frame's, count 0 all lit, the frame's own "
+                      "call equal; "
                       + "; ".join(lines) + f" ({card})")
     return entry
 
@@ -3285,7 +3322,7 @@ def main(argv=None) -> int:
     tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card)
     runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, card)
     plain_phases(scene, cfg, path_launches, dev, card)
-    kernels["scan_raster"] = scan_raster_phase(dev, card)
+    kernels["scan_raster"] = scan_raster_phase(scene, cfg, dev, card)
     kernels["rt_brute"] = rt_brute_phase(dev, card)
     bench_phase(tier_ms, scene, cfg, dev, card)
     split_phase(scene, cfg, path_launches, kernels, dev, card)

@@ -40,7 +40,8 @@ STEP_ELEMENTS = 1 << 22
 
 LIBRARY = library("scan_raster.cu")
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-SCAN_RASTER = LIBRARY.kernel("rtt_scan_raster", [_PTR] * 7 + [_I32] * 5 + [_PTR] * 3)
+SCAN_RASTER = LIBRARY.kernel("rtt_scan_raster",
+                             [_PTR] * 7 + [_I32] * 5 + [_PTR, ctypes.c_longlong] + [_PTR] * 3)
 
 
 class ScanInputs(NamedTuple):
@@ -167,11 +168,34 @@ def scan_raster_plain(inp: ScanInputs, count, width: int, height: int, tri_block
     return VisibilityBuffer(depth=depth_out, tri_id=id_out, bary=bary_out)
 
 
+def kernel_scratch_bytes(t_cap: int, width: int, height: int) -> int:
+    """The scratch bytes of a kernel call over ``t_cap`` triangles into a
+    ``width`` x ``height`` image (the records, boxes and cell lists), as
+    the kernel's library counts them (built on first use)."""
+    fn = LIBRARY.load().rtt_scan_raster_scratch
+    fn.restype = ctypes.c_longlong
+    return fn(t_cap, width, height)
+
+
+def kernel_design(t_cap: int, width: int, height: int) -> dict:
+    """The kernel's sizes for a call over ``t_cap`` triangles into a
+    ``width`` x ``height`` image, read from its library (built on first
+    use): pixel region (a pixel per lane), warps per 8 x 4 area, fine
+    cell, the list capacity per fine cell, triangles per group box and per
+    stage."""
+    out = (ctypes.c_int * 8)()
+    LIBRARY.load().rtt_scan_raster_design(t_cap, width, height, out)
+    rw, rh, k, cw, ch, cap, group, stage = out
+    return dict(region=(rw, rh), warps_per_area=k, cell=(cw, ch), cell_capacity=cap,
+                group=group, stage=stage)
+
+
 def scan_raster_kernel(inp: ScanInputs, count, width: int, height: int, tri_block: int = 128,
                        with_bary: bool = True) -> VisibilityBuffer:
     """Same arguments and result as ``scan_raster_plain``; CUDA tensors
     only. The count (a 0-dim int32 tensor on the card, or None) is read by
-    the kernel on the device. ``SCAN_RASTER.launches`` counts the
+    the kernel on the device. Its records, boxes and cell lists go to
+    scratch allocated here. ``SCAN_RASTER.launches`` counts the
     launches."""
     t_cap = inp.adj.shape[0]
     dev = inp.adj.device
@@ -188,11 +212,13 @@ def scan_raster_kernel(inp: ScanInputs, count, width: int, height: int, tri_bloc
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     tri_id = torch.empty((height, width), dtype=torch.int32, device=dev)
     bary = torch.empty((3, height, width), dtype=torch.float32, device=dev)
+    scratch_size = kernel_scratch_bytes(t_cap, width, height)
+    scratch = torch.empty((scratch_size,), dtype=torch.uint8, device=dev)
     SCAN_RASTER.launch(index, inp.adj.data_ptr(), inp.bb.data_ptr(), inp.top_left.data_ptr(),
                        inp.tri_ok.data_ptr(), inp.zs.data_ptr(), inp.ws.data_ptr(),
                        None if count is None else count.data_ptr(), t_cap, tri_block, width,
-                       height, int(with_bary), depth.data_ptr(), tri_id.data_ptr(),
-                       bary.data_ptr())
+                       height, int(with_bary), scratch.data_ptr(), scratch_size,
+                       depth.data_ptr(), tri_id.data_ptr(), bary.data_ptr())
     return VisibilityBuffer(depth=depth, tri_id=tri_id, bary=bary)
 
 

@@ -37,7 +37,7 @@ EPS = 1e-3  # receiver offset along its normal, and the least hit distance
 
 LIBRARY = library("rt_brute.cu")
 _PTR, _I32 = ctypes.c_void_p, ctypes.c_int
-RT_BRUTE = LIBRARY.kernel("rtt_rt_brute", [_PTR] * 6 + [_I32] * 2 + [_PTR])
+RT_BRUTE = LIBRARY.kernel("rtt_rt_brute", [_PTR] * 6 + [_I32] * 3 + [_PTR])
 
 
 class RtBrute(NamedTuple):
@@ -133,10 +133,22 @@ def rt_brute_plain(inp: BruteInputs, count) -> torch.Tensor:
     return torch.where(lit, 0.0, 1.0)
 
 
-def rt_brute_kernel(inp: BruteInputs, count) -> torch.Tensor:
+def kernel_design() -> dict:
+    """The kernel's sizes, read from its library (built on first use): a
+    CTA's tile of receivers, receivers per lane, warps per CTA, triangles
+    per block."""
+    out = (ctypes.c_int * 5)()
+    LIBRARY.load().rtt_rt_brute_design(out)
+    tx, ty, per_lane, warps, block = out
+    return dict(tile=(tx, ty), receivers_per_lane=per_lane, warps=warps, block=block)
+
+
+def rt_brute_kernel(inp: BruteInputs, count, width: int) -> torch.Tensor:
     """Same arguments and result as ``rt_brute_plain``; CUDA tensors only.
     The count (a 0-dim int32 tensor on the card, or None) is read by the
-    kernel on the device. ``RT_BRUTE.launches`` counts the launches."""
+    kernel on the device. ``width``: the receivers per row of their image
+    (the kernel walks tiles of it). ``RT_BRUTE.launches`` counts the
+    launches."""
     origin, cvec, consts, f, live = inp
     t_cap, p = cvec.shape[0], origin.shape[1]
     index = check_inputs(
@@ -148,10 +160,14 @@ def rt_brute_kernel(inp: BruteInputs, count) -> torch.Tensor:
         (live, torch.bool, (t_cap,)),
         *(() if count is None else ((count, torch.int32, ()),)),
     )
+    if live.data_ptr() % 16:
+        raise ValueError("brute-force rt kernel input: the live mask must be 16-byte aligned")
+    if width < 1 or p % width:
+        raise ValueError(f"brute-force rt kernel input: {p} receivers are not rows of {width}")
     lit = torch.empty((p,), dtype=torch.float32, device=origin.device)
     RT_BRUTE.launch(index, origin.data_ptr(), cvec.data_ptr(), consts.data_ptr(), f.data_ptr(),
                     live.data_ptr(), None if count is None else count.data_ptr(), t_cap, p,
-                    lit.data_ptr())
+                    width, lit.data_ptr())
     return lit
 
 
@@ -167,7 +183,7 @@ def ray_shadow_directional(world: torch.Tensor, normal: torch.Tensor, direction:
     h, w = world.shape[1:]
     inp = brute_inputs(world, normal, direction, tri, tri_valid)
     if world.is_cuda:
-        lit = rt_brute_kernel(inp, count)
+        lit = rt_brute_kernel(inp, count, w)
     elif world.device.type == "cpu":
         lit = rt_brute_plain(inp, count)
     else:

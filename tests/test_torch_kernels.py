@@ -20,24 +20,31 @@ count-bounded scan raster (kernel 5) equals its plain version bit for bit
 (depth, tri_id, barycentrics) on every raster case, with and without the
 backface cull, at counts 0, 1, 127, 128, 129, the capacity and none, and
 the count-bounded brute-force rt (kernel 6) equals its plain version's
-lit plane at counts 0, 1, 129, the live count and none.
+lit plane at counts 0, 1, 129, the live count and none, its receivers as
+one row and as the image's rows. Both do on the edge cases of their
+designs (tests/torch_plain_kernel_cases.py: ties across blocks, more hits
+than a stage in one region, sizes off the regions and tiles, counts at
+block and group edges, whole tiles occluded and lit, a cell past its
+list's capacity), and inside a captured CUDA graph replayed after the
+count changed.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from renderer_tpu_torch.ops import probe_cuda
+from renderer_tpu_torch.ops import control, probe_cuda
 from renderer_tpu_torch.ops.occlusion_cuda import (OCCLUSION_TILES, SEGMENT_BLOCKS, occlusion_kernel,
                                                    occlusion_tiles_plain)
 from renderer_tpu_torch.ops.raster_cuda import (TILE_H, TILE_W, raster_inputs, raster_kernel,
                                                 raster_tiles_plain)
-from renderer_tpu_torch.ops.raster_scan import (SCAN_RASTER, scan_inputs, scan_raster_kernel,
-                                                scan_raster_plain)
+from renderer_tpu_torch.ops.raster_scan import (SCAN_RASTER, kernel_design, scan_inputs,
+                                                scan_raster_kernel, scan_raster_plain)
 from renderer_tpu_torch.ops.raster_spec import NO_TRIANGLE
 from renderer_tpu_torch.ops.rt import RT_BRUTE, brute_inputs, rt_brute_kernel, rt_brute_plain
 from renderer_tpu_torch.ops.rt_grid import occlusion_inputs
 from torch_occlusion_cases import CASES as OCCLUSION_CASES
+from torch_plain_kernel_cases import BRUTE_CASES, OVERFLOW_SIZE, RASTER_CASES, many_hits_soup
 from torch_raster_cases import CASES, HOT_TILE, random_soup
 from torch_raster_gate import reference_gate
 
@@ -229,13 +236,105 @@ def test_rt_brute_kernel_matches_plain(cuda_device):
                          for a in (world, normal, direction, tri, valid)))
     for count in (0, 1, 129, 600, None):
         c = None if count is None else torch.tensor(count, dtype=torch.int32, device=cuda_device)
-        before = RT_BRUTE.launches
-        got = rt_brute_kernel(inp, c)
         want = rt_brute_plain(inp, count)
-        torch.cuda.synchronize()
-        assert RT_BRUTE.launches == before + 1
-        assert torch.equal(got, want), count
+        for width in (world.shape[1] * world.shape[2], world.shape[2]):  # one row, the image
+            before = RT_BRUTE.launches
+            got = rt_brute_kernel(inp, c, width)
+            torch.cuda.synchronize()
+            assert RT_BRUTE.launches == before + 1
+            assert torch.equal(got, want), (count, width)
         if count == 0:
             assert (got == 1).all()
         elif count in (600, None):
             assert (got == 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(RASTER_CASES))
+def test_scan_raster_kernel_on_edge_cases(case, cuda_device):
+    build, w, h, cull, counts = RASTER_CASES[case]
+    clip, valid = build()
+    inp = scan_inputs(torch.from_numpy(clip).to(cuda_device),
+                      torch.from_numpy(valid).to(cuda_device), w, h, cull)
+    tri_block = min(128, clip.shape[0])
+    for count in (*counts, None):
+        c = None if count is None else torch.tensor(count, dtype=torch.int32, device=cuda_device)
+        for with_bary in (True, False):
+            before = SCAN_RASTER.launches
+            got = scan_raster_kernel(inp, c, w, h, tri_block, with_bary)
+            want = scan_raster_plain(inp, count, w, h, tri_block, with_bary)
+            torch.cuda.synchronize()
+            assert SCAN_RASTER.launches == before + 1
+            for name, g, p in zip(("depth", "tri_id", "bary"), got, want):
+                assert torch.equal(g, p), (name, count, with_bary)
+
+
+@pytest.mark.gpu
+def test_scan_raster_kernel_past_a_cells_capacity(cuda_device):
+    """A cell listing more triangles than its list holds is walked from the
+    group boxes: the same planes."""
+    w, h = OVERFLOW_SIZE
+    clip, valid = many_hits_soup(w, h)
+    inp = scan_inputs(torch.from_numpy(clip).to(cuda_device),
+                      torch.from_numpy(valid).to(cuda_device), w, h, False)
+    assert kernel_design(clip.shape[0], w, h)["cell_capacity"] < int(valid.sum())
+    for count in (400, None):
+        c = None if count is None else torch.tensor(count, dtype=torch.int32, device=cuda_device)
+        got = scan_raster_kernel(inp, c, w, h, 128, True)
+        want = scan_raster_plain(inp, count, w, h, 128, True)
+        torch.cuda.synchronize()
+        for name, g, p in zip(("depth", "tri_id", "bary"), got, want):
+            assert torch.equal(g, p), (name, count)
+        assert (got.tri_id >= 0).sum() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(BRUTE_CASES))
+def test_rt_brute_kernel_on_edge_cases(case, cuda_device):
+    build, counts = BRUTE_CASES[case]
+    world, normal, direction, tri, valid = build()
+    inp = brute_inputs(*(torch.from_numpy(a).to(cuda_device)
+                         for a in (world, normal, direction, tri, valid)))
+    for count in (*counts, None):
+        c = None if count is None else torch.tensor(count, dtype=torch.int32, device=cuda_device)
+        want = rt_brute_plain(inp, count)
+        for width in (world.shape[1] * world.shape[2], world.shape[2]):  # one row, the image
+            before = RT_BRUTE.launches
+            got = rt_brute_kernel(inp, c, width)
+            torch.cuda.synchronize()
+            assert RT_BRUTE.launches == before + 1
+            assert torch.equal(got, want), (count, width)
+
+
+@pytest.mark.gpu
+def test_plain_kernels_follow_the_count_in_a_graph(cuda_device):
+    """Kernels 5 and 6 captured once in a CUDA graph with their counts on
+    the card; each replay after the counts change equals the plain
+    versions at the new counts."""
+    build, w, h, cull, counts = RASTER_CASES["ties"]
+    inp = scan_inputs(*(torch.from_numpy(a).to(cuda_device) for a in build()), w, h, cull)
+    world, normal, direction, tri, valid = BRUTE_CASES["odd_receivers"][0]()
+    b_inp = brute_inputs(*(torch.from_numpy(a).to(cuda_device)
+                           for a in (world, normal, direction, tri, valid)))
+    c = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    cb = torch.zeros((), dtype=torch.int32, device=cuda_device)
+
+    def calls():
+        return (scan_raster_kernel(inp, c, w, h, 128, True),
+                rt_brute_kernel(b_inp, cb, world.shape[2]))
+
+    calls()  # built, and warmed up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=control.own_stream(cuda_device, "test")):
+        vis, lit = calls()
+    for n, nb in zip((384, 1, 134, 0, 262), (768, 0, 129, 1, 600)):
+        c.fill_(n)
+        cb.fill_(nb)
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, g, p in zip(("depth", "tri_id", "bary"), vis,
+                              scan_raster_plain(inp, n, w, h, 128, True)):
+            assert torch.equal(g, p), (name, n)
+        assert torch.equal(lit, rt_brute_plain(b_inp, nb)), nb
+    graph.reset()
