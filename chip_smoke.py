@@ -228,7 +228,27 @@ code is non-zero:
     idle (against the untraced ms), the program's capture seconds and
     pool ([graph_<tier>]); then
     the shadow pass's device time at no update with and without
-    conditional nodes, and a fresh base path's launches ([graph]).
+    conditional nodes, and a fresh base path's launches ([graph]);
+42. the reference's shadow envelope (scripts/prof_shadow_amort.py and
+    prof_shadow_envelope.py on the port): the bench scene with 16
+    directional lights (models.shadow_envelope_lights), 16 slots of
+    4096x4096 in 16 bands of 4096x256, budget 1, two shaded lights,
+    checkerboard+fix. A replayed Renderer over 256 unit frames and 2 more
+    (one unit a frame, then none; the ms of the first 8 and the last 4; no
+    NaN signature), 20 steady frames (ms, kernel 1 for the camera only,
+    busy and idle over a traced window, the atlas copies' bytes and device
+    ms, capture, pool, state), light 7 moved (the next 16 frames render
+    exactly its slot's 16 bands) and orbiting for 20 frames (at most one
+    band a frame), the shadow pass at no update and the signatures' ms, the
+    profile of phase 9 with shade's device ms against phase 19's
+    ([envelope], [envelope_profile]); an eager and a replayed Renderer in
+    lockstep over 4 frames and a moved-light frame (image, vis, state bit
+    for bit); the cold envelope (render_shadow_atlas_per_light over the 16
+    whole slots at 2^16 casters a slot: ms over 5 calls, 16 launches a
+    call, coverage, caster demand per slot); kernel 1 against its plain
+    version bit for bit at the band of most casters and at its rows of the
+    whole slot's view, each timed in a graph of 100 calls beside its bound;
+    the phase's peak allocated memory ([envelope_cold]).
 
 Every Renderer on the card replays one captured graph per
 frame after its switch set's first frame (the capture), so the timed
@@ -275,7 +295,7 @@ from renderer_tpu_torch.demo import build_scene as build_demo_scene  # noqa: E40
 from renderer_tpu_torch.demo import make_camera as make_demo_camera, no_blocking_sync  # noqa: E402
 from renderer_tpu_torch.mathx import Camera, orbit_camera, quat_from_axis_angle, quat_mul  # noqa: E402
 from renderer_tpu_torch.models import (  # noqa: E402
-    city_scene, colonnade_scene, skinned_scene, sponza_like_scene)
+    city_scene, colonnade_scene, shadow_envelope_lights, skinned_scene, sponza_like_scene)
 from renderer_tpu_torch.models.scenes import _colonnade_lights, colonnade_spec  # noqa: E402
 from renderer_tpu_torch.ops import control, cuda_build, geometry, occlusion_cuda as oc  # noqa: E402
 from renderer_tpu_torch.ops import probe_cuda, raster_cuda as rc, rt_grid as trt  # noqa: E402
@@ -293,6 +313,7 @@ from renderer_tpu_torch.runtime.camera_controller import CameraState, InputFrame
 from renderer_tpu_torch.runtime.camera_controller import step as controller_step  # noqa: E402
 from renderer_tpu_torch.runtime.camera_controller import to_camera  # noqa: E402
 from renderer_tpu_torch.runtime.checkpoint import load_renderer, save_renderer  # noqa: E402
+from renderer_tpu_torch.runtime.frame import light_casts  # noqa: E402
 from renderer_tpu_torch.runtime.gameplay import ProjectileSystem  # noqa: E402
 from renderer_tpu_torch.runtime.hud import format_hud  # noqa: E402
 from renderer_tpu_torch.ops.overlay import hud_overlay  # noqa: E402
@@ -452,6 +473,23 @@ GRAPH_CHECK_FRAMES = 3  # lockstep frames, eager against replayed (the first cap
 GRAPH_FRAMES = 5  # frames per timed turn
 GRAPH_PROFILE_FRAMES = 2  # frames per traced window
 GRAPH_SHADOW_REPLAYS = 20  # replays per timed turn of the cut plans
+# phase 42: the reference's shadow envelope (shadow_mapping.rs:22-24), as the
+# JAX package runs it (scripts/prof_shadow_amort.py:37-160,
+# scripts/prof_shadow_envelope.py:27-76)
+ENVELOPE_SLOTS = 16
+ENVELOPE_SIZE = 4096
+ENVELOPE_BANDS = 16  # bands of 4096x256
+ENVELOPE_LIMITS = dict(max_instances=16384, max_vertices=1 << 16, max_triangles=1 << 16,
+                       max_materials=64, max_lights=ENVELOPE_SLOTS)
+ENVELOPE_LIGHT = 7  # the light that moves, then orbits
+ENVELOPE_MOVED = (0.1, -1.0, 0.6)
+ENVELOPE_STEADY = 20  # timed frames with every unit clean
+ENVELOPE_ORBIT = 20  # frames with light 7 moving every frame
+ENVELOPE_LOCKSTEP = 4  # eager against replayed frames, then one moved-light frame
+ENVELOPE_COLD_CAPACITY = 1 << 16  # casters per slot of the cold envelope
+ENVELOPE_COLD_CALLS = 5
+ENVELOPE_COLD_ANGLE = 0.35
+ENVELOPE_SIG_CALLS = 10  # signature calls per captured graph
 ASSET = os.path.join(ROOT, "assets", "colonnade.glb")
 COLONNADE_CAPACITY = 1 << 16  # expansion 2^17 holds the asset's 36k triangles
 COLONNADE_FRAMES = 30
@@ -474,6 +512,7 @@ KERNELS = (rc.RASTER_TILES, oc.OCCLUSION_TILES, probe_cuda.ADD_ONE, probe_cuda.T
 
 
 PHASE_SECONDS = {}  # phase -> host seconds from the previous phase's line to its own
+PASS_PROFILES = {}  # profile phase -> its per-pass device ms per frame (profile_main_path)
 _phase_clock = [time.perf_counter()]
 
 
@@ -885,6 +924,7 @@ def profile_main_path(name, renderer, dev, card: str, cam_at=bench_camera) -> di
                 + ", ".join(f"{k} {d:.3f}/{host.get(k, 0.0):.3f}" for k, d in per_pass.items())
                 + f"; passes sum to {sum(per_pass.values()):.3f} + {other:.3f} launched outside "
                 f"any pass = {busy2:.3f} ms/frame of device time")
+    PASS_PROFILES[name] = per_pass
     return per_pass
 
 
@@ -1029,7 +1069,7 @@ def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, 
     launches go into ``path_launches``. Returns each tier's ms/frame."""
     # 14. the shadow atlas's raster at the bench camera (slot 0, the sun) -------
     size, k_bands = cfg.shadow_size, SHADOW_PROGRESSIVE
-    slots = trt.slot_lights(renderer.light_casts, cfg.shadow_slots)
+    slots = trt.slot_lights(renderer.atlas_casts, cfg.shadow_slots)
     mats_cube = tshadow.light_matrices_cube(scene.lights, prepared.scene_min, prepared.scene_max)
 
     def atlas_view(band=None):
@@ -2064,7 +2104,7 @@ def plain_run(name: str, changes: dict, switches: dict, dev, frames: int, warmup
     rendered = int(warmup) + frames + int(on_card)
     return ([(o["image"].cpu().numpy(), visible_identity(o).cpu().numpy()) for o in outs], ms,
             busy, int(outs[-1]["soup"].count), rendered,
-            trt.slot_lights(r.light_casts, r.cfg.shadow_slots))
+            trt.slot_lights(r.atlas_casts, r.cfg.shadow_slots))
 
 
 def plain_launches_wanted(switches: dict, rendered: int, slots) -> dict:
@@ -2877,22 +2917,17 @@ def graph_tier(label, make, switches, cam_at, scene_at=lambda k: None, prep=Fals
     return entry, ms, busy, replay
 
 
-def shadow_pass_ms(scene, cfg, dev) -> dict:
-    """Device ms per replay of the shadowed static checkerboard+fix plan
-    cut after the shadow pass, less the same plan cut before it, at no
-    update (the cache converged), with and without conditional nodes: the
-    shadow pass's device time. Each cut plan is a FrameProgram over a copy
-    of a converged renderer's state, timed by CUDA events over
+def shadow_pass_ms(r, cam) -> dict:
+    """Device ms per replay of the shadowed plan of ``r`` (a renderer whose
+    cache has converged) cut after the shadow pass, less the same plan cut
+    before it, at no update and camera ``cam``, with and without conditional
+    nodes: the shadow pass's device time. Each cut plan is a FrameProgram
+    over a copy of the renderer's state, timed by CUDA events over
     GRAPH_SHADOW_REPLAYS replays, in turns."""
     from renderer_tpu_torch.runtime.frame import execute_plan
     from renderer_tpu_torch.runtime.program import FrameProgram
 
-    r = Renderer(scene, dataclasses.replace(cfg, shade_rate="checkerboard"), device=dev)
-    r.set_config(shadows=True)
-    r.apply_config_now()
-    cam = bench_camera(0, dev)
-    for _ in range(2):
-        r.render(cam)
+    scene, dev = r.scene, r.device
     passes = r.passes
     cut = [p.name for p in passes].index("shadow_pass")
     programs = {}
@@ -2958,7 +2993,12 @@ def graph_phase(scene, cfg, path_launches, dev, card) -> None:
         entry, *_ = graph_tier(f"plain_{name}", make, {},
                                lambda k, d, name=name: make_demo_camera(name, 0.5 + 0.02 * k, d))
         phase(f"graph_plain_{name}", entry + f" ({card})")
-    shadow = shadow_pass_ms(scene, cfg, dev)
+    r = Renderer(scene, dataclasses.replace(cfg, shade_rate="checkerboard"), device=dev)
+    r.set_config(shadows=True)
+    r.apply_config_now()
+    for _ in range(2):  # every unit rendered on the first frame (budget 0)
+        r.render(bench_camera(0, dev))
+    shadow = shadow_pass_ms(r, bench_camera(0, dev))
     r = Renderer(scene, cfg, device=dev)
     launches_of(lambda: [r.render(bench_camera(k, dev)) for k in range(GRAPH_FRAMES)],
                 GRAPH_FRAMES, "graph: a replayed path")
@@ -2972,6 +3012,350 @@ def graph_phase(scene, cfg, path_launches, dev, card) -> None:
                    f"before it, CUDA events over {GRAPH_SHADOW_REPLAYS} replays, in turns); "
                    f"{GRAPH_FRAMES} frames of a fresh base renderer (1 eager + capture, "
                    f"{GRAPH_FRAMES - 1} replays) launch kernel 1 {GRAPH_FRAMES} times ({card})")
+
+
+def envelope_units(sig, prev) -> torch.Tensor:
+    """(slots, bands) bool: the units whose signature a frame wrote (a NaN
+    signature left NaN is unchanged)."""
+    same = (sig == prev) | (torch.isnan(sig) & torch.isnan(prev))
+    return ~same.all(dim=-1)
+
+
+def envelope_frame(r, cam, scene=None) -> tuple:
+    """One frame of ``r``: (host-clock ms with the card synchronized on both
+    sides, the (slots, bands) units it rendered, kernel 1's launches)."""
+    prev = r.state["shadow_cache"][1].clone()
+    before = rc.RASTER_TILES.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.render(cam, scene=scene)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, envelope_units(r.state["shadow_cache"][1], prev), rc.RASTER_TILES.launches - before
+
+
+def atlas_copies_ms(atlas) -> dict:
+    """Device ms of each copy a steady replay makes of the (slots, S, S)
+    atlas, at its shapes, each alone in a captured graph of one call
+    (GRAPH_CALL_REPLAYS replays, CUDA events): every slot's previous depth
+    copied (``ops/control.cond``), the slots stacked into a new atlas, the
+    new atlas donated into a buffer of the state's shape. The atlas is
+    read, never written."""
+    slots = list(atlas.unbind(0))
+    fresh = [t.clone() for t in slots]
+    new = torch.stack(fresh)
+    buffer = torch.empty_like(atlas)
+    steps = {"slot copies": lambda: [t.clone() for t in slots],
+             "stack": lambda: torch.stack(fresh),
+             "donation": lambda: buffer.copy_(new)}
+    return {name: graph_ms_per_call(fn, calls=1) for name, fn in steps.items()}
+
+
+def ms_list(v) -> str:
+    return "[" + ", ".join(f"{m:.2f}" for m in v) + "]"
+
+
+def envelope_kernel(name, args) -> str:
+    """Kernel 1 against its plain version at one of the envelope's raster
+    inputs, bit for bit (depth, tri_id and both barycentric planes); the
+    kernel's ms a call in a graph of GRAPH_CALLS calls, the plain version's
+    host ms, the bound by phase 6's rule and the share of it."""
+    got = rc.raster_kernel(*args, False)
+    want = [None]
+    p_ms = host_ms(lambda: want.__setitem__(0, rc.raster_tiles_plain(*args, False)))
+    if not all(torch.equal(a, b) for a, b in zip(got, want[0])):
+        raise AssertionError(f"envelope {name}: kernel 1 differs from its plain version")
+    k_ms = graph_ms_per_call(lambda: rc.raster_kernel(*args, False))
+    _, _, pairs, listed = raster_work(args)
+    b_ms, b_by = raster_bound(args, pairs, listed)
+    return (f"{name} {args[5]}x{args[6]} (y0 {args[7]}), {args[3].numel()} tiles, "
+            f"{int(args[3].sum())} bin-list entries (max {int(args[3].max())} a tile): identical; "
+            f"kernel {k_ms:.5f} ms a call in a graph of {GRAPH_CALLS}, plain {p_ms:.1f} ms; "
+            f"{pairs} pixel pairs, {listed} triangles listed: bound {b_ms:.5f} ms by {b_by} = "
+            f"{100 * b_ms / k_ms:.1f}% of the kernel's time")
+
+
+def envelope_phase(cfg, path_launches, dev, card) -> None:
+    """Phase 42: the reference's shadow envelope, 16 directional slots of
+    4096x4096 in 16 bands of 4096x256, through a replayed Renderer
+    (convergence, steady state, a moved light, an orbiting light, replay
+    against eager), the cold envelope through render_shadow_atlas_per_light,
+    and kernel 1 against its plain version at the envelope's two shapes."""
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scene = sponza_like_scene(N_INSTANCES, limits=SceneLimits(**ENVELOPE_LIMITS), device=dev)
+    scene = scene._replace(lights=shadow_envelope_lights(ENVELOPE_SLOTS, device=dev))
+    t_scene = time.perf_counter() - t0
+    ecfg = dataclasses.replace(
+        cfg, shade_rate="checkerboard", shade_fix=True, shadow_slots=ENVELOPE_SLOTS,
+        shadow_size=ENVELOPE_SIZE, shadow_cache=True, shadow_update_budget=1,
+        shadow_progressive=ENVELOPE_BANDS, shade_light_slots=2, shadow_tri_capacity=0)
+    n_units = ENVELOPE_SLOTS * ENVELOPE_BANDS
+    outputs = ("image", "vis")
+
+    def cam(angle):
+        return orbit_camera(angle, WIDTH / HEIGHT, dev)
+
+    def shadowed(replay):
+        r = Renderer(scene, ecfg, outputs=outputs, device=dev, replay=replay)
+        r.set_config(shadows=True)
+        r.apply_config_now()
+        return r
+
+    parts = {}  # host seconds of each part of the phase
+    mark = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = round(now - mark[0], 1)
+        mark[0] = now
+
+    # convergence: one unit a frame until all 256 have rendered, then none
+    r = shadowed(None)
+    slots = trt.slot_lights(r.atlas_casts, ENVELOPE_SLOTS)
+    if slots != tuple((i, True) for i in range(ENVELOPE_SLOTS)) or len(r.light_casts) != 2:
+        raise AssertionError(f"envelope: atlas slots {slots}, shaded lights {r.light_casts}")
+    for k in KERNELS:
+        k.launches = 0
+    first = envelope_frame(r, cam(0.3))
+    conv = [envelope_frame(r, cam(0.3 + 0.003 * (k + 1))) for k in range(n_units + 2)]
+    frames = [first] + conv
+    per_frame = [int(u.sum()) for _, u, _ in frames]
+    if per_frame != [1] * n_units + [0, 0, 0]:
+        raise AssertionError(f"envelope convergence: units per frame {per_frame}")
+    if not torch.stack([u for _, u, _ in frames[:n_units]]).any(dim=0).all():
+        raise AssertionError("envelope convergence: a unit never rendered")
+    want = [1 + ENVELOPE_SLOTS] + [1 + n for n in per_frame[1:]]  # the first frame is eager
+    if [n for _, _, n in frames] != want:
+        raise AssertionError(f"envelope convergence: kernel 1 launches "
+                             f"{[n for _, _, n in frames]}, want {want}")
+    if torch.isnan(r.state["shadow_cache"][1]).any():
+        raise AssertionError("envelope: a signature is still NaN after convergence")
+    path_launches["envelope_convergence"] = sum(want)
+    conv_ms = [m for m, _, _ in conv]
+    program = next(iter(r.programs.values()))
+    state_mib = sum(t.numel() * t.element_size() for t in tree.leaves(r.state)) / 2**20
+    atlas = r.state["shadow_cache"][0]
+    coverage_conv = float((atlas < 1.0).sum()) / atlas.numel()
+    part("convergence")
+
+    # steady state: every unit clean, kernel 1 only for the camera
+    r.render(cam(0.5))
+    sig = r.state["shadow_cache"][1].clone()
+    steady_ms = launches_of(
+        lambda: frames_ms(r, ENVELOPE_STEADY, lambda r, k: r.render(cam(0.5 + 0.01 * k))),
+        ENVELOPE_STEADY, "envelope steady state (kernel 1 for the camera only)")
+    if not nan_equal(sig, r.state["shadow_cache"][1]):
+        raise AssertionError("envelope steady state: a unit rendered")
+    path_launches["envelope_steady"] = ENVELOPE_STEADY
+    prof, _ = traced_window(r, dev, [ProfilerActivity.CUDA],
+                            cam_at=lambda k, d: cam(0.5 + 0.01 * (ENVELOPE_STEADY + k)),
+                            frames=GRAPH_PROFILE_FRAMES)
+    device_ops, busy = traced_busy(prof, GRAPH_PROFILE_FRAMES)
+    longest = sorted(device_ops, key=lambda e: -e.self_device_time_total)[:8]
+    # a steady replay copies the atlas three times: each slot's previous
+    # depth (ops/control.cond's copy of prev), the 16 results stacked into a
+    # new atlas, the new atlas donated into the state's buffer; each byte
+    # read once and written once
+    copy_bytes = 3 * 2 * atlas.numel() * atlas.element_size()
+    copies = atlas_copies_ms(atlas)
+    copy_ms = sum(copies.values())
+    part("steady")
+
+    # light 7 moved: its slot's 16 bands, one a frame, and nothing else
+    pos = scene.lights.position.clone()
+    pos[ENVELOPE_LIGHT] = torch.tensor(ENVELOPE_MOVED, dtype=torch.float32, device=dev)
+    moved = scene._replace(lights=scene.lights._replace(position=pos))
+    for k in KERNELS:
+        k.launches = 0
+    moved_frames = [envelope_frame(r, cam(0.55 + 0.01 * k), moved)
+                    for k in range(ENVELOPE_BANDS + 1)]
+    units = torch.stack([u for _, u, _ in moved_frames])
+    only7 = torch.zeros_like(units[0])
+    only7[ENVELOPE_LIGHT] = True
+    if ([int(u.sum()) for u in units] != [1] * ENVELOPE_BANDS + [0]
+            or not torch.equal(units.any(dim=0), only7)):
+        raise AssertionError(f"envelope moved light: units rendered {units.nonzero().tolist()}")
+    moved_launches = [n for _, _, n in moved_frames]
+    if moved_launches != [2] * ENVELOPE_BANDS + [1]:
+        raise AssertionError(f"envelope moved light: kernel 1 launches {moved_launches}")
+    path_launches["envelope_moved"] = sum(moved_launches)
+    part("moved light")
+
+    # light 7 orbiting: at most one band a frame (tables made before the frames)
+    a = 0.25 * torch.arange(ENVELOPE_ORBIT + 1, dtype=torch.float32, device=dev)
+    d7 = torch.stack([0.6 * torch.sin(a), -torch.ones_like(a), 0.6 * torch.cos(a)], dim=-1)
+    tables = pos[None].repeat(ENVELOPE_ORBIT + 1, 1, 1)
+    tables[:, ENVELOPE_LIGHT] = d7 / torch.linalg.norm(d7, dim=-1, keepdim=True)
+
+    def orbit_scene(k):
+        return scene._replace(lights=scene.lights._replace(position=tables[k]))
+
+    for k in KERNELS:
+        k.launches = 0
+    orbit_frames = [envelope_frame(r, cam(0.6 + 0.01 * k), orbit_scene(k))
+                    for k in range(ENVELOPE_ORBIT + 1)]
+    orbit_units = [int(u.sum()) for _, u, _ in orbit_frames]
+    if any(n > 1 for n in orbit_units) or any(
+            int(u.sum()) and not u[ENVELOPE_LIGHT].any() for _, u, _ in orbit_frames):
+        raise AssertionError(f"envelope orbit: units per frame {orbit_units}")
+    if [n for _, _, n in orbit_frames] != [1 + n for n in orbit_units]:
+        raise AssertionError(f"envelope orbit: kernel 1 launches {[n for _, _, n in orbit_frames]}")
+    path_launches["envelope_orbit"] = sum(1 + n for n in orbit_units)
+    orbit_ms = [m for m, _, _ in orbit_frames[1:]]
+    part("orbit")
+
+    # the shadow pass at no update (the cut plans), and the signatures alone,
+    # once light 7 is back and its slot's bands have rendered again
+    for _ in range(ENVELOPE_BANDS):
+        r.render(cam(0.6), scene=scene)
+    if envelope_frame(r, cam(0.6))[1].any():
+        raise AssertionError("envelope: the cache did not converge again after the orbit")
+    shadow = shadow_pass_ms(r, cam(0.6))
+    prepared = geometry.prepare_frame_columns(scene, cam(0.6))
+    mats = tshadow.light_matrices_cube(scene.lights, prepared.scene_min, prepared.scene_max)
+    weights = tshadow.signature_weights(prepared.model.shape[0], dev)
+    sig_ms = graph_ms_per_call(lambda: tshadow.shadow_signature(  # ~900 kernels a call
+        scene, mats, prepared.model, slots, ENVELOPE_BANDS, weights), calls=ENVELOPE_SIG_CALLS)
+    part("shadow pass and signatures")
+    profile_main_path("envelope_profile", r, dev, card, cam_at=lambda k, d: cam(0.6 + 0.01 * k))
+    part("profile")
+    shade = PASS_PROFILES["envelope_profile"].get("shade_shadowed", math.nan)
+    shade_4 = PASS_PROFILES.get("shadow_profile", {}).get("shade_shadowed", math.nan)
+    capture_s, pool_mib = program.capture_s, program.pool_bytes / 2**20
+    r.drop_plans()
+    del r, program, atlas
+    torch.cuda.empty_cache()
+
+    phase("envelope", (
+        f"sponza_like_scene({N_INSTANCES}) with {ENVELOPE_SLOTS} directional lights "
+        f"(shadow_envelope_lights, built in {t_scene:.1f} s), {ENVELOPE_SLOTS} slots of "
+        f"{ENVELOPE_SIZE}x{ENVELOPE_SIZE} in {ENVELOPE_BANDS} bands, budget 1, 2 shaded lights, "
+        f"checkerboard+fix, replayed: first frame (eager + capture) {first[0]:.1f} ms; "
+        f"convergence over {n_units} units + 2 frames, one unit a frame then none: first 8 "
+        f"{ms_list(conv_ms[:8])} last 4 {ms_list(conv_ms[-4:])} ms, mean over the unit frames "
+        f"{statistics.mean(conv_ms[:n_units - 1]):.2f} ms; no signature NaN; atlas coverage "
+        f"{100 * coverage_conv:.1f}%; steady {steady_ms:.2f} ms/frame over {ENVELOPE_STEADY} "
+        f"frames, kernel 1 {ENVELOPE_STEADY} launches (the camera's: 0 in the atlas), busy "
+        f"{busy:.3f} ms/frame (idle {100 * (1 - busy / steady_ms):.1f}%) over "
+        f"{GRAPH_PROFILE_FRAMES} traced frames, longest (ms/frame, launches/frame) "
+        + ", ".join(f"{e.key[:90]} {e.self_device_time_total / 1e3 / GRAPH_PROFILE_FRAMES:.3f} "
+                    f"{e.count / GRAPH_PROFILE_FRAMES:.0f}" for e in longest)
+        + f"; atlas copies a steady frame: {copy_bytes / 2**30:.2f} GiB moved (16 slot copies, "
+        f"the stack, the donation, each read and written once), device ms each alone in a "
+        f"graph {json.dumps({k: round(v, 4) for k, v in copies.items()})} = {copy_ms:.3f} ms "
+        f"({copy_bytes / copy_ms / 1e6:.0f} GB/s); light {ENVELOPE_LIGHT} moved to "
+        f"{ENVELOPE_MOVED}: the next "
+        f"{ENVELOPE_BANDS} frames render exactly its slot's {ENVELOPE_BANDS} bands, one a frame, "
+        f"then none: {ms_list([m for m, _, _ in moved_frames])} ms; light {ENVELOPE_LIGHT} "
+        f"orbiting ({ENVELOPE_ORBIT} frames): units per frame {orbit_units[1:]}, "
+        f"{ms_list(orbit_ms)} ms, mean {statistics.mean(orbit_ms):.2f}; shadow pass at no update "
+        f"(cut plans) {shadow['with nodes']:.3f} ms a replay with conditional nodes, "
+        f"{shadow['without nodes']:.3f} without; signatures {sig_ms:.4f} ms a call in a graph of "
+        f"{ENVELOPE_SIG_CALLS}; "
+        f"shade_shadowed device {shade:.3f} ms/frame against {shade_4:.3f} at 4 slots of "
+        f"512x512 (phase 19); capture {capture_s:.2f} s, pool {pool_mib:.0f} MiB, state "
+        f"{state_mib:.0f} MiB ({card})"))
+
+    # replayed against eager, bit for bit: image, vis and the whole state
+    eager, replay = shadowed(False), shadowed(None)
+    for k in range(ENVELOPE_LOCKSTEP + 1):
+        sc = moved if k == ENVELOPE_LOCKSTEP else None
+        a_out = eager.render(cam(0.3 + 0.003 * k), scene=sc)
+        b_out = replay.render(cam(0.3 + 0.003 * k), scene=sc)
+        if not (nan_equal(a_out, b_out) and nan_equal(eager.state, replay.state)):
+            raise AssertionError(f"envelope: replayed frame {k} differs from eager")
+    replay.drop_plans()
+    del eager, replay, a_out, b_out
+    torch.cuda.empty_cache()
+    part("replayed against eager")
+
+    # the cold envelope: 16 whole slots every call
+    cam_c = cam(ENVELOPE_COLD_ANGLE)
+    prepared = geometry.prepare_frame_columns(scene, cam_c)
+    mats = tshadow.light_matrices_cube(scene.lights, prepared.scene_min, prepared.scene_max)
+
+    def cold(slot_list=slots):
+        return tshadow.render_shadow_atlas_per_light(
+            scene, mats, prepared.model, prepared.lod, slot_list, ENVELOPE_SIZE,
+            ENVELOPE_COLD_CAPACITY)
+
+    def cold_calls():
+        for _ in range(ENVELOPE_COLD_CALLS):
+            out = cold()
+        return out
+
+    cold()
+    atlas = launches_of(cold_calls, ENVELOPE_SLOTS * ENVELOPE_COLD_CALLS, "the cold envelope")
+    path_launches["envelope_cold"] = ENVELOPE_SLOTS * ENVELOPE_COLD_CALLS
+    cold_ms = frames_ms(None, ENVELOPE_COLD_CALLS, lambda _, k: cold())
+    coverage = float((atlas < 1.0).sum()) / atlas.numel()
+    del atlas
+    demand = tshadow.shadow_caster_truncation(scene, prepared.model, prepared.lod, mats,
+                                              ENVELOPE_SLOTS, 0, slot_size=ENVELOPE_SIZE)
+    dropped = torch.clamp(demand - ENVELOPE_COLD_CAPACITY, min=0)
+    part("cold envelope")
+
+    # kernel 1 at the band of most casters, and at those rows of its whole slot
+    smin, smax = prepared.scene_min, prepared.scene_max
+    center, radius = tshadow._scene_sphere(smin, smax)
+    mesh_id = scene.instances.mesh_id.long()
+    bands = torch.arange(ENVELOPE_BANDS, device=dev)
+    unit_demand = []
+    for li, _ in slots:
+        light_dir = scene.lights.position[li]
+        eye = center - light_dir / torch.clamp(tshadow._norm3(light_dir), min=1e-8) * (radius * 2.0)
+        lod_pick = tshadow.lod_by_distance(scene, prepared.model, eye,
+                                           bias=tshadow.shadow_lod_bias(ENVELOPE_SIZE))
+        vis = geometry.coarse_cull(scene, prepared.model,
+                                   tshadow.band_matrix(mats[li, 0], bands, ENVELOPE_BANDS))
+        unit_demand.append(torch.where(vis, scene.meshes.lod_tri_count[mesh_id, lod_pick], 0)
+                           .sum(dim=-1))
+    unit_demand = torch.stack(unit_demand)
+    s_max, b_max = divmod(int(torch.argmax(unit_demand)), ENVELOPE_BANDS)
+    sel = torch.zeros((1, ENVELOPE_BANDS), dtype=torch.bool, device=dev)
+    sel[0, b_max] = True
+    with Recorder(tshadow, "rasterize_cuda") as ras:
+        tshadow.render_shadow_atlas_per_light(
+            scene, mats, prepared.model, prepared.lod, slots[s_max:s_max + 1], ENVELOPE_SIZE,
+            ecfg.caster_capacity, selected=sel,
+            atlas_prev=torch.ones((1, ENVELOPE_SIZE, ENVELOPE_SIZE), device=dev),
+            scene_min=smin, scene_max=smax, progressive=ENVELOPE_BANDS)
+    clip, valid, w, h = ras.calls[0][0]
+    band_args = rc.raster_inputs(clip, valid, w, h, cull_backface=False)
+    band_casters = int(valid.sum())
+    del ras, clip, valid
+    with Recorder(tshadow, "rasterize_cuda") as ras:
+        cold(slots[s_max:s_max + 1])
+    clip, valid, w, h = ras.calls[0][0]
+    bh = ENVELOPE_SIZE // ENVELOPE_BANDS
+    rows_args = rc.raster_inputs(clip, valid, w, bh, cull_backface=False, y0=b_max * bh,
+                                 full_height=h)
+    slot_casters = int(valid.sum())
+    del ras, clip, valid
+    lines = [envelope_kernel(f"band {b_max} of slot {s_max} ({band_casters} casters of "
+                             f"{int(unit_demand[s_max, b_max])} wanted, capacity "
+                             f"{ecfg.caster_capacity})", band_args),
+             envelope_kernel(f"rows of slot {s_max}'s whole view ({slot_casters} casters, "
+                             f"capacity {ENVELOPE_COLD_CAPACITY})", rows_args)]
+    del band_args, rows_args
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    part("kernel 1")
+    phase("envelope_cold", (
+        f"render_shadow_atlas_per_light over the {ENVELOPE_SLOTS} whole slots at bench angle "
+        f"{ENVELOPE_COLD_ANGLE}, caster capacity {ENVELOPE_COLD_CAPACITY}: "
+        f"{cold_ms:.2f} ms a call over {ENVELOPE_COLD_CALLS} calls after a warm-up, kernel 1 "
+        f"{ENVELOPE_SLOTS} launches a call; coverage {100 * coverage:.1f}% of texels < 1; "
+        f"caster demand per slot {demand.tolist()}, dropped {dropped.tolist()}; replayed = eager "
+        f"bit for bit (image, vis, state) over {ENVELOPE_LOCKSTEP} frames and a moved-light "
+        f"frame; kernel 1 against its plain version: " + "; ".join(lines)
+        + f"; band demands of slot {s_max} {unit_demand[s_max].tolist()}; peak "
+        f"torch.cuda.max_memory_allocated over the phase {peak:.2f} GiB; host seconds of the "
+        f"phase's parts {json.dumps(parts)} ({card})"))
 
 
 def main(argv=None) -> int:
@@ -3327,6 +3711,7 @@ def main(argv=None) -> int:
     bench_phase(tier_ms, scene, cfg, dev, card)
     split_phase(scene, cfg, path_launches, kernels, dev, card)
     graph_phase(scene, cfg, path_launches, dev, card)
+    envelope_phase(cfg, path_launches, dev, card)
     kernels["raster_tiles"]["launches"] = sum(path_launches.values())
     for name, k in (("scan_raster", rs.SCAN_RASTER), ("rt_brute", brute.RT_BRUTE)):
         kernels[name]["launches"] = sum(plain_path_launches[k.symbol].values())

@@ -5,8 +5,10 @@ CUDA card when None)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from renderer_tpu_torch.scene import HostMesh, Scene, SceneBuilder, SceneLimits, primitives
+from renderer_tpu_torch.device import resolve_device
+from renderer_tpu_torch.scene import HostMesh, Lights, Scene, SceneBuilder, SceneLimits, primitives
 
 
 def box_scene(limits: SceneLimits = None, device=None) -> Scene:
@@ -194,6 +196,30 @@ def sponza_like_scene(
     b.add_light(position=(0.4, -1.0, 0.2), directional=True, intensity=2.5, shadow_slot=0)
     b.add_light(position=(0.0, 20.0, 0.0), intensity=300.0)
     return b.build(texture_slots=texture_slots, device=device)
+
+
+def shadow_envelope_lights(n: int = 16, device=None) -> Lights:
+    """The light table of the reference's shadow envelope, as
+    ``scripts/prof_shadow_amort.py`` sets it on the bench scene: ``n``
+    directional lights, light i in shadow slot i, all alive, colour 1 and
+    intensity 1.2. Directions come from ``np.random.default_rng(3)`` with y
+    forced downward; light 0 points along (-0.5, -1, -0.3). It replaces a
+    scene's whole table, so the scene needs ``max_lights == n``."""
+    rng = np.random.default_rng(3)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 1] = -np.abs(d[:, 1]) - 0.3
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[0] = np.asarray((-0.5, -1.0, -0.3), np.float32) / np.linalg.norm((-0.5, -1.0, -0.3))
+    dev = resolve_device(device)
+    return Lights(
+        position=torch.from_numpy(d).to(dev),
+        color=torch.ones((n, 3), dtype=torch.float32, device=dev),
+        intensity=torch.full((n,), 1.2, dtype=torch.float32, device=dev),
+        directional=torch.ones((n,), dtype=torch.bool, device=dev),
+        shadow_slot=torch.arange(n, dtype=torch.int32, device=dev),
+        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+        count=torch.tensor(n, dtype=torch.int32, device=dev),
+    )
 
 
 def city_scene(grid: int = 20, seed: int = 0, segments: int = 12,

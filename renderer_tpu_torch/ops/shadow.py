@@ -14,9 +14,10 @@ with ``tile_raster=False`` the plain configuration's scan rasterizer
 count on the device), as the JAX package's atlas takes its XLA raster
 without Pallas.
 
-The Renderer's light-cast pattern is static (``runtime.frame.light_casts``),
-so which slot holds which kind of light is known on the host: a slot
-without a light is a fill of 1.0 and costs no work. Whether a slot renders
+The Renderer's light-cast pattern is static (``runtime.frame.light_casts``
+over the whole light table: ``Renderer.atlas_casts``), so which slot holds
+which kind of light is known on the host: a slot without a light is a fill
+of 1.0 and costs no work. Whether a slot renders
 this frame (the cache's choice) is a device tensor and is never read on
 the host. Eagerly an unselected slot culls against an empty set, so its
 raster walks no triangle (the scan raster's count is 0: no block), and the

@@ -272,11 +272,13 @@ def check_plan(passes, outputs, state=()) -> None:
 def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tuple = (),
                        shadows: bool = False, rt: bool = False, freeze_culling: bool = False,
                        debug_aabbs: bool = False, occlusion_culling: bool = False,
-                       hud: bool = False, reference_image: bool = False) -> list:
+                       hud: bool = False, reference_image: bool = False,
+                       atlas_casts: tuple = None) -> list:
     """The ordered passes of one frame for the switch set, the JAX plan's
     passes. ``light_casts``, (shadow_slot, directional) per shaded light
     with slot -1 for none, picks the lights that shadow and that
-    ``shade_rt`` traces."""
+    ``shade_rt`` traces. ``atlas_casts``, the same for every light of the
+    table (None: ``light_casts``), picks the slots the atlas renders."""
     w, h = cfg.render_size
     if occlusion_culling and not freeze_culling and not debug_aabbs and (w | h) % (1 << LEVELS):
         raise ValueError(f"occlusion culling's {LEVELS}-level depth pyramid needs the render "
@@ -400,7 +402,7 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
     def raster_dbg(soup):
         return raster(soup, with_bary=True)
 
-    slots = slot_lights(light_casts, cfg.shadow_slots)
+    slots = slot_lights(light_casts if atlas_casts is None else atlas_casts, cfg.shadow_slots)
     sig_weights = {}  # the signature's fold weights per device, made at the first shadowed frame
 
     def shadow_pass(scene_view, prepared, shadow_cache_prev=None):

@@ -9,9 +9,13 @@
   takes up; ``apply_config_now`` takes it up at once. One plan per switch
   set, built on first use and kept.
 - Light specialization, read once at construction: shading loops over the
-  scene's live light count, and shadows (maps or rays) cover only the
-  shadow slots that hold a light, each with its kind (directional or
-  point) fixed. A scene passed to ``render`` later must keep both.
+  scene's live light count (or ``shade_light_slots``), and shadows cover
+  only the shadow slots that hold a light, each with its kind
+  (directional or point) fixed. Ray-traced shadows trace the shaded
+  lights' slots (``light_casts``); the atlas renders the slot of every
+  live light in the table (``atlas_casts``), as the JAX atlas matches its
+  slots against the whole table. A scene passed to ``render`` later must
+  keep both patterns.
 - Persistent state (``Renderer.state``): the last cull's draw list
   (``draw_list``, which freeze culling keeps), the last visibility buffer
   and viewproj (``vis``, ``prev_vp``, which occlusion culling reads) and
@@ -151,6 +155,7 @@ class Renderer:
                 self.cfg, shade_light_slots=int(scene.lights.count)
             )
         self.light_casts = light_casts(scene.lights, self.cfg.shade_light_slots)
+        self.atlas_casts = light_casts(scene.lights, scene.lights.alive.shape[0])
         self.outputs = tuple(outputs)
         self.config = RuntimeConfig()
         self._pending_config = RuntimeConfig()
@@ -247,6 +252,7 @@ class Renderer:
         key = tuple(sorted(vars(self.config).items()))
         if key not in self._plans:
             self._plans[key] = self.plan_builder(self.cfg, self.outputs, self.light_casts,
+                                                 atlas_casts=self.atlas_casts,
                                                  **vars(self.config))
         return self._plans[key]
 
@@ -350,12 +356,14 @@ class Renderer:
                 f"{self.cfg.shade_light_slots} (shade_light_slots); construct a "
                 "new Renderer or pass shade_light_slots explicitly"
             )
-        pattern = light_casts(scene.lights, self.cfg.shade_light_slots)
-        if pattern != self.light_casts:
-            raise ValueError(
-                f"scene changes the light cast pattern {self.light_casts} -> "
-                f"{pattern}; construct a new Renderer for it"
-            )
+        for mine, k in ((self.light_casts, self.cfg.shade_light_slots),
+                        (self.atlas_casts, scene.lights.alive.shape[0])):
+            pattern = light_casts(scene.lights, k)
+            if pattern != mine:
+                raise ValueError(
+                    f"scene changes the light cast pattern {mine} -> "
+                    f"{pattern}; construct a new Renderer for it"
+                )
 
     def pass_timings(self, camera: Camera, iters: int = 5, time_s: float = 0.0,
                      overlay=None) -> dict:

@@ -111,7 +111,8 @@ class KernelReloader:
             for name in (k for k in changed if k in self.modules):
                 importlib.reload(importlib.import_module(name))
             builder = self._rebuild()
-            plan = builder(r.cfg, r.outputs, r.light_casts, **vars(r.config))
+            plan = builder(r.cfg, r.outputs, r.light_casts, atlas_casts=r.atlas_casts,
+                           **vars(r.config))
             importlib.import_module(PIPELINE).check_plan(plan, r.outputs, tuple(r.state))
         except Exception as e:  # keep the old plan and kernels rendering
             self.stats["failures"] += 1
