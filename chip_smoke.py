@@ -34,8 +34,10 @@ code is non-zero:
    kernel timed with the bin lists of the heaviest tile alone, of the ten
    heaviest, and of none;
 7. the main path: Renderer over the bench orbit, 1 warm-up frame and 30
-   timed frames; per-pass times, the raster kernel's launch count, image
-   checks, the last frame written to renderer_tpu_torch/_build/;
+   timed frames; the raster kernel's launch count, image checks, the last
+   frame written to renderer_tpu_torch/_build/; then per-pass device times
+   from the frame trace over 8 more replayed frames (trace on, a capture
+   left out; trace off, a capture without the stamps);
 8. one frame of the main path with the raster kernel against the same
    frame with the plain raster version swapped in;
 9. torch.profiler over the main path: the device's busy time in one traced
@@ -52,6 +54,7 @@ code is non-zero:
 11. the rt main path (the rt switch, rt_scale 2, 4 shadow slots): 1
     warm-up and 30 timed frames, occlusion launches = frames x traced
     slots, image checks, darker than the rt-off frame; PNG to _build/;
+    per-pass device times as in phase 7;
 12. one rt frame with the occlusion kernel against the same frame with its
     plain version swapped in: identical planes and images;
 13. the profile of phase 9 over the rt main path;
@@ -323,7 +326,7 @@ from renderer_tpu_torch.scene.gltf import load_gltf  # noqa: E402
 from renderer_tpu_torch.utils import tree  # noqa: E402
 from renderer_tpu_torch.utils.compile_cache import enable_persistent_cache  # noqa: E402
 from renderer_tpu_torch.utils.image import psnr, read_png, resize_bilinear_u8, write_png  # noqa: E402
-from renderer_tpu_torch.utils.profiling import FrameStats  # noqa: E402
+from renderer_tpu_torch.utils.profiling import FrameStats, span_ms  # noqa: E402
 from torch_occlusion_cases import CASES as OCCLUSION_CASES  # noqa: E402
 from torch_plain_kernel_cases import BRUTE_CASES, RASTER_CASES  # noqa: E402
 from torch_raster_cases import CASES  # noqa: E402
@@ -333,6 +336,7 @@ N_INSTANCES = 10000
 TRI_CAPACITY = 1 << 17
 FRAMES = 30
 PROFILE_FRAMES = 3  # per traced window; the profiler's processing, not the frames, takes the time
+PASS_FRAMES = 8  # replayed frames under the frame trace, for the main paths' per-pass ms
 PSNR_GATE_DB = 60.0  # main path, kernel vs plain version (display-clamped)
 DEPTH_TOL = 1e-6  # raster kernel vs plain version (they should agree bit for bit)
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
@@ -943,6 +947,21 @@ def run_orbit(renderer, dev, scene_at=lambda k: None, warmup: int = 1, cam_at=be
         out = renderer.render(cam_at(k, dev), scene=scene_at(k))
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / frames, out
+
+
+def replayed_pass_ms(renderer, dev, frames: int = PASS_FRAMES) -> dict:
+    """Mean device ms of each pass over ``frames`` replayed frames of the
+    bench orbit, from the renderer's frame trace: turned on (the programs
+    captured again with the stamps, in a warm-up frame left out), read and
+    turned off, then one frame that captures the programs without the
+    stamps, so that what is timed next replays the untraced graphs."""
+    renderer.trace_frames(frames + 1)
+    run_orbit(renderer, dev, frames=frames)
+    record = renderer.frame_trace.read()
+    renderer.trace_frames(0)
+    renderer.render(bench_camera(0, dev))
+    synchronize_cards()
+    return span_ms(record, record["frames"][1:])
 
 
 def check_image(out):
@@ -3540,7 +3559,7 @@ def main(argv=None) -> int:
     img_base, coverage, brightness = check_image(out)
     write_png(os.path.join(enable_persistent_cache(), "chip_smoke_frame.png"),
               np.clip(img_base, 0.0, 1.0))
-    passes = renderer.pass_timings(orbit_camera(0.3 + 0.01 * (FRAMES - 1), WIDTH / HEIGHT, dev))
+    passes = replayed_pass_ms(renderer, dev)
     phase("main_path", f"{frame_ms:.2f} ms/frame = {1e3 / frame_ms:.2f} FPS over {FRAMES} frames "
                        f"({card}); {int(out['soup'].count)} visible triangles; raster launches "
                        f"{launches} = frames {frames}; coverage {coverage:.3f}, mean "
@@ -3661,7 +3680,7 @@ def main(argv=None) -> int:
                              "of covered pixels")
     write_png(os.path.join(enable_persistent_cache(), "chip_smoke_rt_frame.png"),
               np.clip(img_rt, 0.0, 1.0))
-    rt_passes = rt_renderer.pass_timings(orbit_camera(0.3 + 0.01 * (FRAMES - 1), WIDTH / HEIGHT, dev))
+    rt_passes = replayed_pass_ms(rt_renderer, dev)
     phase("rt_main_path", f"{rt_ms:.2f} ms/frame = {1e3 / rt_ms:.2f} FPS over {FRAMES} frames vs "
                           f"base {frame_ms:.2f} ms/frame ({card}); traced slots "
                           f"{[sl for sl in slots if sl is not None]}; occlusion launches "

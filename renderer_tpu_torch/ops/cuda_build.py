@@ -30,6 +30,7 @@ import weakref
 import torch
 
 from renderer_tpu_torch.utils.compile_cache import enable_persistent_cache
+from renderer_tpu_torch.utils.profiling import host_span
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 # -fmad=false: no FMA contraction, so a kernel rounds every product and sum
@@ -116,7 +117,8 @@ class CudaLibrary:
             if self._lib is None:
                 self.start()
                 if self._proc is not None:
-                    _, err = self._proc.communicate()
+                    with host_span(f"nvcc {os.path.basename(self.source)}"):
+                        _, err = self._proc.communicate()
                     rc, self._proc = self._proc.returncode, None
                     if rc != 0:
                         raise RuntimeError(f"nvcc failed on {self.source}:\n{err}")
@@ -171,7 +173,8 @@ class CudaKernel:
 
     def load(self):
         if self._fn is None:
-            self._fn = self.library.function(self.symbol, self.argtypes)
+            with host_span(f"CudaKernel.load {self.symbol}"):
+                self._fn = self.library.function(self.symbol, self.argtypes)
         return self._fn
 
     def launch(self, device_index: int, *args) -> None:
@@ -197,6 +200,7 @@ def launch_counts() -> dict:
 # tallies of dropped programs until they are read
 _TALLIES: list = []
 _RETIRED: list = []
+_BODY_RUNS = [0]  # conditional bodies run, over every tally settled so far
 
 
 def add_tally(tally: torch.Tensor, per_run: dict) -> None:
@@ -222,9 +226,17 @@ def settle_tallies() -> None:
         runs = int(tally.sum())
         if runs:
             tally.zero_()
+            _BODY_RUNS[0] += runs
             for kernel, n in per_run.items():
                 kernel._launches += runs * n
     _RETIRED.clear()
+
+
+def body_runs() -> int:
+    """Conditional bodies run on the devices so far, every program's (a
+    device read, as ``settle_tallies``)."""
+    settle_tallies()
+    return _BODY_RUNS[0]
 
 
 def check_inputs(kernel: str, *specs) -> int:
@@ -243,10 +255,11 @@ def check_inputs(kernel: str, *specs) -> int:
 
 def build_all(libraries) -> None:
     """Build several libraries at once: one nvcc each, all started together."""
-    for lib in libraries:
-        lib.start()
-    for lib in libraries:
-        lib.load()
+    with host_span("cuda_build.build_all"):
+        for lib in libraries:
+            lib.start()
+        for lib in libraries:
+            lib.load()
 
 
 def ptxas_summary(lib: CudaLibrary) -> str:

@@ -24,6 +24,12 @@ raster walks no triangle (the scan raster's count is 0: no block), and the
 result keeps the previous depth through ``torch.where``; in a captured
 frame program its chain is the body of a conditional node
 (``ops/control.cond``, the JAX package's ``lax.cond``) and does not run.
+
+Under a frame trace (``utils.profiling``) the cached atlas stamps three
+spans: ``shadow.signature`` (signatures and the selection),
+``shadow.slots`` (every slot's ``cond``: the copy of its previous depth and
+any band it renders) and ``shadow.stack`` (the slots stacked into the
+atlas).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from renderer_tpu_torch.ops.control import cond
 from renderer_tpu_torch.ops.geometry import clip_rows, coarse_cull, expand_clip_only
 from renderer_tpu_torch.ops.raster_cuda import rasterize_cuda
 from renderer_tpu_torch.ops.raster_scan import rasterize_scan
+from renderer_tpu_torch.utils.profiling import span
 
 # cube faces in axis order +x, -x, +y, -y, +z, -z; a receiver belongs to the
 # face of the major axis of its light -> receiver direction
@@ -361,16 +368,17 @@ def render_shadow_atlas_cached(scene, light_mats, model, lod, slots: tuple, slot
     frame. Returns (atlas, (atlas, new_sig, new_cursor))."""
     atlas_prev, sig_prev, cursor = prev
     n_slots = len(slots)
-    sig = shadow_signature(scene, light_mats, model, slots, progressive, weights)
-    if progressive > 1:
-        if budget != 1 or slot_size % progressive:
-            raise ValueError("progressive band updates need budget 1 and slot_size % K == 0")
-        sel, new_sig, new_cursor = select_shadow_updates(
-            sig.reshape(n_slots * progressive, -1), sig_prev.reshape(n_slots * progressive, -1),
-            cursor, 1)
-        sel, new_sig = sel.reshape(n_slots, progressive), new_sig.reshape(sig.shape)
-    else:
-        sel, new_sig, new_cursor = select_shadow_updates(sig, sig_prev, cursor, budget)
+    if progressive > 1 and (budget != 1 or slot_size % progressive):
+        raise ValueError("progressive band updates need budget 1 and slot_size % K == 0")
+    with span("shadow.signature"):
+        sig = shadow_signature(scene, light_mats, model, slots, progressive, weights)
+        if progressive > 1:
+            sel, new_sig, new_cursor = select_shadow_updates(
+                sig.reshape(n_slots * progressive, -1),
+                sig_prev.reshape(n_slots * progressive, -1), cursor, 1)
+            sel, new_sig = sel.reshape(n_slots, progressive), new_sig.reshape(sig.shape)
+        else:
+            sel, new_sig, new_cursor = select_shadow_updates(sig, sig_prev, cursor, budget)
     atlas = render_shadow_atlas_per_light(
         scene, light_mats, model, lod, slots, slot_size, caster_capacity, selected=sel,
         atlas_prev=atlas_prev, scene_min=scene_min, scene_max=scene_max, progressive=progressive,
@@ -442,18 +450,20 @@ def render_shadow_atlas_per_light(scene, light_mats, model, lod, slots: tuple, s
         return torch.cat(grid + [ones(s - 3 * fh)], dim=0)
 
     out = []
-    for slot, light in enumerate(slots):
-        if light is None:
-            out.append(ones(s))
-            continue
-        prev = None if atlas_prev is None else atlas_prev[slot]
-        row = None if selected is None else selected[slot]
-        on = None if row is None else (row.any() if progressive > 1 else row)
-        fresh = functools.partial(render_slot, *light, on, row, prev)
-        # lax.cond's counterpart: an unselected slot skips its chain under a
-        # captured frame program with conditional nodes (ops/control.py)
-        out.append(fresh() if on is None else cond(on, fresh, prev))
-    return torch.stack(out)
+    with span("shadow.slots"):
+        for slot, light in enumerate(slots):
+            if light is None:
+                out.append(ones(s))
+                continue
+            prev = None if atlas_prev is None else atlas_prev[slot]
+            row = None if selected is None else selected[slot]
+            on = None if row is None else (row.any() if progressive > 1 else row)
+            fresh = functools.partial(render_slot, *light, on, row, prev)
+            # lax.cond's counterpart: an unselected slot skips its chain under a
+            # captured frame program with conditional nodes (ops/control.py)
+            out.append(fresh() if on is None else cond(on, fresh, prev))
+    with span("shadow.stack"):
+        return torch.stack(out)
 
 
 # -- lookup ----------------------------------------------------------------------

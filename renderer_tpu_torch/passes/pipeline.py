@@ -85,6 +85,7 @@ from renderer_tpu_torch.ops.shadow import (
     render_shadow_atlas_cached, render_shadow_atlas_per_light, signature_weights,
 )
 from renderer_tpu_torch.parallel.sharding import current_shard
+from renderer_tpu_torch.utils.profiling import span
 
 # given to every frame by the Renderer: the scene, the camera, the
 # animation clock (a () tensor, under skinning) and the 2D overlay tables
@@ -410,7 +411,8 @@ def build_forward_plan(cfg: PipelineConfig, outputs=("image",), light_casts: tup
         this frame's out) or rendered whole every frame."""
         lights = scene_view.lights
         smin, smax = prepared.scene_min, prepared.scene_max
-        mats = light_matrices_cube(lights, smin, smax)
+        with span("shadow.lights"):  # the frame trace's; ops/shadow.py stamps the rest
+            mats = light_matrices_cube(lights, smin, smax)
         args = (scene_view, mats, prepared.model, prepared.lod, slots, cfg.shadow_size,
                 cfg.caster_capacity)
         if not cfg.shadow_cache:

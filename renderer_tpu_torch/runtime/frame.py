@@ -2,7 +2,8 @@
 (``renderer_tpu.runtime.frame``).
 
 - ``execute_plan`` runs the plan's passes in order, each inside a
-  ``torch.profiler`` range named ``forward.<pass>``.
+  ``torch.profiler`` range named ``forward.<pass>`` (under the frame trace,
+  also a span of it).
 - Runtime switches (``RuntimeConfig``: ``freeze_culling``,
   ``debug_aabbs``, ``shadows``, ``occlusion_culling``, ``rt``, ``hud``,
   ``reference_image``) with the two-frame latch: ``set_config`` edits a pending copy that the next frame
@@ -50,14 +51,24 @@
   layout copies into them. ``Renderer(..., replay=False)`` gives the eager
   frame (the counterpart of ``jax.disable_jit``), which chip_smoke and the
   tests compare against; ``replay=True`` on the CPU runs the programs'
-  static buffers without a capture. ``pass_timings`` and the HUD's overlay
-  pass (after the replays) stay eager.
+  static buffers without a capture. The HUD's overlay pass (after the
+  replays) stays eager.
+- The frame trace (``utils.profiling.FrameTrace``), off by default:
+  ``trace_frames(capacity)`` turns it on (0: off) and drops the programs,
+  which the next frame captures again. Each frame then stamps its passes and the donation on
+  the device (in the replayed graphs too, one ring per shard) and records
+  the host's spans (``render.check_lights``, the program's copy-in,
+  launch, copy-out and tail); ``frame_trace.read()`` returns the last
+  ``capacity`` frames on the profiler's clock. Off, ``render`` tests one
+  attribute, the program's host spans test one list each, and the graphs
+  hold no stamp.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -71,6 +82,7 @@ from renderer_tpu_torch.runtime.program import FrameProgram, donate, same_layout
 from renderer_tpu_torch.scene.types import Scene
 from renderer_tpu_torch.utils import tree
 from renderer_tpu_torch.utils.compile_cache import enable_persistent_cache
+from renderer_tpu_torch.utils.profiling import FrameTrace, flush, host_span, span
 
 
 @dataclasses.dataclass
@@ -106,6 +118,14 @@ def _record_pass(name: str):
     return torch.profiler.record_function(f"forward.{name}")
 
 
+@contextlib.contextmanager
+def _traced_pass(name: str):
+    """The wrap of a frame under the frame trace: the profiler range and a
+    span of the trace."""
+    with _record_pass(name), span(name):
+        yield
+
+
 def execute_plan(passes, outputs, state: dict, wrap=_record_pass, **external):
     """Run the passes in order. Returns (the named outputs, the new state):
     a pass reads ``state`` (the previous frame's persistent resources) for
@@ -121,6 +141,7 @@ def execute_plan(passes, outputs, state: dict, wrap=_record_pass, **external):
         if set(result) != set(p.writes):
             raise RuntimeError(f"pass {p.name!r} returned {sorted(result)}, claims {sorted(p.writes)}")
         env.update(result)
+    flush()  # the last pass's end, under the frame trace
     return {o: env[o] for o in outputs}, {k: env.get(k, v) for k, v in state.items()}
 
 
@@ -177,6 +198,16 @@ class Renderer:
         else:
             self.shard_states = [initial_state(self.cfg, d) for d in spmd_mesh.devices]
         self.stats = {"frames": 0, "last_ms": 0.0, "compiles": 0}
+        self.frame_trace = None
+
+    def trace_frames(self, capacity: int) -> None:
+        """Turn the frame trace on with a ring of ``capacity`` frames, or
+        off (0), dropping the programs: the next frame captures again."""
+        self.drop_plans(programs_only=True)
+        self.frame_trace = None
+        if capacity:
+            shards = self.spmd_mesh.devices if self.spmd_mesh is not None else (self.device,)
+            self.frame_trace = FrameTrace(capacity, shards)
 
     @property
     def state(self) -> dict:
@@ -277,22 +308,27 @@ class Renderer:
             copies[1][device] = to_device(self.scene, device)
         return copies[1][device]
 
-    def _run(self, wrap=None, commit=True, **frame) -> dict:
+    def _run(self, commit=True, **frame) -> dict:
         """One frame of the active plan, on one device or split over the
-        mesh; with ``commit`` its state becomes the renderer's."""
+        mesh; with ``commit`` its state becomes the renderer's (without, an
+        eager frame)."""
         passes = self.passes
-        kw = {} if wrap is None else {"wrap": wrap}
-        if self.replay and wrap is None and commit:
+        trace = self.frame_trace
+        if self.replay and commit:
             outs = self._program(passes, frame["camera"]).run(self.scene, **frame)
             if self.spmd_mesh is None:
                 return outs[0]
-        elif self.spmd_mesh is None:
-            outputs, state = execute_plan(passes, self.outputs, self.state,
-                                          **kw, **self._external(**frame))
-            if commit:
-                self.state = state
-            return outputs
         else:
+            kw = {}
+            if trace is not None:
+                trace.fill(trace.cards)
+                kw["wrap"] = _traced_pass
+            if self.spmd_mesh is None:
+                outputs, state = execute_plan(passes, self.outputs, self.state,
+                                              **kw, **self._external(**frame))
+                if commit:
+                    self.state = state
+                return outputs
             ext = [self._external(**frame, device=d) for d in self.spmd_mesh.devices]
             results = run_shards(self.spmd_mesh, lambda s: execute_plan(
                 passes, self.outputs, self.shard_states[s.index], **kw, **ext[s.index]))
@@ -318,9 +354,12 @@ class Renderer:
         if program is None:
             where, state = ((self.device, self._state) if self.spmd_mesh is None
                             else (self.spmd_mesh, self.shard_states))
+            trace = self.frame_trace
+            execute = execute_plan if trace is None else functools.partial(execute_plan,
+                                                                           wrap=_traced_pass)
             program = self._programs[key] = FrameProgram(
                 passes, self.outputs, state, self.scene, camera, where, self.cfg.skinning,
-                execute_plan)
+                execute, trace)
         if not program.graphs and self.device.type == "cuda":
             self.stats["compiles"] += 1  # this frame captures it
         return program
@@ -332,9 +371,18 @@ class Renderer:
         drives the skins' clips (``PipelineConfig.skinning``); ``overlay``
         (``ops.overlay.Overlay``, host tables) is what the ``hud`` switch
         blends in (None: nothing)."""
+        trace = self.frame_trace
+        if trace is not None:
+            trace.next_frame()
+            with trace.active():
+                return self._render(camera, scene, time_s, overlay)
+        return self._render(camera, scene, time_s, overlay)
+
+    def _render(self, camera, scene, time_s, overlay) -> dict:
         if scene is not None:
             if scene.lights is not self.scene.lights:
-                self._check_light_contract(scene)
+                with host_span("render.check_lights"):
+                    self._check_light_contract(scene)
             self.scene = scene
         t0 = time.perf_counter()
         outputs = self._run(camera=camera, time_s=time_s, overlay=overlay)
@@ -364,30 +412,3 @@ class Renderer:
                     f"scene changes the light cast pattern {mine} -> "
                     f"{pattern}; construct a new Renderer for it"
                 )
-
-    def pass_timings(self, camera: Camera, iters: int = 5, time_s: float = 0.0,
-                     overlay=None) -> dict:
-        """Mean device milliseconds of each pass, from CUDA events around
-        the pass over ``iters`` runs (not counted as frames; the state is
-        not advanced). Under the split frame the mean is over the shards
-        too; shards on one card share its stream, so a pass's span there
-        holds the other shards' work queued meanwhile."""
-        if self.device.type != "cuda":
-            raise RuntimeError("pass timings need a CUDA device")
-        pairs: dict[str, list] = {}
-
-        @contextlib.contextmanager
-        def timed(name):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            with _record_pass(name):
-                yield
-            end.record()
-            pairs.setdefault(name, []).append((start, end))
-
-        for _ in range(iters):
-            self._run(wrap=timed, commit=False, camera=camera, time_s=time_s, overlay=overlay)
-        for d in set(self.spmd_mesh.devices if self.spmd_mesh is not None else (self.device,)):
-            torch.cuda.synchronize(d)
-        return {n: sum(s.elapsed_time(e) for s, e in v) / len(v) for n, v in pairs.items()}

@@ -58,6 +58,15 @@ kernel's launches during the capture and adds them at every replay
 (``CudaKernel.count``); those inside conditional nodes count through the
 bodies' tallies on the device (``ops/control.py``, one ``Conditional`` per
 device, shared by its shards).
+
+The frame trace (``utils.profiling.FrameTrace``, given as ``trace``; the
+Renderer drops its programs when it turns the trace on or off): a run then
+records the host spans ``copy_in`` (the externals and the frame's id),
+``launch`` (the replays and the launch bookkeeping, or the warm-up and the
+capture), ``copy_out`` and ``tail``, and the capture takes the stamps of
+every pass (``execute``'s wrap) and of the donation into the graphs, so
+each replay stamps its own frame. Without it a run is the same calls,
+unrecorded, and the graphs hold no stamp.
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ from renderer_tpu_torch.ops import control, cuda_build
 from renderer_tpu_torch.parallel.sharding import Mesh, run_shards
 from renderer_tpu_torch.passes.pipeline import EXTERNAL
 from renderer_tpu_torch.utils import tree
+from renderer_tpu_torch.utils.profiling import flush, host_span, span
 
 EAGER_TAIL = ("overlay_pass",)
 # a segment's capture refuses unsafe CUDA calls from its own thread only
@@ -219,10 +229,11 @@ class FrameProgram:
     """The frame of one plan (``passes``, writing ``outputs``) over static
     buffers made from ``scene`` and ``camera``, on ``device``, or over the
     shards of a ``Mesh`` passed as ``device`` (``state`` is then the list
-    of the shards' states). ``run`` renders a frame."""
+    of the shards' states). ``run`` renders a frame, recorded into
+    ``trace`` (a ``utils.profiling.FrameTrace``) if given."""
 
     def __init__(self, passes, outputs, state, scene, camera, device, skinning: bool,
-                 execute):
+                 execute, trace=None):
         self.mesh = device if isinstance(device, Mesh) else None
         if self.mesh is None:
             self.devices = (torch.empty(0, device=device).device,)  # "cuda" -> "cuda:0"
@@ -245,6 +256,7 @@ class FrameProgram:
                      if skinning else None)
         self._time_s = 0.0
         self._execute_plan = execute
+        self.trace = trace
         self.capture_s = None  # host seconds of the capture
         self.pool_bytes = None  # memory reserved by the capture (its pools), all devices
         self.conditional = None  # why not, when the capture made no conditional node
@@ -272,7 +284,9 @@ class FrameProgram:
                "time": None if self.time is None else self.time[d], "overlay": None}
         out, new_state = self._execute_plan(self.passes, self.graph_outputs, self.states[i],
                                             **ext)
-        donate(self.states[i], new_state)
+        with span("donate"):
+            donate(self.states[i], new_state)
+        flush()
         return out
 
     def _each_shard(self, fn, segments=None) -> list:
@@ -296,30 +310,37 @@ class FrameProgram:
         card after the first run) or the plan run over the static buffers;
         the outputs copied out; the eager tail. Returns each shard's
         outputs."""
-        for d in self.cards:
-            self.scene[d].update(scene)
-            self.camera[d].update(camera)
-            if self.time is not None and time_s != self._time_s:
-                self.time[d].fill_(float(time_s))
-        self._time_s = time_s
-        if self._steps:
-            self.replay()
-            for kernel, n in self._launches.items():
-                kernel.count(n)
-            outs = self._static_out
-        elif self.device.type == "cuda":
-            outs = self._warm_up_and_capture()
-        else:
-            outs = self._each_shard(self._shard_frame)
-        outs = [_clone(o) for o in outs]
-        if self.tail:
-            def tail(i):
-                return self._execute_plan(self.tail, [o for o in self.outputs if o not in outs[i]],
-                                          {}, **outs[i], overlay=overlay)[0]
+        with host_span("copy_in"):
+            for d in self.cards:
+                self.scene[d].update(scene)
+                self.camera[d].update(camera)
+                if self.time is not None and time_s != self._time_s:
+                    self.time[d].fill_(float(time_s))
+            self._time_s = time_s
+            if self.trace is not None:
+                self.trace.fill(self.cards)
+        with host_span("launch"):
+            if self._steps:
+                self.replay()
+                for kernel, n in self._launches.items():
+                    kernel.count(n)
+                outs = self._static_out
+            elif self.device.type == "cuda":
+                outs = self._warm_up_and_capture()
+            else:
+                outs = self._each_shard(self._shard_frame)
+        with host_span("copy_out"):
+            outs = [_clone(o) for o in outs]
+        with host_span("tail"):
+            if self.tail:
+                def tail(i):
+                    return self._execute_plan(self.tail,
+                                              [o for o in self.outputs if o not in outs[i]],
+                                              {}, **outs[i], overlay=overlay)[0]
 
-            for out, more in zip(outs, self._each_shard(tail)):
-                out.update(more)
-        return [{o: out[o] for o in self.outputs} for out in outs]
+                for out, more in zip(outs, self._each_shard(tail)):
+                    out.update(more)
+            return [{o: out[o] for o in self.outputs} for out in outs]
 
     def replay(self) -> None:
         """Launch the captured graphs in capture order on each device's
@@ -343,11 +364,14 @@ class FrameProgram:
         sides = [control.own_stream(d, "capture") for d in self.cards]
         for side, main in zip(sides, mains):
             side.wait_stream(main)
-        with _on(sides):
+        with _on(sides), host_span("warm_up"):
             outs = self._each_shard(self._shard_frame)
         for side, main in zip(sides, mains):
             main.wait_stream(side)
-        self._capture(sides)
+        with host_span("capture"):
+            self._capture(sides)
+        if self.trace is not None:
+            self.trace.captures.append(self.pool_bytes)
         return outs
 
     def _capture(self, sides) -> None:
