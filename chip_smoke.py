@@ -11,8 +11,8 @@ code is non-zero:
 1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
    TF32 off for matmuls and cuDNN;
 2. build every kernel from renderer_tpu_torch/csrc/ (raster.cu,
-   occlusion.cu, probe.cu, scan_raster.cu, rt_brute.cu, and graph_cond.cu,
-   the conditional nodes of the captured frames; one nvcc each, started
+   occlusion.cu, probe.cu, scan_raster.cu, rt_brute.cu, shade.cu, and
+   graph_cond.cu, the conditional nodes of the captured frames; one nvcc each, started
    together), with ptxas's registers and spills;
 3. raster kernel against its plain PyTorch version on the test cases of
    tests/torch_raster_cases.py (bit-identical; the CPU tests hold the plain
@@ -252,6 +252,18 @@ code is non-zero:
     version bit for bit at the band of most casters and at its rows of the
     whole slot's view, each timed in a graph of 100 calls beside its bound;
     the phase's peak allocated memory ([envelope_cold]).
+43. kernel 7, the shading core (ops/pbr.py shade_samples_kernel,
+    csrc/shade.cu), run after phase 38, at the benchmark's configurations
+    (SHADE_CONFIGS: sponza10k_1080p and envelope16x4096, their scene and
+    pipeline written out): every call of one eager frame (the checkerboard
+    lattice, the fix's batch) against its plain version bit for bit, timed
+    in a graph of 100 calls, by events and on the device beside its bound
+    (shade_bound) and the plain version's time in a graph; the device ops
+    of the frame's shade_pbr call: the ATen ops it dispatches equal those
+    of the same call with the core's results given but kernel 7's
+    wrapper's allocation and view (no op of the plain core is left), one
+    replay's device ops by name under the profiler, both calls' times in
+    a graph; launches per replayed frame ([shade]).
 
 Every Renderer on the card replays one captured graph per
 frame after its switch set's first frame (the capture), so the timed
@@ -263,8 +275,9 @@ phases render eager frames (a replay runs no pass's range).
 Every main path runs with every kernel's launch count set to 0 just
 before it and read just after (the raster kernel once per frame and per
 atlas view, the occlusion kernel once per rt frame and traced slot, on
-the plain paths kernels 5 and 6 in their stead, the kernels of no path
-never). Then a line of each path kernel's launches per path, each
+the plain paths kernels 5 and 6 in their stead, kernel 7 as often per
+frame as ``shades`` says of the path's configuration, the kernels of no
+path never). Then a line of each path kernel's launches per path, each
 phase's host seconds, the run's total seconds, one JSON
 line listing every kernel, the card's name and power limit, and, last,
 the JSON result line.
@@ -418,6 +431,22 @@ BENCH_KEYS = (
 BENCH_GOLDEN_KEY = "psnr_vs_golden_db"
 # phase 40: the split frame over two shards of the card, in bench.py's tiers
 GRAPH_CALLS = 100  # calls per captured graph (graph_ms_per_call: kernels 5 and 6)
+SHADE_FRAMES = 8  # replayed frames over which phase 43 counts kernel 7's launches
+SHADE_PLAIN_CALLS = 3  # plain calls per captured graph in phase 43
+SHADE_PASS_CALLS = 10  # shade_pbr calls per captured graph in phase 43
+SHADE_WRAPPER_OPS = {"empty", "permute"}  # ATen ops of shade_samples_kernel: its output, vp_inv's .T
+# FP32 operations of the plain formulas per covered sample, kernel 7's bound
+# (phase 43): the unprojection, attributes, geometric normal, view vector and
+# ambient (123); barycentrics from the records (18); a base-colour tap set
+# (wrap, lod, four taps of three channels and their weights) with sRGB and
+# the base factor (67); the normal map's frame, tap set, mapped normal and
+# Toksvig (139); trilinear's second tap set (56 each); a live light's
+# direction, attenuation and GGX + Lambert (136); a shadow-map lookup with
+# its offset, projection, bias and 2x2 PCF (100)
+SHADE_OPS = dict(base=123, records=18, albedo=67, normal_map=139, trilinear=56, light=136,
+                 shadow=100)
+SHADE_SAMPLE_BYTES = 20  # depth and id read, the colour written
+SHADE_RECORD_BYTES = 180  # the 45 record columns read, once per distinct triangle
 GRAPH_CALL_REPLAYS = 10  # replays of it timed
 SPLIT_SHARDS = 2
 SPLIT_TIERS = {  # name -> (config changes, switches)
@@ -486,6 +515,18 @@ ENVELOPE_BANDS = 16  # bands of 4096x256
 ENVELOPE_LIMITS = dict(max_instances=16384, max_vertices=1 << 16, max_triangles=1 << 16,
                        max_materials=64, max_lights=ENVELOPE_SLOTS)
 ENVELOPE_LIGHT = 7  # the light that moves, then orbits
+# phase 43: the benchmark's configurations (benchmark/configs/), written out:
+# name -> (scene limits, envelope lights (0: the scene's own), pipeline options
+# beside the main path's); each renders with shadows on
+SHADE_CONFIGS = {
+    "sponza10k_1080p": (None, 0, dict(shadow_slots=4, shadow_size=512,
+                                      shadow_tri_capacity=TRI_CAPACITY)),
+    "envelope16x4096": (ENVELOPE_LIMITS, ENVELOPE_SLOTS,
+                        dict(shade_light_slots=2, shadow_slots=ENVELOPE_SLOTS,
+                             shadow_size=ENVELOPE_SIZE, shadow_tri_capacity=0)),
+}
+SHADE_OPTIONS = dict(shade_rate="checkerboard", shade_fix=True, shadow_cache=True,
+                     shadow_update_budget=1, shadow_progressive=16)
 ENVELOPE_MOVED = (0.1, -1.0, 0.6)
 ENVELOPE_STEADY = 20  # timed frames with every unit clean
 ENVELOPE_ORBIT = 20  # frames with light 7 moving every frame
@@ -510,9 +551,9 @@ PROJECTILES = 32
 CONTROLLER_FRAMES = 30
 RELOAD_MODULE = "renderer_tpu_torch.ops.shading"  # a watched ops module touched in phase 35
 GOLDEN_DIR = os.path.join(ROOT, "assets", "golden")
-# every kernel wrapper's launcher (launches are counted there)
+# every kernel wrapper's launcher (launches are counted there), checked path by path
 KERNELS = (rc.RASTER_TILES, oc.OCCLUSION_TILES, probe_cuda.ADD_ONE, probe_cuda.TRANSPOSE,
-           rs.SCAN_RASTER, brute.RT_BRUTE)
+           rs.SCAN_RASTER, brute.RT_BRUTE, tpbr.SHADE)
 
 
 PHASE_SECONDS = {}  # phase -> host seconds from the previous phase's line to its own
@@ -1169,6 +1210,7 @@ def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, 
         n = FRAMES + n_warm
         want = {kn.symbol: 0 for kn in KERNELS}
         want[rc.RASTER_TILES.symbol] = n + (0 if not shadows else views if cond_on else n * views)
+        want[tpbr.SHADE.symbol] = n * shades(c, r.config)
         got = dict(tier_launches[tier])
         if scene_at is moved_scene:  # data-dependent: bounded here, exact in shadow_updates
             lo, hi = n + views, n * (1 + views)
@@ -1329,16 +1371,32 @@ def kernel_at_soup(name, clip, valid, with_bary, card, band_rows=None, size=(WID
             f"{100 * r_bound / k_ms:.1f}% of the kernel's time ({card})", k_ms, r_bound, r_by)
 
 
-def launches_of(run, want: int, what: str):
+def shades(cfg, switches=None) -> int:
+    """Kernel 7's launches per frame of ``cfg`` under the runtime switches
+    (a dict or a RuntimeConfig): none for Lambert or the debug view, 2 for
+    a checkerboard or quarter frame with its fix (the fix is skipped under
+    rt), else 1, each per shard of a split frame; 1 more for the reference
+    view."""
+    sw = dict(vars(switches) if hasattr(switches, "__dict__") else switches or {})
+    if sw.get("debug_aabbs") or cfg.shading == "lambert":
+        per_shard = 0
+    else:
+        per_shard = 2 if cfg.shade_rate != "full" and cfg.shade_fix and not sw.get("rt") else 1
+    reference = sw.get("reference_image") and not sw.get("hud") and not sw.get("debug_aabbs")
+    return per_shard * cfg.spmd_devices + int(bool(reference))
+
+
+def launches_of(run, want: int, what: str, shade: int):
     """Run ``run()`` with every kernel's count at 0; the raster kernel must
-    launch ``want`` times and no other kernel at all. Returns run()'s
-    result."""
+    launch ``want`` times, kernel 7 ``shade`` times and no other kernel at
+    all. Returns run()'s result."""
     for kernel in KERNELS:
         kernel.launches = 0
     result = run()
     got = {kn.symbol: kn.launches for kn in KERNELS}
     expect = {kn.symbol: 0 for kn in KERNELS}
     expect[rc.RASTER_TILES.symbol] = want
+    expect[tpbr.SHADE.symbol] = shade
     if got != expect:
         raise AssertionError(f"{what}: launches {got}, want {expect}")
     return result
@@ -1381,7 +1439,8 @@ def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launch
         line = "; ".join(tried + [f"capacity {cap} (expansion {2 * cap})"])
         r = city_renderer(cap, occ)
         ms, out = launches_of(lambda: run_orbit(r, dev, cam_at=city_camera, frames=CITY_FRAMES),
-                              CITY_FRAMES + 1, f"city {mode}")
+                              CITY_FRAMES + 1, f"city {mode}",
+                              (CITY_FRAMES + 1) * shades(r.cfg, r.config))
         path_launches[f"city_{mode}"] = CITY_FRAMES + 1
         check_image(out)
         runs[mode] = dict(cap=cap, demand=demand, count=count, ms=ms, renderer=r, line=line)
@@ -1435,7 +1494,8 @@ def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launch
         raise AssertionError(f"frozen frame at the freeze pose: tri_id equal "
                              f"{torch.equal(frozen['vis'].tri_id, unfrozen['vis'].tri_id)}, "
                              f"PSNR {frozen_psnr:.2f} dB")
-    freeze_ms, out = launches_of(lambda: run_orbit(r, dev), FRAMES + 1, "freeze")
+    freeze_ms, out = launches_of(lambda: run_orbit(r, dev), FRAMES + 1, "freeze",
+                                 (FRAMES + 1) * shades(r.cfg, r.config))
     path_launches["freeze"] = FRAMES + 1
     counts = {int(unfrozen["soup"].count), int(frozen["soup"].count), int(out["soup"].count)}
     if len(counts) != 1:
@@ -1459,7 +1519,8 @@ def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launch
     (clip, valid, *_), kw, _ = ras.calls[0]
     box_line, *_ = kernel_at_soup("box soup", clip, valid, kw["with_bary"], card,
                                   band_rows=DEBUG_BAND_ROWS)
-    debug_ms, out = launches_of(lambda: run_orbit(r, dev), FRAMES + 1, "debug_aabbs")
+    debug_ms, out = launches_of(lambda: run_orbit(r, dev), FRAMES + 1, "debug_aabbs",
+                                (FRAMES + 1) * shades(r.cfg, r.config))
     path_launches["debug_aabbs"] = FRAMES + 1
     check_image(out)
     phase("debug_aabbs", f"{n_boxes} box triangles = 12 x {n_visible} visible instances (capacity "
@@ -1481,7 +1542,8 @@ def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launch
     turns = {"plain": [], "cluster": []}
     for name in ("plain", "cluster", "cluster", "plain"):
         rr = renderer if name == "plain" else r_cl
-        ms, _ = launches_of(lambda: run_orbit(rr, dev), FRAMES + 1, f"cluster cull ({name})")
+        ms, _ = launches_of(lambda: run_orbit(rr, dev), FRAMES + 1, f"cluster cull ({name})",
+                            (FRAMES + 1) * shades(rr.cfg, rr.config))
         turns[name].append(ms)
     path_launches["cluster_cull"] = 2 * (FRAMES + 1)
     phase("cluster_cull", f"bench pose 0: {listed} clusters listed, {kept} kept = "
@@ -1575,7 +1637,8 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
         raise AssertionError("pose pass: the bench scene has no skin, its vertices must stay")
     cfg_sk = dataclasses.replace(cfg, skinning=True)
     r_sk = Renderer(scene, cfg_sk, outputs=outputs, device=dev)
-    sk_ms, out = launches_of(lambda: run_orbit(r_sk, dev), FRAMES + 1, "skinned")
+    sk_ms, out = launches_of(lambda: run_orbit(r_sk, dev), FRAMES + 1, "skinned",
+                             (FRAMES + 1) * shades(r_sk.cfg, r_sk.config))
     path_launches["skinned"] = FRAMES + 1
     check_image(out)
     with Recorder(pipeline_module, "rasterize_cuda") as ras:  # r_sk's frames are replays
@@ -1610,7 +1673,8 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
         return [r_anim.render(cam, time_s=k / SKIN_FRAMES)["image"] for k in range(SKIN_FRAMES)]
 
     with Recorder(pipeline_module, "pose_scene") as poses:
-        images = launches_of(animate, SKIN_FRAMES, "skinned scene")
+        images = launches_of(animate, SKIN_FRAMES, "skinned scene",
+                             SKIN_FRAMES * shades(r_anim.cfg, r_anim.config))
     path_launches["skinned_scene"] = SKIN_FRAMES
     pos = [c[2].meshes.positions for c in poses.calls]
     moved = min(float((pos[k] - pos[k - 1]).abs().max()) for k in range(1, SKIN_FRAMES))
@@ -1627,7 +1691,8 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
     # 27. the quarter shade rate with its fix ----------------------------------------
     cfg_q = dataclasses.replace(cfg, shade_rate="quarter")
     r_q = Renderer(scene, cfg_q, outputs=outputs, device=dev)
-    q_ms, out = launches_of(lambda: run_orbit(r_q, dev), FRAMES + 1, "quarter")
+    q_ms, out = launches_of(lambda: run_orbit(r_q, dev), FRAMES + 1, "quarter",
+                            (FRAMES + 1) * shades(r_q.cfg, r_q.config))
     path_launches["quarter"] = FRAMES + 1
     check_image(out)
     q_psnr = psnr_min(gate_frames(renderer, dev), gate_frames(r_q, dev))
@@ -1657,7 +1722,8 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
     cfg_ss = dataclasses.replace(cfg, ssaa=SSAA, aa="none")
     size_ss = cfg_ss.render_size
     r_ss = Renderer(scene, cfg_ss, outputs=outputs, device=dev)
-    ss_ms, out = launches_of(lambda: run_orbit(r_ss, dev), FRAMES + 1, "ssaa")
+    ss_ms, out = launches_of(lambda: run_orbit(r_ss, dev), FRAMES + 1, "ssaa",
+                             (FRAMES + 1) * shades(r_ss.cfg, r_ss.config))
     path_launches["ssaa2"] = FRAMES + 1
     check_image(out)
     with Recorder(pipeline_module, "rasterize_cuda") as ras:  # r_ss's frames are replays
@@ -1672,7 +1738,8 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
     # 29. Lambert --------------------------------------------------------------------
     r_l = Renderer(scene, dataclasses.replace(cfg, shading="lambert", aa="none"), outputs=outputs,
                    device=dev)
-    l_ms, out = launches_of(lambda: run_orbit(r_l, dev), FRAMES + 1, "lambert")
+    l_ms, out = launches_of(lambda: run_orbit(r_l, dev), FRAMES + 1, "lambert",
+                            (FRAMES + 1) * shades(r_l.cfg, r_l.config))
     path_launches["lambert"] = FRAMES + 1
     check_image(out)
     phase("lambert", f"Lambert: {l_ms:.2f} ms/frame = {1e3 / l_ms:.2f} FPS over {FRAMES} frames "
@@ -1796,7 +1863,8 @@ def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, car
     r_col = Renderer(glb, cfg_col, outputs=outputs, device=dev)
     col_ms, out = launches_of(lambda: run_orbit(r_col, dev, cam_at=colonnade_camera,
                                                 frames=COLONNADE_FRAMES),
-                              COLONNADE_FRAMES + 1, "colonnade")
+                              COLONNADE_FRAMES + 1, "colonnade",
+                              (COLONNADE_FRAMES + 1) * shades(r_col.cfg, r_col.config))
     path_launches["colonnade"] = COLONNADE_FRAMES + 1
     check_image(out)
     t0 = time.perf_counter()
@@ -1877,7 +1945,7 @@ def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, car
     turns = {}
     for mode in ("plain", "stream", "stream", "plain"):
         run = launches_of(lambda: stream_run(mode == "stream"), STREAM_FRAMES + 1,
-                          f"streaming ({mode})")
+                          f"streaming ({mode})", (STREAM_FRAMES + 1) * shades(cfg))
         turns.setdefault(mode, []).append(run)
         if mode == "stream" and len(turns["stream"]) == 1:
             run["streamer"].close()
@@ -1968,7 +2036,7 @@ def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, car
         torch.cuda.synchronize()
         last_ms = (time.perf_counter() - t0) * 1e3 / CITY_FRAMES
 
-    launches_of(walk, n_frames, "autocap")
+    launches_of(walk, n_frames, "autocap", n_frames * shades(cfg_city))
     path_launches["autocap"] = n_frames
     over = []
     for k in range(n_frames - CITY_FRAMES, n_frames):
@@ -2005,7 +2073,8 @@ def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, car
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / FRAMES, out
 
-    proj_ms, out = launches_of(projectile_run, FRAMES + 1, "projectiles")
+    proj_ms, out = launches_of(projectile_run, FRAMES + 1, "projectiles",
+                               (FRAMES + 1) * shades(r_proj.cfg, r_proj.config))
     path_launches["projectiles"] = FRAMES + 1
     check_image(out)
     alive = projectiles.alive_count()
@@ -2027,7 +2096,8 @@ def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, car
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / CONTROLLER_FRAMES, frames
 
-    ctl_ms, frames = launches_of(controller_run, CONTROLLER_FRAMES, "camera controller")
+    ctl_ms, frames = launches_of(controller_run, CONTROLLER_FRAMES, "camera controller",
+                                 CONTROLLER_FRAMES * shades(renderer.cfg, renderer.config))
     path_launches["camera_controller"] = CONTROLLER_FRAMES
     if not all(bool(torch.isfinite(f).all()) for f in frames) or torch.equal(frames[0], frames[-1]):
         raise AssertionError("camera controller: frames not finite or not moving")
@@ -2038,7 +2108,8 @@ def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, car
     load_renderer(prefix, fresh)
     cam_next = bench_camera(FRAMES, dev)
     a, b = launches_of(lambda: (r_stream.render(cam_next), fresh.render(cam_next)), 2,
-                       "checkpoint")
+                       "checkpoint", shades(r_stream.cfg, r_stream.config)
+                       + shades(fresh.cfg, fresh.config))
     if not (torch.equal(a["image"], b["image"]) and torch.equal(a["vis"].tri_id, b["vis"].tri_id)):
         raise AssertionError("checkpoint: the loaded renderer's next frame differs")
     path_launches["checkpoint"] = 2
@@ -2074,7 +2145,8 @@ def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, car
     if not swapped or reloader.stats != {"reloads": 1, "failures": 0}:
         raise AssertionError(f"reload: poll {swapped}, stats {reloader.stats}, "
                              f"{reloader.last_error}")
-    after = launches_of(lambda: renderer.render(cam0), 1, "reload")
+    after = launches_of(lambda: renderer.render(cam0), 1, "reload",
+                        shades(renderer.cfg, renderer.config))
     path_launches["reload"] = 1
     if not (torch.equal(before["image"], after["image"])
             and torch.equal(before["vis"].tri_id, after["vis"].tri_id)):
@@ -2126,10 +2198,11 @@ def plain_run(name: str, changes: dict, switches: dict, dev, frames: int, warmup
             trt.slot_lights(r.atlas_casts, r.cfg.shadow_slots))
 
 
-def plain_launches_wanted(switches: dict, rendered: int, slots) -> dict:
-    """Each kernel's launches for ``rendered`` plain frames: kernel 5 once
-    per frame and per atlas view rendered (shadows), kernel 6 once per
-    traced directional slot (rt), no other kernel."""
+def plain_launches_wanted(changes: dict, switches: dict, rendered: int, slots) -> dict:
+    """Each kernel's launches for ``rendered`` plain frames of the config
+    ``changes``: kernel 5 once per frame and per atlas view rendered
+    (shadows), kernel 6 once per traced directional slot (rt), kernel 7
+    ``shades`` times per frame, no other kernel."""
     views = sum(atlas_views(slots))
     traced = sum(1 for sl in slots if sl is not None and sl[1])
     want = {k.symbol: 0 for k in KERNELS}
@@ -2138,6 +2211,7 @@ def plain_launches_wanted(switches: dict, rendered: int, slots) -> dict:
     atlas = views * (1 if control.conditional_nodes()[0] else rendered)
     want[rs.SCAN_RASTER.symbol] = rendered + (atlas if switches.get("shadows") else 0)
     want[brute.RT_BRUTE.symbol] = rendered * (traced if switches.get("rt") else 0)
+    want[tpbr.SHADE.symbol] = rendered * shades(PipelineConfig(**changes), switches)
     return want
 
 
@@ -2193,7 +2267,7 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
             k.launches = 0
         card_runs.append(plain_run(name, changes, switches, dev, n, warmup=True))
         got = {k.symbol: k.launches for k in KERNELS}
-        want = plain_launches_wanted(switches, *card_runs[-1][4:])
+        want = plain_launches_wanted(changes, switches, *card_runs[-1][4:])
         if got != want:
             raise AssertionError(f"plain {name} {label}: launches {got}, want {want}")
         launched = {k: launched[k] + v for k, v in got.items()}
@@ -2480,6 +2554,7 @@ def scan_raster_phase(scene, cfg, dev, card) -> dict:
         want = {k.symbol: 0 for k in KERNELS}
         want[rs.SCAN_RASTER.symbol] = n_scan
         want[rc.RASTER_TILES.symbol] = int(tile_raster)
+        want[tpbr.SHADE.symbol] = shades(r.cfg, r.config)
         if got != want:
             raise AssertionError(f"{label}: launches {got}, want {want}")
         if len(rec.calls) != len(names):
@@ -2625,6 +2700,171 @@ def rt_brute_phase(dev, card) -> dict:
     return entry
 
 
+def shade_bound(frame, vis, samples, bary) -> tuple:
+    """Kernel 7's least time for one call (``bound``): SHADE_SAMPLE_BYTES a
+    sample (12 more with given barycentrics, 17 more for a list entry) and
+    SHADE_RECORD_BYTES per distinct covered triangle, at HBM's rate (texel
+    and shadow-map words not counted: they come mostly from L1/L2), and
+    SHADE_OPS per covered sample at the FP32 rate. Returns (ms, what bounds
+    it, samples, covered, distinct triangles, operations)."""
+    _, _, tri = tpbr.sample_pixels(frame, vis, samples)
+    n, cov = tri.numel(), int((tri != -1).sum())
+    distinct = int(torch.unique(tri[tri != -1]).numel())
+    n_bytes = (n * (SHADE_SAMPLE_BYTES + (12 if bary is not None else 0)
+                    + (0 if isinstance(samples, tpbr.Lattice) else 17))
+               + distinct * SHADE_RECORD_BYTES)
+    alive = frame.lights.alive[:frame.n_lights].tolist()
+    casts = frame.shadow.light_casts if frame.shadow is not None else ()
+    shadowed = sum(1 for li, on in enumerate(alive) if on and li < len(casts)
+                   and 0 <= casts[li][0] < frame.shadow.atlas.shape[0])
+    tex, nm = frame.enable_textures, frame.enable_textures and frame.enable_normal_maps
+    per = (SHADE_OPS["base"] + (SHADE_OPS["records"] if bary is None else 0)
+           + (SHADE_OPS["albedo"] if tex else 0) + (SHADE_OPS["normal_map"] if nm else 0)
+           + (SHADE_OPS["trilinear"] * (tex + nm) if frame.trilinear else 0)
+           + SHADE_OPS["light"] * sum(alive) + SHADE_OPS["shadow"] * shadowed)
+    return (*bound(n_bytes, cov * per), n, cov, distinct, cov * per)
+
+
+def shade_renderer(name: str, cfg, dev, replay=None):
+    """A renderer of SHADE_CONFIGS[name] (its scene at seed 0), shadows on."""
+    limits, lights, opts = SHADE_CONFIGS[name]
+    scene = sponza_like_scene(N_INSTANCES, limits=limits and SceneLimits(**limits), device=dev)
+    if lights:
+        scene = scene._replace(lights=shadow_envelope_lights(lights, device=dev))
+    r = Renderer(scene, dataclasses.replace(cfg, **SHADE_OPTIONS, **opts),
+                 outputs=("image", "vis"), device=dev, replay=replay)
+    r.set_config(shadows=True)
+    r.apply_config_now()
+    return r
+
+
+def shade_pass_ops(args, kw, outs) -> tuple:
+    """``shade_pbr(*args, **kw)`` as it runs (kernel 7), and with the shading
+    core's results ``outs`` given in the calls' order (no core at all):
+    for each, the ATen ops it dispatches by name and count (the ops a
+    capture makes the graph's nodes of), the device ops of one replay of
+    its captured graph under torch.profiler by name and count, and its ms
+    a call by CUDA events in a graph of SHADE_PASS_CALLS calls."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Dispatched(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    def ops(fn):
+        with Dispatched() as mode:
+            fn()
+        graph = captured(fn, 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        graph.reset()
+        device = Counter({e.key.replace("(anonymous namespace)::", "").split("(")[0][-48:]:
+                          e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
+        return mode.ops, device, graph_ms_per_call(fn, SHADE_PASS_CALLS, 5)
+
+    def given():
+        calls = iter(outs)
+        kernel = tpbr.shade_samples_kernel
+        tpbr.shade_samples_kernel = lambda *_a, **_k: next(calls)
+        try:
+            return tpbr.shade_pbr(*args, **kw)
+        finally:
+            tpbr.shade_samples_kernel = kernel
+
+    return ops(lambda: tpbr.shade_pbr(*args, **kw)), ops(given)
+
+
+def shade_phase(cfg, dev, card) -> dict:
+    """Phase 43: kernel 7 on the benchmark's configurations (SHADE_CONFIGS:
+    their scene and pipeline, one eager frame at the bench orbit's pose):
+    each call of the frame (the checkerboard lattice, the fix's batch)
+    against its plain version bit for bit, their times (in a captured graph,
+    by events, on the device) beside the bound (``shade_bound``) and the
+    plain version's time in a graph; the shade pass's device ops with and
+    without the core (``shade_pass_ops``); the launches per replayed frame.
+    ``cfg`` is the main path's. Returns its kernels-line entry (sponza's
+    lattice call)."""
+    kernel, plain = tpbr.shade_samples_kernel, tpbr.shade_samples_plain_at
+    lines, entry, per_frame = [], None, {}
+    cam = orbit_camera(0.3, WIDTH / HEIGHT, dev)
+    for name in SHADE_CONFIGS:
+        r = shade_renderer(name, cfg, dev, replay=False)
+        with Recorder(pipeline_module, "shade_pbr") as pass_rec, \
+                Recorder(tpbr, "shade_samples_kernel") as rec:
+            r.render(cam)
+        for args, _, out in rec.calls:
+            frame, vis, samples, bary, planes = args
+            plain_args = (frame, vis, samples, bary,
+                          None if planes is None else (lambda *_, p=planes: p))
+            if not torch.equal(out, plain(*plain_args)):
+                raise AssertionError(f"kernel 7 differs from its plain version at {name}, "
+                                     f"{type(samples).__name__}")
+            k_graph = graph_ms_per_call(lambda: kernel(*args))
+            k_ms = cuda_ms(lambda: kernel(*args), 20)
+            k_dev = sum(device_us_by_kernel(lambda: kernel(*args), 20).values()) / 1e3
+            p_graph = graph_ms_per_call(lambda: plain(*plain_args), SHADE_PLAIN_CALLS, 3)
+            b_ms, b_by, n, cov, distinct, n_ops = shade_bound(frame, vis, samples, bary)
+            what = ("lattice " + "x".join(map(str, out.shape[1:]))
+                    if isinstance(samples, tpbr.Lattice) else f"fix batch of {n}")
+            lines.append(f"{name} {what}: {cov} covered samples, {distinct} distinct triangles, "
+                         f"{n_ops} FP32 operations; kernel in a graph of {GRAPH_CALLS} calls "
+                         f"{k_graph:.5f} ms a call, by events / device {k_ms:.4f} / "
+                         f"{k_dev:.4f} ms; plain in a graph {p_graph:.3f} ms "
+                         f"({p_graph / k_graph:.0f}x); bound {b_ms:.5f} ms by {b_by} = "
+                         f"{100 * b_ms / k_graph:.1f}% of the graph's time a call")
+            if entry is None:
+                entry = dict(name="shade", route="cuda", source="renderer_tpu_torch/csrc/shade.cu",
+                             replaces="renderer_tpu/ops/pbr.py:shade_pbr (XLA)", launches=None,
+                             max_abs_err=0.0, ms=k_graph, plain_ms=p_graph, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None)
+        # the shade pass's device ops and time, with kernel 7 and with the core's results given
+        (args, kw, _), = pass_rec.calls
+        (aten, device, pass_ms), (aten_rest, device_rest, rest_ms) = shade_pass_ops(
+            args, kw, [out for _, _, out in rec.calls])
+        extra = aten - aten_rest  # the kernel's wrapper: its output's allocation and views
+        if aten_rest - aten or set(extra) - SHADE_WRAPPER_OPS:
+            raise AssertionError(f"shade pass at {name}: ATen ops {dict(aten)}, with the core's "
+                                 f"results given {dict(aten_rest)}")
+        lines.append(f"{name} shade pass: {sum(aten.values())} ATen ops dispatched, by name "
+                     f"{json.dumps(dict(aten.most_common()))}, the same as with the core's "
+                     f"results given but {json.dumps(dict(extra))} of kernel 7's wrapper; one "
+                     f"replay's device ops under the profiler {sum(device.values())}, by name "
+                     f"{json.dumps(dict(device.most_common()))} ({sum(device_rest.values())} "
+                     f"with the core's results given); in a graph of {SHADE_PASS_CALLS} calls "
+                     f"{pass_ms:.4f} ms a call, {rest_ms:.4f} with the core's results given: "
+                     f"the core {pass_ms - rest_ms:.4f} ms")
+        # launches per replayed frame, from 0 (the first frame captures)
+        r = shade_renderer(name, cfg, dev)
+        r.render(cam)
+        before = tpbr.SHADE.launches
+        for i in range(SHADE_FRAMES):
+            r.render(orbit_camera(0.3 + 0.01 * (i + 1), WIDTH / HEIGHT, dev))
+        torch.cuda.synchronize()
+        per_frame[name] = (tpbr.SHADE.launches - before) / SHADE_FRAMES
+        if per_frame[name] != len(rec.calls):
+            raise AssertionError(f"kernel 7 launched {per_frame[name]} times a replayed frame at "
+                                 f"{name}, the eager frame {len(rec.calls)} times")
+    entry["launches"] = per_frame
+    phase("shade", f"kernel 7, design {json.dumps(tpbr.kernel_design())}, "
+                   f"{cuda_build.ptxas_summary(tpbr.LIBRARY)}, identical to its plain version on "
+                   "every call of the frame; " + "; ".join(lines)
+          + f"; launches per replayed frame {json.dumps(per_frame)}; bound: bytes at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, FP32 operations at {FP32_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s ({card})")
+    return entry
+
+
 def bench_phase(tier_ms: dict, scene, cfg, dev, card) -> None:
     """Phase 39: bench_torch.py in a subprocess, its JSON line checked and
     printed beside phase 7's and 15's ms/frame, and its base exact tier
@@ -2760,6 +3000,10 @@ def split_phase(scene, cfg, path_launches, kernels, dev, card, devices=None) -> 
                     kernels["occlusion_tiles"]["launches"] += counts[oc.OCCLUSION_TILES.symbol]
         for single, pair in (("eager single", "eager split"),
                              ("replayed single", "replayed split")):
+            if launched[single][tpbr.SHADE.symbol] != shades(tcfg, switches):
+                raise AssertionError(f"split {name}: {single} kernel 7 launches "
+                                     f"{launched[single][tpbr.SHADE.symbol]} per frame, want "
+                                     f"{shades(tcfg, switches)}")
             want = {k: shards * v for k, v in launched[single].items()}
             if launched[pair] != want or not want[rc.RASTER_TILES.symbol] or (
                     switches.get("rt") and not want[oc.OCCLUSION_TILES.symbol]):
@@ -3020,7 +3264,7 @@ def graph_phase(scene, cfg, path_launches, dev, card) -> None:
     shadow = shadow_pass_ms(r, bench_camera(0, dev))
     r = Renderer(scene, cfg, device=dev)
     launches_of(lambda: [r.render(bench_camera(k, dev)) for k in range(GRAPH_FRAMES)],
-                GRAPH_FRAMES, "graph: a replayed path")
+                GRAPH_FRAMES, "graph: a replayed path", GRAPH_FRAMES * shades(r.cfg, r.config))
     path_launches["graph_base"] = GRAPH_FRAMES
     phase("graph", f"one CUDA graph replay per frame, captured at each switch set's first frame; "
                    f"conditional nodes: "
@@ -3051,6 +3295,14 @@ def envelope_frame(r, cam, scene=None) -> tuple:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     return ms, envelope_units(r.state["shadow_cache"][1], prev), rc.RASTER_TILES.launches - before
+
+
+def envelope_shades(what: str, r, frames: int) -> None:
+    """Kernel 7 launched ``shades`` times for each of the ``frames`` frames
+    of ``r`` since the counts were set to 0."""
+    if tpbr.SHADE.launches != frames * shades(r.cfg, r.config):
+        raise AssertionError(f"envelope {what}: kernel 7 launches {tpbr.SHADE.launches} for "
+                             f"{frames} frames, want {frames * shades(r.cfg, r.config)}")
 
 
 def atlas_copies_ms(atlas) -> dict:
@@ -3151,6 +3403,7 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
     if [n for _, _, n in frames] != want:
         raise AssertionError(f"envelope convergence: kernel 1 launches "
                              f"{[n for _, _, n in frames]}, want {want}")
+    envelope_shades("convergence", r, len(frames))
     if torch.isnan(r.state["shadow_cache"][1]).any():
         raise AssertionError("envelope: a signature is still NaN after convergence")
     path_launches["envelope_convergence"] = sum(want)
@@ -3166,7 +3419,8 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
     sig = r.state["shadow_cache"][1].clone()
     steady_ms = launches_of(
         lambda: frames_ms(r, ENVELOPE_STEADY, lambda r, k: r.render(cam(0.5 + 0.01 * k))),
-        ENVELOPE_STEADY, "envelope steady state (kernel 1 for the camera only)")
+        ENVELOPE_STEADY, "envelope steady state (kernel 1 for the camera only)",
+        ENVELOPE_STEADY * shades(r.cfg, r.config))
     if not nan_equal(sig, r.state["shadow_cache"][1]):
         raise AssertionError("envelope steady state: a unit rendered")
     path_launches["envelope_steady"] = ENVELOPE_STEADY
@@ -3201,6 +3455,7 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
     moved_launches = [n for _, _, n in moved_frames]
     if moved_launches != [2] * ENVELOPE_BANDS + [1]:
         raise AssertionError(f"envelope moved light: kernel 1 launches {moved_launches}")
+    envelope_shades("moved light", r, len(moved_frames))
     path_launches["envelope_moved"] = sum(moved_launches)
     part("moved light")
 
@@ -3223,6 +3478,7 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
         raise AssertionError(f"envelope orbit: units per frame {orbit_units}")
     if [n for _, _, n in orbit_frames] != [1 + n for n in orbit_units]:
         raise AssertionError(f"envelope orbit: kernel 1 launches {[n for _, _, n in orbit_frames]}")
+    envelope_shades("orbit", r, len(orbit_frames))
     path_launches["envelope_orbit"] = sum(1 + n for n in orbit_units)
     orbit_ms = [m for m, _, _ in orbit_frames[1:]]
     part("orbit")
@@ -3308,7 +3564,8 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
         return out
 
     cold()
-    atlas = launches_of(cold_calls, ENVELOPE_SLOTS * ENVELOPE_COLD_CALLS, "the cold envelope")
+    atlas = launches_of(cold_calls, ENVELOPE_SLOTS * ENVELOPE_COLD_CALLS, "the cold envelope",
+                        0)
     path_launches["envelope_cold"] = ENVELOPE_SLOTS * ENVELOPE_COLD_CALLS
     cold_ms = frames_ms(None, ENVELOPE_COLD_CALLS, lambda _, k: cold())
     coverage = float((atlas < 1.0).sum()) / atlas.numel()
@@ -3407,7 +3664,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libraries = {"raster.cu": rc.LIBRARY, "occlusion.cu": oc.LIBRARY,
                  "probe.cu": probe_cuda.LIBRARY, "scan_raster.cu": rs.LIBRARY,
-                 "rt_brute.cu": brute.LIBRARY, "graph_cond.cu": control.LIBRARY}
+                 "rt_brute.cu": brute.LIBRARY, "graph_cond.cu": control.LIBRARY,
+                 "shade.cu": tpbr.LIBRARY}
     cuda_build.build_all(libraries.values())
     for kernel in KERNELS:
         kernel.load()
@@ -3553,7 +3811,8 @@ def main(argv=None) -> int:
     base_launches = {k.symbol: k.launches for k in KERNELS}
     launches = rc.RASTER_TILES.launches
     frames = FRAMES + 1
-    if launches != frames or oc.OCCLUSION_TILES.launches:
+    if (launches != frames or oc.OCCLUSION_TILES.launches
+            or tpbr.SHADE.launches != frames * shades(cfg)):
         raise AssertionError(f"launches for {frames} frames of the base path: {base_launches}")
     path_launches = {"base": launches}
     img_base, coverage, brightness = check_image(out)
@@ -3669,6 +3928,10 @@ def main(argv=None) -> int:
                              f"x {per_frame} traced slot faces")
     if ras_launches != frames:
         raise AssertionError(f"raster kernel launched {ras_launches} times for {frames} rt frames")
+    rt_shades = frames * shades(rt_renderer.cfg, rt_renderer.config)
+    if tpbr.SHADE.launches != rt_shades:
+        raise AssertionError(f"kernel 7 launched {tpbr.SHADE.launches} times for {frames} rt "
+                             f"frames, want {rt_shades}")
     kernels["occlusion_tiles"]["launches"] = occ_launches
     path_launches["rt"] = ras_launches
     img_rt, coverage, brightness = check_image(rt_out)
@@ -3727,6 +3990,7 @@ def main(argv=None) -> int:
     plain_phases(scene, cfg, path_launches, dev, card)
     kernels["scan_raster"] = scan_raster_phase(scene, cfg, dev, card)
     kernels["rt_brute"] = rt_brute_phase(dev, card)
+    kernels["shade"] = shade_phase(cfg, dev, card)
     bench_phase(tier_ms, scene, cfg, dev, card)
     split_phase(scene, cfg, path_launches, kernels, dev, card)
     graph_phase(scene, cfg, path_launches, dev, card)
@@ -3741,14 +4005,15 @@ def main(argv=None) -> int:
                       f"kernel 5 (scan raster) per plain path "
                       f"{json.dumps(plain_path_launches[rs.SCAN_RASTER.symbol])}, kernel 6 "
                       f"(brute-force rt) {json.dumps(plain_path_launches[brute.RT_BRUTE.symbol])}, "
-                      f"occlusion kernel {kernels['occlusion_tiles']['launches']}")
+                      f"occlusion kernel {kernels['occlusion_tiles']['launches']}, kernel 7 "
+                      f"(shading) per replayed frame {json.dumps(kernels['shade']['launches'])}")
 
     phase("phase_seconds", "host seconds of each phase, from the line before it: "
                            + json.dumps(PHASE_SECONDS))
     phase("total", f"chip_smoke ran {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [kernels[k] for k in
                                   ("raster_tiles", "occlusion_tiles", "add_one", "transpose",
-                                   "scan_raster", "rt_brute")]}))
+                                   "scan_raster", "rt_brute", "shade")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

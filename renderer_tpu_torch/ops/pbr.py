@@ -2,34 +2,42 @@
 (``renderer_tpu.ops.pbr``).
 
 Everything is channel-first: vectors (3, H, W), scalars (H, W). One
-shading closure (``run`` inside ``shade_pbr``) works on any 2D grid of
-samples with explicit pixel centres, so the same expressions shade the
-full frame, the packed checkerboard lattice and the sparse batch of the
-checkerboard fix. Ported: barycentrics re-derived from the shade records'
-edge columns, base-colour textures, normal maps with the Toksvig roughness
-term, edge AA, shadow maps (``ops/shadow.py``), ray-traced shadows through
-the light-space grid (``ops/rt_grid.py``) or by brute force (``ops/rt.py``,
-the plain configuration's), and the checkerboard and quarter shade rates
-with their fixes, with barycentrics from the records or from the raster
-(the plain configuration's) at every rate.
+shading core works on any 2D grid of samples with explicit pixel centres,
+so the same expressions shade the full frame, the packed checkerboard and
+quarter lattices and the sparse batches of their fixes: on the card kernel
+7 (``shade_samples_kernel``, ``csrc/shade.cu``), one thread a sample that
+reads the visibility buffer and the winner's record where they lie, and on
+the CPU its plain version ``shade_samples_plain``, which it equals bit for
+bit. Ported: barycentrics re-derived from the shade records' edge columns,
+base-colour textures, normal maps with the Toksvig roughness term, edge
+AA, shadow maps (``ops/shadow.py``), ray-traced shadows through the
+light-space grid (``ops/rt_grid.py``) or by brute force (``ops/rt.py``, the
+plain configuration's), and the checkerboard and quarter shade rates with
+their fixes, with barycentrics from the records or from the raster (the
+plain configuration's) at every rate.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from renderer_tpu_torch.ops.aa import _dn, _right, _up, edge_aa, halo_rows
+from renderer_tpu_torch.ops.cuda_build import check_inputs, library
 from renderer_tpu_torch.ops.raster_spec import NO_TRIANGLE
 from renderer_tpu_torch.ops.geometry import (
-    SR_BASE, SR_BC_LAYER, SR_EDGE, SR_EMISSIVE, SR_METALLIC, SR_NM_LAYER,
-    SR_NORMAL, SR_ROUGH, SR_TANGENT, SR_TEXLOD, SR_UV, pixel_centres, unproject_depth,
+    SR_BASE, SR_BC_LAYER, SR_COLS, SR_EDGE, SR_EMISSIVE, SR_METALLIC, SR_NM_LAYER,
+    SR_NORMAL, SR_ROUGH, SR_TANGENT, SR_TEXLOD, SR_UV, unproject_depth,
 )
 from renderer_tpu_torch.ops.rt import RtBrute, rt_shadow_planes
 from renderer_tpu_torch.ops.rt_grid import RtGrid, rt_shadow_grid, slot_lights
 from renderer_tpu_torch.ops.shadow import ShadowMaps, shadow_occlusion
 from renderer_tpu_torch.ops.texture import sample_atlas_cf, srgb_to_linear
+from renderer_tpu_torch.scene.textures import TextureAtlas
+from renderer_tpu_torch.scene.types import Lights
 
 NM_LOD_BIAS = 1.5  # normal maps sample ~one mip softer than colour
 FIX_TAU = 0.04  # the fix re-shades suspects whose neighbour spread exceeds this
@@ -68,6 +76,8 @@ def _runs(cols):
 
 
 _ORDER_RUNS = _runs(_ORDER)
+# the traced shadows' rays: each corner's normal, then the edge functions
+_RAY_RUNS = _runs(_CORNER[0][:3] + _CORNER[1][:3] + _CORNER[2][:3] + _CONST[6:15])
 
 
 def _dot_cf(a, b):
@@ -109,6 +119,334 @@ def _ggx_brdf(n, v, l, albedo, metallic, roughness):
     return (diffuse + specular) * ndl
 
 
+class ShadeFrame(NamedTuple):
+    """What every call of the shading core within one ``shade_pbr`` reads
+    besides its samples."""
+
+    shade_rec: torch.Tensor    # (T, SR_COLS) records (geometry.build_draw_stream)
+    atlas: TextureAtlas
+    lights: Lights
+    camera_pos: torch.Tensor   # (3,)
+    viewproj_inv: torch.Tensor  # (4, 4)
+    width: int                 # the frame's width and full height, for the unprojection
+    full_height: int
+    y0: int                    # the buffer's first row in the frame
+    bg: torch.Tensor           # (3, 1, 1) background, on the device
+    ambient: float
+    enable_textures: bool
+    enable_normal_maps: bool
+    trilinear: bool
+    n_lights: int              # light-table slots shaded
+    shadow: ShadowMaps = None  # shadow maps (ops/shadow.py)
+    traced_casts: tuple = None  # (shadow_slot, directional) per light of the traced planes
+
+
+class Lattice(NamedTuple):
+    """A grid of samples of the visibility buffer: sample (i, j) is pixel
+    (step_x j + ((i + y0) & 1 if checker), step_y i), so (1, 1) is the
+    full frame, (2, 1, True) the checkerboard's (x + y) even half-lattice
+    and (2, 2) the quarter rate's (even x, even y) lattice."""
+
+    step_x: int = 1
+    step_y: int = 1
+    checker: bool = False
+
+
+class PixelList(NamedTuple):
+    """Samples at listed pixels (xk, yk) of the visibility buffer (int64,
+    (K,)), shaded as uncovered where not ``good``: the fixes' batches."""
+
+    xk: torch.Tensor
+    yk: torch.Tensor
+    good: torch.Tensor
+
+
+def _sample_geometry(frame: ShadeFrame, depth_in, tri_in, px, py, bary=None, rays=False):
+    """The first steps of the shading core on a 2D grid of samples:
+    (covered, world (3, h, w), the gathered record columns (45, P), the
+    interpolated attributes (8, P), the geometric normal (3, h, w)). With
+    ``rays`` only what the traced shadows' rays need: the 18 columns of
+    the corners' normals and the edge functions, and the normal alone
+    interpolated (3, P); the same values."""
+    h_, w_ = depth_in.shape
+    p_ = h_ * w_
+    n_attr = 3 if rays else 8
+    covered = tri_in != NO_TRIANGLE
+    safe_id = torch.clamp(tri_in, min=0).reshape(p_).long()
+    world = unproject_depth(depth_in, frame.viewproj_inv, frame.width, frame.full_height,
+                            full_height=frame.full_height, px=px, py=py)
+    # one gather of the needed record columns per sample -> (45, P) or (18, P)
+    runs = _RAY_RUNS if rays else _ORDER_RUNS
+    cols_t = torch.cat([frame.shade_rec[:, a:b] for a, b in runs], dim=1).T.contiguous()
+    cols_t = cols_t[:, safe_id]
+
+    if bary is None:  # the winner's edge functions at the pixel centre
+        pxf, pyf = px.reshape(p_), py.reshape(p_)
+        e_off = 3 * n_attr + (0 if rays else _CONST.index(SR_EDGE))
+
+        def e(k):
+            return cols_t[e_off + k]
+
+        lam0 = e(0) * pxf + e(1) * pyf + e(2)
+        lam1 = e(3) * pxf + e(4) * pyf + e(5)
+        lam2 = e(6) * pxf + e(7) * pyf + e(8)
+        lsum = lam0 + lam1 + lam2
+        inv = 1.0 / torch.where(lsum != 0.0, lsum, 1.0)
+        b0, b1, b2 = (lam0 * inv)[None], (lam1 * inv)[None], (lam2 * inv)[None]
+    else:
+        b0, b1, b2 = (bary[k].reshape(1, p_) for k in range(3))
+
+    attrs = (b0 * cols_t[0:n_attr] + b1 * cols_t[n_attr:2 * n_attr]
+             + b2 * cols_t[2 * n_attr:3 * n_attr])
+    n_geom = _normalize_cf(attrs[0:3].reshape(3, h_, w_))
+    return covered, world, cols_t, attrs, n_geom
+
+
+def shade_samples_plain(frame: ShadeFrame, depth_in, tri_in, px, py, bary=None,
+                        planes_fn=None) -> torch.Tensor:
+    """The per-sample shading core on a 2D grid of samples -> (3, h, w)
+    colour: depth and triangle ids (h, w) at the absolute pixel centres
+    (px, py) (h, w), with barycentrics from the records (``bary`` None) or given (3, h, w) (the
+    raster's, sampled like the grid). ``planes_fn(world, n_geom, covered,
+    tri)`` gives the ray-traced shadows' occlusion planes, one per shadow
+    slot. The plain version of kernel 7 (``shade_samples_kernel``), on any
+    device."""
+    h_, w_ = depth_in.shape
+    covered, world, cols_t, attrs, n_geom = _sample_geometry(frame, depth_in, tri_in, px, py,
+                                                             bary)
+
+    def col(k):
+        return cols_t[_C_OFF + _CONST.index(k)].reshape(h_, w_)
+
+    u = attrs[3].reshape(h_, w_)
+    v_ = attrs[4].reshape(h_, w_)
+    tangent = attrs[5:8].reshape(3, h_, w_)
+    tan_w = col(SR_TANGENT + 3)[None]
+    tex_lod = col(SR_TEXLOD)
+    base_factor = cols_t[_C_OFF + 15 : _C_OFF + 18].reshape(3, h_, w_)
+    metallic = col(SR_METALLIC)[None]
+    roughness = col(SR_ROUGH)[None]
+    emissive = cols_t[_C_OFF + 18 : _C_OFF + 21].reshape(3, h_, w_)
+    bc_layer = col(SR_BC_LAYER).to(torch.int32)
+    nm_layer = col(SR_NM_LAYER).to(torch.int32)
+
+    if frame.enable_textures:
+        bc = sample_atlas_cf(frame.atlas, bc_layer, u, v_, tex_lod, trilinear=frame.trilinear)
+        albedo = base_factor * srgb_to_linear(bc[0:3])
+    else:
+        albedo = base_factor
+
+    if frame.enable_textures and frame.enable_normal_maps:
+        t = _normalize_cf(tangent - n_geom * _dot_cf(tangent, n_geom))
+        b = _cross_cf(n_geom, t) * tan_w
+        nm = sample_atlas_cf(frame.atlas, nm_layer, u, v_, tex_lod + NM_LOD_BIAS,
+                             trilinear=frame.trilinear)
+        nx, ny, nz = nm[0] * 2 - 1, nm[1] * 2 - 1, nm[2] * 2 - 1
+        n_mapped = _normalize_cf(t * nx[None] + b * ny[None] + n_geom * nz[None])
+        has_nm = (nm_layer >= 0)[None]
+        n = torch.where(has_nm, n_mapped, n_geom)
+        # Toksvig: the filtered normal's length encodes the footprint's
+        # normal variance, folded into GGX roughness
+        len2 = torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-6)[None]
+        ell = torch.sqrt(len2)
+        sigma2 = torch.clamp((1.0 - ell) / ell, 0.0, 1.0)
+        alpha2 = torch.square(roughness * roughness) + sigma2
+        rough_eff = torch.sqrt(torch.sqrt(torch.clamp(alpha2, max=1.0)))
+        roughness = torch.where(has_nm, rough_eff, roughness)
+    else:
+        n = n_geom
+
+    # per shadow slot, the occlusion plane of its light
+    planes = None if planes_fn is None else planes_fn(world, n_geom, covered, tri_in)
+
+    v = _normalize_cf(frame.camera_pos[:, None, None] - world)
+    lights, shadow = frame.lights, frame.shadow
+    color = albedo * frame.ambient + emissive
+    for li in range(frame.n_lights):
+        pos = lights.position[li][:, None, None]
+        directional = lights.directional[li]
+        to_light = torch.where(directional, -pos * torch.ones_like(world), pos - world)
+        dist2 = _dot_cf(to_light, to_light)
+        l = to_light / torch.sqrt(torch.clamp(dist2, min=1e-12))
+        atten = torch.where(directional, 1.0, 1.0 / torch.clamp(dist2, min=1e-4))
+        radiance = lights.color[li][:, None, None] * (lights.intensity[li] * atten)
+        if planes is not None and li < len(frame.traced_casts):
+            slot = frame.traced_casts[li][0]
+            if 0 <= slot < len(planes):
+                radiance = radiance * planes[slot][None]
+        if shadow is not None and li < len(shadow.light_casts):
+            slot, s_dir = shadow.light_casts[li]
+            if 0 <= slot < shadow.atlas.shape[0]:
+                ndl_geom = torch.clamp(_dot_cf(n_geom, l), min=0.0)
+                radiance = radiance * shadow_occlusion(
+                    world, ndl_geom, shadow.light_mats[li], shadow.atlas[slot],
+                    normal=n_geom, is_point=not s_dir, light_pos=lights.position[li])
+        contrib = _ggx_brdf(n, v, l, albedo, metallic, roughness) * radiance
+        color = color + torch.where(lights.alive[li], contrib, 0.0)
+    return torch.where(covered[None], color, frame.bg)
+
+
+# kernel 7: ``_F_*`` are the flags, the pointer and int arguments in the
+# order csrc/shade.cu's ``rtt_shade`` reads them
+_F_BARY, _F_TEXTURES, _F_NORMAL_MAPS, _F_TRILINEAR = 1, 2, 4, 8
+MAX_LIGHTS = 64  # csrc/shade.cu's light-table slots a call may shade
+LIBRARY = library("shade.cu")
+_PTR = ctypes.c_void_p
+SHADE = LIBRARY.kernel("rtt_shade", [_PTR, _PTR, ctypes.c_float])
+
+
+def kernel_design() -> dict:
+    """Kernel 7's sizes, read from its library (built on first use): a
+    CTA's tile of lattice samples, its threads, the most light slots."""
+    out = (ctypes.c_int * 4)()
+    LIBRARY.load().rtt_shade_design(out)
+    tx, ty, threads, max_lights = out
+    return dict(tile=(tx, ty), threads=threads, max_lights=max_lights)
+
+
+def shade_samples_kernel(frame: ShadeFrame, vis, samples, bary=None, planes=None) -> torch.Tensor:
+    """Kernel 7: ``shade_samples_plain`` of the samples ``samples`` (a
+    ``Lattice`` or a ``PixelList``) of the visibility buffer ``vis``, bit for
+    bit, in one launch that reads depth, ids and records where they lie;
+    CUDA tensors only. ``bary``: the buffer's barycentrics (3, H, W) to
+    interpolate with (None: from the records); ``planes``: the ray-traced
+    shadows' occlusion planes, per shadow slot one (h, w) plane of the
+    samples. Returns (3, h, w) for a lattice, (3, K) for a list; reads no
+    device value on the host. ``SHADE.launches`` counts the launches."""
+    depth, tri = vis.depth, vis.tri_id
+    vh, vw = depth.shape
+    if isinstance(samples, Lattice):
+        gh, gw = vh // samples.step_y, vw // samples.step_x
+        shape, lists = (gh, gw), None
+    else:
+        shape, lists = tuple(samples.xk.shape), samples
+    n = math.prod(shape)
+    atlas, shadow = frame.atlas, frame.shadow
+    # the small tables as the kernel reads them (no-ops where they are
+    # contiguous); the inverse view-projection, column-major as
+    # torch.linalg.inv_ex makes it, through its strides
+    cam, level_size, level_offset, bg = (t.contiguous() for t in (
+        frame.camera_pos, atlas.level_size, atlas.level_offset, frame.bg))
+    vp_inv = frame.viewproj_inv
+    if sorted(vp_inv.stride()) != [1, 4]:
+        vp_inv = vp_inv.contiguous()
+    vp_dense = vp_inv.T if vp_inv.stride(0) == 1 else vp_inv  # row-major either way
+    lights = type(frame.lights)(*(t.contiguous() for t in frame.lights))
+    light_mats = None if shadow is None else shadow.light_mats.contiguous()
+    n_l = lights.alive.shape[0]
+    specs = [
+        (depth, torch.float32, (vh, vw)), (tri, torch.int32, (vh, vw)),
+        (frame.shade_rec, torch.float32, (frame.shade_rec.shape[0], SR_COLS)),
+        (atlas.packed_u32, torch.int32, None),
+        (level_size, torch.int32, None), (level_offset, torch.int32, None),
+        (cam, torch.float32, (3,)), (vp_dense, torch.float32, (4, 4)),
+        (lights.position, torch.float32, (n_l, 3)), (lights.color, torch.float32, (n_l, 3)),
+        (lights.intensity, torch.float32, (n_l,)), (lights.directional, torch.bool, (n_l,)),
+        (lights.alive, torch.bool, (n_l,)), (bg, torch.float32, (3, 1, 1)),
+    ]
+    if bary is not None:
+        specs.append((bary, torch.float32, (3, vh, vw)))
+    if lists is not None:
+        specs += [(lists.xk, torch.int64, shape), (lists.yk, torch.int64, shape),
+                  (lists.good, torch.bool, shape)]
+    if shadow is not None:
+        specs += [(shadow.atlas, torch.float32, None),
+                  (light_mats, torch.float32, (n_l, 6, 4, 4))]
+    if planes is not None:
+        planes = torch.stack(planes)
+        specs.append((planes, torch.float32, (planes.shape[0],) + shape))
+    index = check_inputs("shading", *specs)
+    if frame.shade_rec.data_ptr() % 16:
+        raise ValueError("shading kernel input: the shade records must be 16-byte aligned")
+    if frame.n_lights > MAX_LIGHTS:
+        raise ValueError(f"shading kernel input: {frame.n_lights} light slots, at most "
+                         f"{MAX_LIGHTS}")
+    # per shaded light: its shadow slot (-1 none), point or not, its traced plane (-1 none)
+    casts = []
+    for li in range(frame.n_lights):
+        slot, point = -1, 0
+        if shadow is not None and li < len(shadow.light_casts):
+            s, s_dir = shadow.light_casts[li]
+            if 0 <= s < shadow.atlas.shape[0]:
+                slot, point = s, int(not s_dir)
+        plane = -1
+        if planes is not None and li < len(frame.traced_casts):
+            s = frame.traced_casts[li][0]
+            if 0 <= s < planes.shape[0]:
+                plane = s
+        casts += [slot, point, plane]
+    flags = ((_F_BARY if bary is not None else 0)
+             | (_F_TEXTURES if frame.enable_textures else 0)
+             | (_F_NORMAL_MAPS if frame.enable_normal_maps else 0)
+             | (_F_TRILINEAR if frame.trilinear else 0))
+    out = torch.empty((3,) + shape, dtype=torch.float32, device=depth.device)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    ptrs = [depth, tri, bary, frame.shade_rec, atlas.packed_u32, level_size, level_offset, cam,
+            vp_inv, lights.position, lights.color, lights.intensity, lights.directional,
+            lights.alive, bg, None if lists is None else lists.xk,
+            None if lists is None else lists.yk, None if lists is None else lists.good,
+            None if shadow is None else shadow.atlas, light_mats, planes, out]
+    ints = [*vp_inv.stride(), vh, vw, n, shape[0] if lists is None else 1,
+            shape[-1] if lists is None else n,
+            samples.step_x if lists is None else 0, samples.step_y if lists is None else 0,
+            int(samples.checker) if lists is None else 0, frame.y0, frame.width,
+            frame.full_height, atlas.num_levels, 0 if shadow is None else shadow.atlas.shape[-1],
+            flags, frame.n_lights, *casts]
+    SHADE.launch(index, (ctypes.c_uint64 * len(ptrs))(*map(ptr, ptrs)),
+                 (ctypes.c_int * len(ints))(*ints), float(frame.ambient))
+    return out
+
+
+def sample_pixels(frame: ShadeFrame, vis, samples):
+    """The pixels (x, y) of the visibility buffer that kernel 7's samples
+    (a ``Lattice`` or a ``PixelList``) shade, and their triangle ids (a
+    list's not-good samples NO_TRIANGLE): (h, w) for a lattice, (1, K) for
+    a list."""
+    dev = vis.depth.device
+    if isinstance(samples, Lattice):
+        vh, vw = vis.depth.shape
+        gh, gw = vh // samples.step_y, vw // samples.step_x
+        y = (samples.step_y * torch.arange(gh, device=dev))[:, None].expand(gh, gw)
+        x = samples.step_x * torch.arange(gw, device=dev)[None, :].expand(gh, gw)
+        if samples.checker:
+            x = x + ((y + frame.y0) & 1)
+        return x, y, vis.tri_id[y, x]
+    x, y = samples.xk[None], samples.yk[None]
+    return x, y, torch.where(samples.good[None], vis.tri_id[y, x], NO_TRIANGLE)
+
+
+def _sample_grid(frame: ShadeFrame, vis, samples, bary):
+    """``shade_samples_plain``'s grid arguments for kernel 7's samples:
+    their depth, ids, pixel centres and barycentrics gathered from the
+    visibility buffer."""
+    x, y, tri = sample_pixels(frame, vis, samples)
+    return (vis.depth[y, x], tri, x.to(torch.float32) + 0.5,
+            (y + frame.y0).to(torch.float32) + 0.5, None if bary is None else bary[:, y, x])
+
+
+def shade_samples_plain_at(frame: ShadeFrame, vis, samples, bary=None,
+                           planes_fn=None) -> torch.Tensor:
+    """``shade_samples_plain`` with kernel 7's arguments (``planes_fn`` in
+    place of the planes): what ``shade_pbr`` shades on the CPU, and kernel
+    7's oracle on the card. (3, h, w) for a lattice, (3, K) for a list."""
+    out = shade_samples_plain(frame, *_sample_grid(frame, vis, samples, bary), planes_fn)
+    return out if isinstance(samples, Lattice) else out[:, 0]
+
+
+def sample_rays(frame: ShadeFrame, vis, samples, bary=None) -> tuple:
+    """What the traced shadows' planes of kernel 7's samples are computed
+    from, as ``shade_samples_plain`` passes it to ``planes_fn``: (world,
+    geometric normal, covered, ids), from the unprojection and the
+    normals' interpolation alone."""
+    depth, tri, px, py, bary_s = _sample_grid(frame, vis, samples, bary)
+    covered, world, _, _, n_geom = _sample_geometry(frame, depth, tri, px, py, bary_s,
+                                                    rays=True)
+    return world, n_geom, covered, tri
+
+
 def shade_pbr(
     vis,
     shade_rec: torch.Tensor,  # (T, SR_COLS) records (geometry.build_draw_stream)
@@ -146,171 +484,80 @@ def shade_pbr(
     # the rt upsample read the neighbouring shards' rows at its edges
     halo=None,
 ) -> torch.Tensor:
-    """Shade a visibility buffer -> (H, W, 3) linear HDR colour."""
+    """Shade a visibility buffer -> (H, W, 3) linear HDR colour. Every call
+    of the shading core (the frame, a lattice, a fix's batch) is kernel 7
+    (``shade_samples_kernel``) on the card and ``shade_samples_plain`` on
+    the CPU."""
     if checkerboard and quarter:
         raise ValueError("checkerboard and quarter are exclusive")
     fh_, fw_ = vis.depth.shape
     dev = vis.depth.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no shading kernel for device {dev}")
     traced = rt_grid if rt_grid is not None else rt  # the ray-traced shadows, if any
     bary_in = None if bary_from_records else vis.bary
     full_height = full_height if full_height is not None else fh_
     # the background as a (3, 1, 1) fill on the device, not a host copy
     bg = torch.stack([torch.full((1, 1), float(c), dtype=torch.float32, device=dev)
                       for c in background])
+    n_lights = scene.lights.alive.shape[0]
+    if light_slots is not None:
+        n_lights = min(light_slots, n_lights)
+    frame = ShadeFrame(shade_rec, scene.atlas, scene.lights, camera_pos, viewproj_inv, fw_,
+                       full_height, y0, bg, ambient, enable_textures, enable_normal_maps,
+                       trilinear, n_lights, shadow,
+                       None if traced is None else traced.light_casts)
 
-    def run(depth_in, tri_in, px, py, bary=None):
-        """The per-sample shading core on a 2D grid of samples at the
-        absolute pixel centres (px, py) (None: the full frame's), with
-        barycentrics from the records (``bary`` None) or given (3, h, w)
-        (the raster's, sampled like the grid)."""
-        h_, w_ = depth_in.shape
-        p_ = h_ * w_
-        covered = tri_in != NO_TRIANGLE
-        safe_id = torch.clamp(tri_in, min=0).reshape(p_).long()
-        if px is None:
-            px, py = pixel_centres(h_, w_, y0, dev)
-        world = unproject_depth(depth_in, viewproj_inv, fw_, fh_, full_height=full_height,
-                                px=px, py=py)
-        # one gather of the 45 needed record columns per sample -> (45, P)
-        cols_t = torch.cat([shade_rec[:, a:b] for a, b in _ORDER_RUNS], dim=1).T.contiguous()
-        cols_t = cols_t[:, safe_id]
-
-        def col(k):
-            return cols_t[_C_OFF + _CONST.index(k)].reshape(h_, w_)
-
-        if bary is None:  # the winner's edge functions at the pixel centre
-            pxf, pyf = px.reshape(p_), py.reshape(p_)
-
-            def e(k):
-                return cols_t[_C_OFF + 6 + k]
-
-            lam0 = e(0) * pxf + e(1) * pyf + e(2)
-            lam1 = e(3) * pxf + e(4) * pyf + e(5)
-            lam2 = e(6) * pxf + e(7) * pyf + e(8)
-            lsum = lam0 + lam1 + lam2
-            inv = 1.0 / torch.where(lsum != 0.0, lsum, 1.0)
-            b0, b1, b2 = (lam0 * inv)[None], (lam1 * inv)[None], (lam2 * inv)[None]
-        else:
-            b0, b1, b2 = (bary[k].reshape(1, p_) for k in range(3))
-
-        attrs = b0 * cols_t[0:8] + b1 * cols_t[8:16] + b2 * cols_t[16:24]
-        n_geom = _normalize_cf(attrs[0:3].reshape(3, h_, w_))
-        u = attrs[3].reshape(h_, w_)
-        v_ = attrs[4].reshape(h_, w_)
-        tangent = attrs[5:8].reshape(3, h_, w_)
-        tan_w = col(SR_TANGENT + 3)[None]
-        tex_lod = col(SR_TEXLOD)
-        base_factor = cols_t[_C_OFF + 15 : _C_OFF + 18].reshape(3, h_, w_)
-        metallic = col(SR_METALLIC)[None]
-        roughness = col(SR_ROUGH)[None]
-        emissive = cols_t[_C_OFF + 18 : _C_OFF + 21].reshape(3, h_, w_)
-        bc_layer = col(SR_BC_LAYER).to(torch.int32)
-        nm_layer = col(SR_NM_LAYER).to(torch.int32)
-
-        if enable_textures:
-            bc = sample_atlas_cf(scene.atlas, bc_layer, u, v_, tex_lod, trilinear=trilinear)
-            albedo = base_factor * srgb_to_linear(bc[0:3])
-        else:
-            albedo = base_factor
-
-        if enable_textures and enable_normal_maps:
-            t = _normalize_cf(tangent - n_geom * _dot_cf(tangent, n_geom))
-            b = _cross_cf(n_geom, t) * tan_w
-            nm = sample_atlas_cf(scene.atlas, nm_layer, u, v_, tex_lod + NM_LOD_BIAS,
-                                 trilinear=trilinear)
-            nx, ny, nz = nm[0] * 2 - 1, nm[1] * 2 - 1, nm[2] * 2 - 1
-            n_mapped = _normalize_cf(t * nx[None] + b * ny[None] + n_geom * nz[None])
-            has_nm = (nm_layer >= 0)[None]
-            n = torch.where(has_nm, n_mapped, n_geom)
-            # Toksvig: the filtered normal's length encodes the footprint's
-            # normal variance, folded into GGX roughness
-            len2 = torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-6)[None]
-            ell = torch.sqrt(len2)
-            sigma2 = torch.clamp((1.0 - ell) / ell, 0.0, 1.0)
-            alpha2 = torch.square(roughness * roughness) + sigma2
-            rough_eff = torch.sqrt(torch.sqrt(torch.clamp(alpha2, max=1.0)))
-            roughness = torch.where(has_nm, rough_eff, roughness)
-        else:
-            n = n_geom
-
-        planes = None  # per shadow slot, the occlusion plane of its light
-        if rt_grid is not None:
-            planes = rt_shadow_grid(
+    planes_fn = None  # the traced shadows' planes of a grid of samples
+    if rt_grid is not None:
+        def planes_fn(world, n_geom, covered, tri):
+            return rt_shadow_grid(
                 scene, world, n_geom, covered, rt_grid.light_mats, rt_grid.lod, rt_grid.model,
                 rt_grid.scene_radius, rt_grid.caster_capacity,
-                slot_lights(rt_grid.light_casts, rt_grid.n_slots), tri=tri_in,
+                slot_lights(rt_grid.light_casts, rt_grid.n_slots), tri=tri,
                 rt_scale=rt_grid.rt_scale, halo=halo,
             )
-        elif rt is not None:
-            planes = rt_shadow_planes(world, n_geom, scene.lights, rt.tri_world, rt.tri_valid,
-                                      slot_lights(rt.light_casts, rt.n_slots), rt.rt_scale,
-                                      rt.count)
+    elif rt is not None:
+        def planes_fn(world, n_geom, covered, tri):
+            return rt_shadow_planes(world, n_geom, scene.lights, rt.tri_world, rt.tri_valid,
+                                    slot_lights(rt.light_casts, rt.n_slots), rt.rt_scale,
+                                    rt.count)
 
-        v = _normalize_cf(camera_pos[:, None, None] - world)
-        lights = scene.lights
-        color = albedo * ambient + emissive
-        n_slots = lights.alive.shape[0]
-        if light_slots is not None:
-            n_slots = min(light_slots, n_slots)
-        for li in range(n_slots):
-            pos = lights.position[li][:, None, None]
-            directional = lights.directional[li]
-            to_light = torch.where(directional, -pos * torch.ones_like(world), pos - world)
-            dist2 = _dot_cf(to_light, to_light)
-            l = to_light / torch.sqrt(torch.clamp(dist2, min=1e-12))
-            atten = torch.where(directional, 1.0, 1.0 / torch.clamp(dist2, min=1e-4))
-            radiance = lights.color[li][:, None, None] * (lights.intensity[li] * atten)
-            if planes is not None and li < len(traced.light_casts):
-                slot = traced.light_casts[li][0]
-                if 0 <= slot < len(planes):
-                    radiance = radiance * planes[slot][None]
-            if shadow is not None and li < len(shadow.light_casts):
-                slot, s_dir = shadow.light_casts[li]
-                if 0 <= slot < shadow.atlas.shape[0]:
-                    ndl_geom = torch.clamp(_dot_cf(n_geom, l), min=0.0)
-                    radiance = radiance * shadow_occlusion(
-                        world, ndl_geom, shadow.light_mats[li], shadow.atlas[slot],
-                        normal=n_geom, is_point=not s_dir, light_pos=lights.position[li])
-            contrib = _ggx_brdf(n, v, l, albedo, metallic, roughness) * radiance
-            color = color + torch.where(lights.alive[li], contrib, 0.0)
-        return torch.where(covered[None], color, bg)
+    def run(samples):
+        """The samples shaded: kernel 7 on the card, its plain version on
+        the CPU."""
+        if dev.type == "cpu":
+            return shade_samples_plain_at(frame, vis, samples, bary_in, planes_fn)
+        planes = None if planes_fn is None else planes_fn(*sample_rays(frame, vis, samples,
+                                                                       bary_in))
+        return shade_samples_kernel(frame, vis, samples, bary_in, planes)
+
+    def shade_pixels(xk, yk, good):
+        """A fix's K pixels (xk, yk) shaded, (3, K), as uncovered where not
+        ``good``."""
+        return run(PixelList(xk, yk, good))
 
     if quarter:
         # the shaded (even x, even y) lattice packed to (H/2, W/2)
-        h2, w2 = fh_ // 2, fw_ // 2
-        px = (2.0 * torch.arange(w2, dtype=torch.float32, device=dev)[None, :] + 0.5).expand(h2, w2)
-        py = (2.0 * torch.arange(h2, dtype=torch.float32, device=dev)[:, None]
-              + float(y0) + 0.5).expand(h2, w2)
         tri_s = vis.tri_id[0::2, 0::2]
-        shaded = run(vis.depth[0::2, 0::2], tri_s, px, py,
-                     None if bary_in is None else bary_in[:, 0::2, 0::2])
+        shaded = run(Lattice(2, 2))
         color, scores = _quarter_expand(shaded, vis.tri_id, tri_s, tri_s != NO_TRIANGLE, bg,
                                         halo)
         if shade_fix and traced is None:
-            color = _quarter_fix(color, scores, vis, y0, run, bary_in, halo)
+            color = _quarter_fix(color, scores, vis, shade_pixels, halo)
     elif checkerboard:
         # the shaded half-lattice ((x + y) even) packed to (H, W/2):
         # x = 2j + ((y + y0) & 1), shaded at its true pixel centres
         rowpar = ((torch.arange(fh_, device=dev) + y0) & 1)[:, None]
-        par0 = rowpar == 0
-
-        def pack(a):
-            return torch.where(par0, a[..., 0::2], a[..., 1::2])
-
-        w2 = fw_ // 2
-        px = (2.0 * torch.arange(w2, dtype=torch.float32, device=dev)[None, :]
-              + rowpar.to(torch.float32) + 0.5)
-        py = (torch.arange(fh_, dtype=torch.float32, device=dev)[:, None]
-              + float(y0) + 0.5).expand(fh_, w2)
-        tri_s = pack(vis.tri_id)
-        shaded = run(pack(vis.depth), tri_s, px, py, None if bary_in is None else pack(bary_in))
-        recon, score, tri_u = _checkerboard_expand(shaded, vis.tri_id, tri_s,
-                                                   tri_s != NO_TRIANGLE, rowpar, bg, halo)
+        tri_s = torch.where(rowpar == 0, vis.tri_id[:, 0::2], vis.tri_id[:, 1::2])
+        shaded = run(Lattice(2, 1, True))
+        recon, score, _ = _checkerboard_expand(shaded, vis.tri_id, tri_s,
+                                               tri_s != NO_TRIANGLE, rowpar, bg, halo)
         color = _cb_interleave(shaded, recon, rowpar)
         if shade_fix and traced is None:
-            color = _checkerboard_fix(color, score, tri_u, vis, rowpar, y0, run, bary_in, halo)
+            color = _checkerboard_fix(color, score, y0, shade_pixels, halo)
     else:
-        color = run(vis.depth, vis.tri_id, None, None, bary_in)
+        color = run(Lattice())
     if aa:
         color = edge_aa(color, vis.tri_id, halo)
     return color.permute(1, 2, 0)
@@ -349,43 +596,31 @@ def _top_suspects(scores, k: int, halo=None, axis: int = 0):
     return torch.where(mine, local, 0), good & mine
 
 
-def _checkerboard_fix(color, score, tri_u, vis, rowpar, y0: int, run, bary=None, halo=None):
+def _checkerboard_fix(color, score, y0: int, shade_pixels, halo=None):
     """Exactly re-shade the worst reconstructed pixels.
 
     Up to K = fix_capacity(P) suspects by neighbour-spread score, those
-    above FIX_TAU, are shaded through the frame's own closure ``run`` on an
-    (8, K/8) batch at their pixel centres, so each equals the full-rate
-    frame's pixel, and scattered into the interleaved frame (3, H, W). The
-    suspects not above FIX_TAU land in a trash column; nothing here reads
-    a device value on the host. ``bary`` (3, H, W): the raster's
-    barycentrics, gathered at the suspects (None: from the records). Under
-    a split frame (``halo``) P and the suspects are the whole frame's
-    (``_top_suspects``; the JAX package picks K per shard)."""
+    above FIX_TAU, are shaded through the frame's own shading core
+    (``shade_pixels(xk, yk, good)`` -> (3, K)) at their pixel centres, so
+    each equals the full-rate frame's pixel, and scattered into the
+    interleaved frame (3, H, W). The suspects not above FIX_TAU are shaded
+    as uncovered and land in a trash column; nothing here reads a device
+    value on the host. Under a split frame (``halo``) P and the suspects
+    are the whole frame's (``_top_suspects``; the JAX package picks K per
+    shard)."""
     h_, w_ = score.shape
     p2 = h_ * w_
     k = fix_capacity(p2 * (1 if halo is None else halo.axis_size()))
     idx, good = _top_suspects(score, k, halo)
-    depth_u = torch.where(rowpar == 0, vis.depth[:, 1::2], vis.depth[:, 0::2])
-    d_k = depth_u.reshape(p2)[idx]
-    t_k = torch.where(good, tri_u.reshape(p2)[idx], NO_TRIANGLE)
     yk, jk = idx // w_, idx % w_
     xk = 2 * jk + (1 - ((yk + y0) & 1))  # the complement: x = 2j + 1 - parity
-    return _reshade(color, run, d_k, t_k, xk, yk, y0, good, bary)
+    return _reshade(color, shade_pixels(xk, yk, good), xk, yk, good)
 
 
-def _reshade(color, run, d_k, t_k, xk, yk, y0: int, good, bary=None):
-    """The K pixels (xk, yk) with depth d_k and triangle t_k shaded through
-    the closure ``run`` on an (8, K/8) batch at their pixel centres (with
-    the barycentrics of the (3, H, W) ``bary`` there, when given), and
-    written into the (3, H, W) frame where ``good`` (the others into a
-    trash column)."""
-    k = d_k.shape[0]
-    shape2 = (8, k // 8)
+def _reshade(color, color_k, xk, yk, good):
+    """The K re-shaded pixels ``color_k`` (3, K) at (xk, yk) written into
+    the (3, H, W) frame where ``good`` (the others into a trash column)."""
     fw_ = color.shape[-1]
-    bary_k = None if bary is None else bary[:, yk, xk].reshape((3,) + shape2)
-    color_k = run(d_k.reshape(shape2), t_k.reshape(shape2),
-                  (xk.to(torch.float32) + 0.5).reshape(shape2),
-                  (yk.to(torch.float32) + float(y0) + 0.5).reshape(shape2), bary_k).reshape(3, k)
     p_full = color.shape[1] * fw_
     out = torch.cat([color.reshape(3, p_full), color.new_zeros((3, 1))], dim=1)
     out.index_copy_(1, torch.where(good, yk * fw_ + xk, p_full), color_k)
@@ -522,12 +757,12 @@ def quarter_fix_capacity(p_full: int) -> int:
     return min(p_u - p_u % 8, max(2048, -(-p_full // QFIX_K_DIV) // 8 * 8))
 
 
-def _quarter_fix(color, scores, vis, y0: int, run, bary=None, halo=None):
+def _quarter_fix(color, scores, vis, shade_pixels, halo=None):
     """Exactly re-shade the worst quarter-rebuilt pixels: up to K =
     quarter_fix_capacity(P) suspects over all three classes at once by
-    score, those above FIX_TAU, through the frame's own closure ``run`` on
-    an (8, K/8) batch, scattered into the (3, H, W) frame (the others into
-    a trash column). ``bary`` and ``halo`` as in ``_checkerboard_fix``."""
+    score, those above FIX_TAU, through the frame's own shading core
+    ``shade_pixels``, scattered into the (3, H, W) frame (the others into a
+    trash column). ``halo`` as in ``_checkerboard_fix``."""
     _, h2, w2 = scores.shape
     p_u = h2 * w2
     fh_, fw_ = vis.depth.shape
@@ -538,7 +773,4 @@ def _quarter_fix(color, scores, vis, y0: int, run, bary=None, halo=None):
     # class -> pixel: H (0) = (2j + 1, 2i), V (1) = (2j, 2i + 1), D (2) = (2j + 1, 2i + 1)
     xx = 2 * (rem % w2) + (cls != 1).long()
     yy = 2 * (rem // w2) + (cls != 0).long()
-    flat_pix = yy * fw_ + xx
-    d_k = vis.depth.reshape(p_full)[flat_pix]
-    t_k = torch.where(good, vis.tri_id.reshape(p_full)[flat_pix], NO_TRIANGLE)
-    return _reshade(color, run, d_k, t_k, xx, yy, y0, good, bary)
+    return _reshade(color, shade_pixels(xx, yy, good), xx, yy, good)
