@@ -535,6 +535,13 @@ ENVELOPE_COLD_CAPACITY = 1 << 16  # casters per slot of the cold envelope
 ENVELOPE_COLD_CALLS = 5
 ENVELOPE_COLD_ANGLE = 0.35
 ENVELOPE_SIG_CALLS = 10  # signature calls per captured graph
+# kernel 8's FP32 multiplies, adds and compares (|x| is an operand modifier):
+SIGNATURE_PLANE_OPS = 13  # a box against one plane: dist, rr, dist + rr < 0
+SIGNATURE_SLOT_OPS = 45 + 3 * 36  # a (live slot, instance): the world box, three profiles
+SIGNATURE_FOLD_OPS = 2 * 3  # a (unit, instance): vis x profile added, per component
+SIGNATURE_PLANE_ORDER = (2, 3, 0, 1, 4, 5)  # the order kernel 8 tests a frustum's planes in
+SIGNATURE_BITS = 20  # instances a signature component spells, one bit each (exact in float32)
+SIGNATURE_INSTANCE_BYTES = 64 + 4 + 1 + 36  # model row, mesh id, alive, 9 fold weights
 ASSET = os.path.join(ROOT, "assets", "colonnade.glb")
 COLONNADE_CAPACITY = 1 << 16  # expansion 2^17 holds the asset's 36k triangles
 COLONNADE_FRAMES = 30
@@ -553,7 +560,7 @@ RELOAD_MODULE = "renderer_tpu_torch.ops.shading"  # a watched ops module touched
 GOLDEN_DIR = os.path.join(ROOT, "assets", "golden")
 # every kernel wrapper's launcher (launches are counted there), checked path by path
 KERNELS = (rc.RASTER_TILES, oc.OCCLUSION_TILES, probe_cuda.ADD_ONE, probe_cuda.TRANSPOSE,
-           rs.SCAN_RASTER, brute.RT_BRUTE, tpbr.SHADE)
+           rs.SCAN_RASTER, brute.RT_BRUTE, tpbr.SHADE, tshadow.SIGNATURE)
 
 
 PHASE_SECONDS = {}  # phase -> host seconds from the previous phase's line to its own
@@ -1211,6 +1218,7 @@ def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, 
         want = {kn.symbol: 0 for kn in KERNELS}
         want[rc.RASTER_TILES.symbol] = n + (0 if not shadows else views if cond_on else n * views)
         want[tpbr.SHADE.symbol] = n * shades(c, r.config)
+        want[tshadow.SIGNATURE.symbol] = n * signatures(c, r.config)
         got = dict(tier_launches[tier])
         if scene_at is moved_scene:  # data-dependent: bounded here, exact in shadow_updates
             lo, hi = n + views, n * (1 + views)
@@ -1386,10 +1394,20 @@ def shades(cfg, switches=None) -> int:
     return per_shard * cfg.spmd_devices + int(bool(reference))
 
 
-def launches_of(run, want: int, what: str, shade: int):
+def signatures(cfg, switches=None) -> int:
+    """Kernel 8's launches per frame of ``cfg`` under the runtime switches
+    (a dict or a RuntimeConfig): one per shard of a frame with the cached
+    atlas (the shadows switch and ``shadow_cache``, rt or not; not the
+    debug view), else none."""
+    sw = dict(vars(switches) if hasattr(switches, "__dict__") else switches or {})
+    cached = sw.get("shadows") and cfg.shadow_cache and not sw.get("debug_aabbs")
+    return cfg.spmd_devices if cached else 0
+
+
+def launches_of(run, want: int, what: str, shade: int, sigs: int = 0):
     """Run ``run()`` with every kernel's count at 0; the raster kernel must
-    launch ``want`` times, kernel 7 ``shade`` times and no other kernel at
-    all. Returns run()'s result."""
+    launch ``want`` times, kernel 7 ``shade`` times, kernel 8 ``sigs``
+    times and no other kernel at all. Returns run()'s result."""
     for kernel in KERNELS:
         kernel.launches = 0
     result = run()
@@ -1397,6 +1415,7 @@ def launches_of(run, want: int, what: str, shade: int):
     expect = {kn.symbol: 0 for kn in KERNELS}
     expect[rc.RASTER_TILES.symbol] = want
     expect[tpbr.SHADE.symbol] = shade
+    expect[tshadow.SIGNATURE.symbol] = sigs
     if got != expect:
         raise AssertionError(f"{what}: launches {got}, want {expect}")
     return result
@@ -2201,8 +2220,8 @@ def plain_run(name: str, changes: dict, switches: dict, dev, frames: int, warmup
 def plain_launches_wanted(changes: dict, switches: dict, rendered: int, slots) -> dict:
     """Each kernel's launches for ``rendered`` plain frames of the config
     ``changes``: kernel 5 once per frame and per atlas view rendered
-    (shadows), kernel 6 once per traced directional slot (rt), kernel 7
-    ``shades`` times per frame, no other kernel."""
+    (shadows), kernel 6 once per traced directional slot (rt), kernels 7
+    and 8 ``shades`` and ``signatures`` times per frame, no other kernel."""
     views = sum(atlas_views(slots))
     traced = sum(1 for sl in slots if sl is not None and sl[1])
     want = {k.symbol: 0 for k in KERNELS}
@@ -2212,6 +2231,7 @@ def plain_launches_wanted(changes: dict, switches: dict, rendered: int, slots) -
     want[rs.SCAN_RASTER.symbol] = rendered + (atlas if switches.get("shadows") else 0)
     want[brute.RT_BRUTE.symbol] = rendered * (traced if switches.get("rt") else 0)
     want[tpbr.SHADE.symbol] = rendered * shades(PipelineConfig(**changes), switches)
+    want[tshadow.SIGNATURE.symbol] = rendered * signatures(PipelineConfig(**changes), switches)
     return want
 
 
@@ -2555,6 +2575,7 @@ def scan_raster_phase(scene, cfg, dev, card) -> dict:
         want[rs.SCAN_RASTER.symbol] = n_scan
         want[rc.RASTER_TILES.symbol] = int(tile_raster)
         want[tpbr.SHADE.symbol] = shades(r.cfg, r.config)
+        want[tshadow.SIGNATURE.symbol] = signatures(r.cfg, r.config)
         if got != want:
             raise AssertionError(f"{label}: launches {got}, want {want}")
         if len(rec.calls) != len(names):
@@ -3004,6 +3025,10 @@ def split_phase(scene, cfg, path_launches, kernels, dev, card, devices=None) -> 
                 raise AssertionError(f"split {name}: {single} kernel 7 launches "
                                      f"{launched[single][tpbr.SHADE.symbol]} per frame, want "
                                      f"{shades(tcfg, switches)}")
+            if launched[single][tshadow.SIGNATURE.symbol] != signatures(tcfg, switches):
+                raise AssertionError(f"split {name}: {single} kernel 8 launches "
+                                     f"{launched[single][tshadow.SIGNATURE.symbol]} per frame, "
+                                     f"want {signatures(tcfg, switches)}")
             want = {k: shards * v for k, v in launched[single].items()}
             if launched[pair] != want or not want[rc.RASTER_TILES.symbol] or (
                     switches.get("rt") and not want[oc.OCCLUSION_TILES.symbol]):
@@ -3298,11 +3323,13 @@ def envelope_frame(r, cam, scene=None) -> tuple:
 
 
 def envelope_shades(what: str, r, frames: int) -> None:
-    """Kernel 7 launched ``shades`` times for each of the ``frames`` frames
-    of ``r`` since the counts were set to 0."""
-    if tpbr.SHADE.launches != frames * shades(r.cfg, r.config):
-        raise AssertionError(f"envelope {what}: kernel 7 launches {tpbr.SHADE.launches} for "
-                             f"{frames} frames, want {frames * shades(r.cfg, r.config)}")
+    """Kernels 7 and 8 launched ``shades`` and ``signatures`` times for
+    each of the ``frames`` frames of ``r`` since the counts were set to 0."""
+    for n, kernel, want in ((7, tpbr.SHADE, shades(r.cfg, r.config)),
+                            (8, tshadow.SIGNATURE, signatures(r.cfg, r.config))):
+        if kernel.launches != frames * want:
+            raise AssertionError(f"envelope {what}: kernel {n} launches {kernel.launches} for "
+                                 f"{frames} frames, want {frames * want}")
 
 
 def atlas_copies_ms(atlas) -> dict:
@@ -3344,6 +3371,156 @@ def envelope_kernel(name, args) -> str:
             f"kernel {k_ms:.5f} ms a call in a graph of {GRAPH_CALLS}, plain {p_ms:.1f} ms; "
             f"{pairs} pixel pairs, {listed} triangles listed: bound {b_ms:.5f} ms by {b_by} = "
             f"{100 * b_ms / k_ms:.1f}% of the kernel's time")
+
+
+def spelled_visibility(signature, slots: tuple, k: int, n: int, dev) -> torch.Tensor:
+    """(n_slots, units, n) bool: the visibility kernel 8 folds, read out of
+    ``signature(weights)`` (a call of kernel 8 with those weights) through
+    weights that are all 0 but the count term, which gives instance i the
+    bit 2^j of one component: a unit's component minus its kind term is
+    then the sum of its visible instances' bits (below 2^SIGNATURE_BITS,
+    exact)."""
+    units, bits = max(k, 1), SIGNATURE_BITS
+    zeros = [torch.zeros(shape, device=dev) for shape in ((6, 16), (16,), (n,))]
+    table = tshadow.signature_units(slots, k)
+    kinds = torch.tensor([e.kind for e in table], device=dev)[:, None, None]
+    tracked = torch.tensor([[u < e.units for u in range(units)] for e in table],
+                           device=dev)[..., None]
+    vis = torch.zeros((len(slots), units, n), dtype=torch.bool, device=dev)
+    shifts = torch.arange(bits, device=dev)
+    for start in range(0, n, tshadow.SIG_C * bits):
+        span = [(min(start + c * bits, n), min(start + (c + 1) * bits, n))
+                for c in range(tshadow.SIG_C)]
+        count = []
+        for lo, hi in span:
+            w = torch.zeros(n, device=dev)
+            w[lo:hi] = 2.0 ** torch.arange(hi - lo, device=dev, dtype=torch.float32)
+            count.append(w)
+        none = [(z,) * tshadow.SIG_C for z in zeros]
+        sig = signature(tshadow.SignatureWeights(none[0], none[1], none[2], none[2], tuple(count)))
+        sig = sig.reshape(len(slots), units, tshadow.SIG_C)
+        acc = torch.where(tracked, sig - kinds, 0.0).to(torch.int64)  # exact: small integers
+        if not torch.equal(torch.where(tracked, acc.to(torch.float32) + kinds, sig), sig):
+            raise AssertionError("kernel 8's spelled signature is not a sum of bits")
+        spelled = ((acc[..., None] >> shifts) & 1).bool()  # (slots, units, SIG_C, bits)
+        for c, (lo, hi) in enumerate(span):
+            vis[:, :, lo:hi] = spelled[:, :, c, :hi - lo]
+    return vis
+
+
+def signature_ops(scene, mats, model, slots, k) -> int:
+    """FP32 operations kernel 8 executes at ``slots`` (k bands): per (unit,
+    alive instance) the planes it tests, in SIGNATURE_PLANE_ORDER up to the
+    first the box lies outside, of each of the unit's views up to the first
+    that sees the box; per (live slot, instance) the world box and the
+    profiles; per (unit, instance) the fold; per signature the light term
+    and the tiles' sum."""
+    table = tshadow.signature_units(slots, k)
+    planes = tshadow.signature_planes(mats, table)[:, list(SIGNATURE_PLANE_ORDER), :, None]
+    cw, ew, _, _ = geometry._world_aabb_cols(scene, geometry._cols_of(model))
+    a, b, c, d = (planes[:, :, q] for q in range(4))  # (views, 6, 1) each
+    outside = (a * cw[0] + b * cw[1] + c * cw[2] + d
+               + (a.abs() * ew[0] + b.abs() * ew[1] + c.abs() * ew[2]) < 0.0)  # (views, 6, n)
+    first = torch.where(outside.any(dim=1), outside.int().argmax(dim=1), 5)
+    tested = (first + 1) * scene.instances.alive  # (views, n): planes a view's test takes
+    n, tests, units = model.shape[0], 0, 0
+    for e in table:
+        if e.light < 0:
+            continue
+        units += e.units
+        for u in range(e.units):
+            v0 = e.view0 + u * e.views
+            sees = ~outside[v0:v0 + e.views].any(dim=1)  # (views, n)
+            earlier = torch.cumsum(sees.int(), dim=0) - sees.int()  # views before that saw it
+            tests += int((tested[v0:v0 + e.views] * (earlier == 0)).sum())
+    live = sum(e.light >= 0 for e in table)
+    tiles = -(-n // 256)
+    return (SIGNATURE_PLANE_OPS * tests + SIGNATURE_SLOT_OPS * live * n
+            + SIGNATURE_FOLD_OPS * units * n + tshadow.SIG_C * units * (2 * 96 + tiles + 2))
+
+
+def signature_checks(label, scene, prepared, mats, slots, weights) -> None:
+    """Kernel 8 against its plain version at ``slots`` (ENVELOPE_BANDS
+    bands); raise on a mismatch: each unit's visible instances, spelled out
+    of kernel 8's signatures, equal ``signature_visibility``'s; and the two
+    dirty the same units (a unit is dirty when its signature changed, as
+    ``select_shadow_updates`` reads it) for the same inputs again (none),
+    a nudged caster and a moved light (some)."""
+    model = prepared.model
+    k, n, dev = ENVELOPE_BANDS, model.shape[0], model.device
+    got = spelled_visibility(lambda w: tshadow.shadow_signature_kernel(
+        scene, mats, model, slots, k, w), slots, k, n, dev)
+    for slot, e in enumerate(tshadow.signature_units(slots, k)):
+        if e.light >= 0:
+            want = tshadow.signature_visibility(scene, model, mats, slots[slot], k)
+            if not torch.equal(got[slot, :e.units], want):
+                raise AssertionError(f"kernel 8 at {label}: slot {slot}'s visibility differs from "
+                                     f"coarse_cull's at {int((got[slot, :e.units] != want).sum())} "
+                                     f"(unit, instance) pairs")
+        if got[slot, e.units:].any():
+            raise AssertionError(f"kernel 8 at {label}: slot {slot} folds an untracked unit")
+    seen = got.any(dim=1)  # (slots, n): instances some unit of the slot sees
+    caster = int(seen.any(dim=0).int().argmax())
+    nudged = model.clone()
+    nudged[caster, 3] += 0.05  # its translation's x
+    light = slots[0][0]
+    turned = mats.clone()
+    turned[light] = tshadow.light_matrices_cube(
+        scene.lights._replace(position=light_nudged(scene.lights.position, light)),
+        prepared.scene_min, prepared.scene_max)[light]
+    steps = (("the same inputs", model, mats), ("a nudged caster", nudged, mats),
+             ("a moved light", nudged, turned))
+    prev = None
+    for what, m, lm in steps:
+        sig = [fn(scene, lm, m, slots, k, weights)
+               for fn in (tshadow.shadow_signature_kernel, tshadow.shadow_signature)]
+        if prev is not None:
+            dirty = [~torch.all(s == p, dim=-1) for s, p in zip(sig, prev)]
+            if not torch.equal(*dirty):
+                raise AssertionError(f"kernel 8 at {label}, {what}: dirty units "
+                                     f"{dirty[0].nonzero().tolist()}, the plain version's "
+                                     f"{dirty[1].nonzero().tolist()}")
+            if bool(dirty[1].any()) != (what != "the same inputs"):
+                raise AssertionError(f"kernel 8 at {label}, {what}: {int(dirty[1].sum())} units "
+                                     f"dirty")
+        prev = sig
+
+
+def light_nudged(position: torch.Tensor, light: int) -> torch.Tensor:
+    """The light table's positions (a directional light's direction) with
+    light ``light``'s turned by about 0.05 rad about y."""
+    pos = position.clone()
+    x, z = pos[light, 0].clone(), pos[light, 2].clone()
+    cs, sn = math.cos(0.05), math.sin(0.05)
+    pos[light, 0], pos[light, 2] = cs * x + sn * z, cs * z - sn * x
+    return pos
+
+
+def signature_readings(label, scene, prepared, mats, slots, weights) -> str:
+    """Kernel 8 and its plain version at ``slots`` (ENVELOPE_BANDS bands),
+    checked (``signature_checks``), then ms a call in a graph of
+    ENVELOPE_SIG_CALLS, beside kernel 8's bound: the operations it executes
+    (``signature_ops``) against the bytes read once (SIGNATURE_INSTANCE_BYTES
+    an instance, the mesh boxes, the units' planes) and the signatures
+    written."""
+    signature_checks(label, scene, prepared, mats, slots, weights)
+    model = prepared.model
+    ms = {name: graph_ms_per_call(lambda fn=fn: fn(scene, mats, model, slots, ENVELOPE_BANDS,
+                                                   weights), calls=ENVELOPE_SIG_CALLS)
+          for name, fn in (("kernel", tshadow.shadow_signature_kernel),
+                           ("plain", tshadow.shadow_signature))}  # the plain: ~900 kernels a call
+    units = ENVELOPE_BANDS * sum(sl is not None for sl in slots)
+    alive = int(scene.instances.alive.sum())
+    n_ops = signature_ops(scene, mats, model, slots, ENVELOPE_BANDS)
+    n_bytes = (model.shape[0] * SIGNATURE_INSTANCE_BYTES + 24 * scene.meshes.mesh_aabb_min.shape[0]
+               + 96 * units + 12 * ENVELOPE_BANDS * len(slots))
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return (f"{label} ({units} units x {alive} alive instances of {model.shape[0]}; visibility "
+            f"and dirty units equal the plain version's): kernel 8 "
+            f"{ms['kernel']:.4f} ms a call, the plain version {ms['plain']:.4f} "
+            f"({ms['plain'] / ms['kernel']:.0f}x), in graphs of {ENVELOPE_SIG_CALLS} calls; "
+            f"{n_ops / 1e6:.1f} M operations ({n_ops / (units * alive):.1f} a unit and alive "
+            f"instance); bound {b_ms:.5f} ms by {b_by} = {100 * b_ms / ms['kernel']:.1f}%")
 
 
 def envelope_phase(cfg, path_launches, dev, card) -> None:
@@ -3420,7 +3597,7 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
     steady_ms = launches_of(
         lambda: frames_ms(r, ENVELOPE_STEADY, lambda r, k: r.render(cam(0.5 + 0.01 * k))),
         ENVELOPE_STEADY, "envelope steady state (kernel 1 for the camera only)",
-        ENVELOPE_STEADY * shades(r.cfg, r.config))
+        ENVELOPE_STEADY * shades(r.cfg, r.config), ENVELOPE_STEADY * signatures(r.cfg, r.config))
     if not nan_equal(sig, r.state["shadow_cache"][1]):
         raise AssertionError("envelope steady state: a unit rendered")
     path_launches["envelope_steady"] = ENVELOPE_STEADY
@@ -3493,8 +3670,9 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
     prepared = geometry.prepare_frame_columns(scene, cam(0.6))
     mats = tshadow.light_matrices_cube(scene.lights, prepared.scene_min, prepared.scene_max)
     weights = tshadow.signature_weights(prepared.model.shape[0], dev)
-    sig_ms = graph_ms_per_call(lambda: tshadow.shadow_signature(  # ~900 kernels a call
-        scene, mats, prepared.model, slots, ENVELOPE_BANDS, weights), calls=ENVELOPE_SIG_CALLS)
+    sig_lines = [signature_readings(label, scene, prepared, mats, slot_list, weights)
+                 for label, slot_list in (("the envelope", slots),
+                                          ("sponza's pattern", slots[:1] + (None,) * 3))]
     part("shadow pass and signatures")
     profile_main_path("envelope_profile", r, dev, card, cam_at=lambda k, d: cam(0.6 + 0.01 * k))
     part("profile")
@@ -3529,8 +3707,7 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
         f"orbiting ({ENVELOPE_ORBIT} frames): units per frame {orbit_units[1:]}, "
         f"{ms_list(orbit_ms)} ms, mean {statistics.mean(orbit_ms):.2f}; shadow pass at no update "
         f"(cut plans) {shadow['with nodes']:.3f} ms a replay with conditional nodes, "
-        f"{shadow['without nodes']:.3f} without; signatures {sig_ms:.4f} ms a call in a graph of "
-        f"{ENVELOPE_SIG_CALLS}; "
+        f"{shadow['without nodes']:.3f} without; signatures at " + "; at ".join(sig_lines) + "; "
         f"shade_shadowed device {shade:.3f} ms/frame against {shade_4:.3f} at 4 slots of "
         f"512x512 (phase 19); capture {capture_s:.2f} s, pool {pool_mib:.0f} MiB, state "
         f"{state_mib:.0f} MiB ({card})"))
@@ -3665,7 +3842,7 @@ def main(argv=None) -> int:
     libraries = {"raster.cu": rc.LIBRARY, "occlusion.cu": oc.LIBRARY,
                  "probe.cu": probe_cuda.LIBRARY, "scan_raster.cu": rs.LIBRARY,
                  "rt_brute.cu": brute.LIBRARY, "graph_cond.cu": control.LIBRARY,
-                 "shade.cu": tpbr.LIBRARY}
+                 "shade.cu": tpbr.LIBRARY, "signature.cu": tshadow.LIBRARY}
     cuda_build.build_all(libraries.values())
     for kernel in KERNELS:
         kernel.load()
@@ -3812,7 +3989,8 @@ def main(argv=None) -> int:
     launches = rc.RASTER_TILES.launches
     frames = FRAMES + 1
     if (launches != frames or oc.OCCLUSION_TILES.launches
-            or tpbr.SHADE.launches != frames * shades(cfg)):
+            or tpbr.SHADE.launches != frames * shades(cfg)
+            or tshadow.SIGNATURE.launches != frames * signatures(cfg)):
         raise AssertionError(f"launches for {frames} frames of the base path: {base_launches}")
     path_launches = {"base": launches}
     img_base, coverage, brightness = check_image(out)
@@ -3932,6 +4110,9 @@ def main(argv=None) -> int:
     if tpbr.SHADE.launches != rt_shades:
         raise AssertionError(f"kernel 7 launched {tpbr.SHADE.launches} times for {frames} rt "
                              f"frames, want {rt_shades}")
+    if tshadow.SIGNATURE.launches != frames * signatures(rt_renderer.cfg, rt_renderer.config):
+        raise AssertionError(f"kernel 8 launched {tshadow.SIGNATURE.launches} times for {frames} "
+                             f"rt frames")
     kernels["occlusion_tiles"]["launches"] = occ_launches
     path_launches["rt"] = ras_launches
     img_rt, coverage, brightness = check_image(rt_out)

@@ -25,6 +25,10 @@ result keeps the previous depth through ``torch.where``; in a captured
 frame program its chain is the body of a conditional node
 (``ops/control.cond``, the JAX package's ``lax.cond``) and does not run.
 
+The cached atlas's change detection, a signature per unit, is kernel 8
+on the card (``shadow_signature_kernel``, ``csrc/signature.cu``) and the
+plain version ``shadow_signature`` on the CPU (``signatures``).
+
 Under a frame trace (``utils.profiling``) the cached atlas stamps three
 spans: ``shadow.signature`` (signatures and the selection),
 ``shadow.slots`` (every slot's ``cond``: the copy of its previous depth and
@@ -34,14 +38,17 @@ atlas).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
 
 import torch
 
-from renderer_tpu_torch.mathx.camera import look_at, matmul4, orthographic, perspective
+from renderer_tpu_torch.mathx.camera import (frustum_planes, look_at, matmul4, orthographic,
+                                             perspective)
 from renderer_tpu_torch.ops.control import cond
+from renderer_tpu_torch.ops.cuda_build import check_inputs, library
 from renderer_tpu_torch.ops.geometry import clip_rows, coarse_cull, expand_clip_only
 from renderer_tpu_torch.ops.raster_cuda import rasterize_cuda
 from renderer_tpu_torch.ops.raster_scan import rasterize_scan
@@ -61,6 +68,8 @@ CUBE_FACE_UPS = (
 )
 SIG_C = 3  # independent signature components per unit (shadow_signature)
 _SALTS = (2.0, 23.0, 61.0)
+_KIND = {True: 17.0, False: 39.0}  # a unit's kind term, by directional
+_EMPTY = (-1e30, -2e30)  # the sentinels of an empty slot's unit 0 and of an untracked unit
 
 
 class ShadowMaps(NamedTuple):
@@ -266,6 +275,22 @@ def signature_weights(n_instances: int, device) -> SignatureWeights:
     return SignatureWeights(*(tuple(v) for v in out))
 
 
+def signature_visibility(scene, model: torch.Tensor, light_mats: torch.Tensor, slot: tuple,
+                         progressive: int = 1) -> torch.Tensor:
+    """(units, N) bool: the instances each unit of the live slot ``slot``
+    (light index, directional) folds, culled by ``coarse_cull`` as the render
+    culls them: a directional slot's ``progressive`` band frustums (its whole
+    frustum under progressive <= 1), a point slot's six faces as one unit."""
+    li, directional = slot
+    mats = light_mats[li]  # (6, 4, 4)
+    if directional and progressive > 1:  # one unit per band
+        return coarse_cull(scene, model, band_matrix(
+            mats[0], torch.arange(progressive, device=mats.device), progressive))
+    if directional:
+        return coarse_cull(scene, model, mats[0])[None]
+    return coarse_cull(scene, model, mats).any(dim=0, keepdim=True)  # the union of the faces
+
+
 def shadow_signature(scene, light_mats: torch.Tensor, model: torch.Tensor, slots: tuple,
                      progressive: int = 1, weights: SignatureWeights = None) -> torch.Tensor:
     """Per-unit f32 change-detection signatures of the cached atlas.
@@ -298,25 +323,143 @@ def shadow_signature(scene, light_mats: torch.Tensor, model: torch.Tensor, slots
     out = []
     for slot in slots:
         if slot is None:
-            units = [sentinel(-1e30), sentinel(-2e30, progressive - 1)]
+            units = [sentinel(_EMPTY[0]), sentinel(_EMPTY[1], progressive - 1)]
         else:
             li, directional = slot
             mats = light_mats[li]  # (6, 4, 4)
-            if directional and progressive > 1:  # one unit per band
-                vis = coarse_cull(scene, model, band_matrix(
-                    mats[0], torch.arange(progressive, device=dev), progressive))
-            elif directional:
-                vis = coarse_cull(scene, model, mats[0])[None]
-            else:  # the union of the six faces
-                vis = coarse_cull(scene, model, mats).any(dim=0, keepdim=True)
+            vis = signature_visibility(scene, model, light_mats, slot, progressive)
             visf = vis.to(torch.float32)  # (units, N)
-            kind = 17.0 if directional else 39.0
+            kind = _KIND[directional]
             comps = [torch.sum(mats.reshape(6, 16) * wl) + kind + (visf * prof).sum(dim=-1)
                      for wl, prof in zip(weights.light, profiles)]
-            units = [torch.stack(comps, dim=-1), sentinel(-2e30, progressive - vis.shape[0])]
+            units = [torch.stack(comps, dim=-1), sentinel(_EMPTY[1], progressive - vis.shape[0])]
         sig = torch.cat(units)
         out.append(sig if progressive > 1 else sig[0])
     return torch.stack(out)
+
+
+class SignatureSlot(NamedTuple):
+    """One slot of kernel 8's unit table (``signature_units``)."""
+
+    light: int    # the slot's light, -1 for an empty slot
+    units: int    # units it tracks: K bands of a directional slot, else 1 (0 empty)
+    views: int    # frustums a unit unions: 1, or a point light's 6 cube faces
+    view0: int    # its first frustum in ``signature_planes``' table
+    kind: float   # its kind term
+
+
+def signature_units(slots: tuple, progressive: int = 1) -> tuple:
+    """Kernel 8's unit table, per slot a ``SignatureSlot``, from the static
+    slot pattern (``rt_grid.slot_lights``) as ``shadow_signature`` reads it:
+    a directional slot is ``progressive`` band units (one under
+    progressive <= 1), a point slot one unit of six faces, an empty slot no
+    unit. Frustums are numbered in slot order."""
+    out, view0 = [], 0
+    for slot in slots:
+        if slot is None:
+            out.append(SignatureSlot(-1, 0, 0, 0, 0.0))
+            continue
+        li, directional = slot
+        units, views = (max(progressive, 1), 1) if directional else (1, 6)
+        out.append(SignatureSlot(li, units, views, view0, _KIND[directional]))
+        view0 += units * views
+    return tuple(out)
+
+
+def signature_planes(light_mats: torch.Tensor, table: tuple) -> torch.Tensor:
+    """(views, 6, 4): the frustum planes of every unit of ``table``
+    (``signature_units``) in one batched plain call, bit for bit the planes
+    that ``coarse_cull`` takes per slot in ``shadow_signature``: the band
+    matrices of all banded slots through one ``band_matrix`` (each matrix
+    given as its rows, so ``m[r]`` is row r of all of them), then one
+    ``frustum_planes``. Elementwise operations and a norm over three
+    elements do not depend on the batch."""
+    banded = [e for e in table if e.views == 1 and e.units > 1]
+    if banded:
+        k = banded[0].units
+        m = torch.stack([light_mats[e.light, 0] for e in banded])  # (B, 4, 4)
+        bands = iter(band_matrix(m.transpose(0, 1)[:, :, None, :],
+                                 torch.arange(k, device=m.device), k))  # (B, K, 4, 4)
+    chunks = []
+    for e in table:
+        if e.light < 0:
+            continue
+        if e.views == 1 and e.units > 1:
+            chunks.append(next(bands))
+        elif e.views == 1:
+            chunks.append(light_mats[e.light, :1])
+        else:
+            chunks.append(light_mats[e.light])
+    if not chunks:
+        return light_mats.new_zeros((0, 6, 4))
+    return frustum_planes(torch.cat(chunks))
+
+
+# kernel 8 (csrc/signature.cu): the signatures in one call
+_SIG_TILE = 256  # csrc/signature.cu's THREADS: instances per tile
+LIBRARY = library("signature.cu")
+_PTR = ctypes.c_void_p
+SIGNATURE = LIBRARY.kernel("rtt_signature", [_PTR, _PTR, _PTR])
+
+
+def shadow_signature_kernel(scene, light_mats: torch.Tensor, model: torch.Tensor, slots: tuple,
+                            progressive: int = 1,
+                            weights: SignatureWeights = None) -> torch.Tensor:
+    """Kernel 8: ``shadow_signature``'s arguments and shape, CUDA tensors
+    only. Each unit's visible instances are ``coarse_cull``'s bit for bit
+    (the planes from ``signature_planes``); the fold takes the same weights
+    and sums in the kernel's own fixed order, so its values are not the
+    plain version's, but the same inputs give the same bits on every call
+    and replay, and the same units change. Reads no device value on the
+    host. ``SIGNATURE.launches`` counts the launches."""
+    n = model.shape[0]
+    flat = model.reshape(n, 16)
+    inst, meshes = scene.instances, scene.meshes
+    n_mesh, n_light = meshes.mesh_aabb_min.shape[0], light_mats.shape[0]
+    index = check_inputs(
+        "shadow signature", (flat, torch.float32, (n, 16)), (inst.mesh_id, torch.int32, (n,)),
+        (meshes.mesh_aabb_min, torch.float32, (n_mesh, 3)),
+        (meshes.mesh_aabb_max, torch.float32, (n_mesh, 3)), (inst.alive, torch.bool, (n,)),
+        (light_mats, torch.float32, (n_light, 6, 4, 4)))
+    if flat.data_ptr() % 16:
+        raise ValueError("shadow signature kernel input: the model rows must be 16-byte aligned")
+    n_units = max(progressive, 1)
+    if weights is None:
+        weights = signature_weights(n, flat.device)
+    table = signature_units(slots, progressive)
+    planes = signature_planes(light_mats, table)
+    fields = (weights.model_cols, weights.rows, weights.mesh, weights.count, weights.light)
+    check_inputs("shadow signature", (planes, torch.float32, (planes.shape[0], 6, 4)),
+                 *((w, torch.float32, shape) for field, shape in zip(
+                     fields, ((16,), (n,), (n,), (n,), (6, 16))) for w in field))
+    tiles = -(-n // _SIG_TILE)
+    dev = flat.device
+    partial = torch.empty((len(slots) * n_units * max(tiles, 1) * SIG_C,), dtype=torch.float32,
+                          device=dev)
+    shape = (len(slots), n_units, SIG_C) if progressive > 1 else (len(slots), SIG_C)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    ptrs = [flat, inst.mesh_id, meshes.mesh_aabb_min, meshes.mesh_aabb_max, inst.alive, planes,
+            light_mats, *(w for field in fields for w in field), partial, out]
+    ints = [n, tiles, len(slots), n_units, n_mesh]
+    for e in table:
+        ints += [e.light, e.units, e.views, e.view0]
+    floats = [*_EMPTY, *(e.kind for e in table)]
+    SIGNATURE.launch(index, (ctypes.c_uint64 * len(ptrs))(*(t.data_ptr() for t in ptrs)),
+                     (ctypes.c_int * len(ints))(*ints), (ctypes.c_float * len(floats))(*floats))
+    return out
+
+
+def signatures(scene, light_mats: torch.Tensor, model: torch.Tensor, slots: tuple,
+               progressive: int = 1, weights: SignatureWeights = None) -> torch.Tensor:
+    """The cached atlas's per-unit signatures: kernel 8
+    (``shadow_signature_kernel``) on the card, the plain version
+    ``shadow_signature`` on the CPU."""
+    dev = model.device
+    if dev.type == "cuda":
+        return shadow_signature_kernel(scene, light_mats, model, slots, progressive, weights)
+    if dev.type == "cpu":
+        return shadow_signature(scene, light_mats, model, slots, progressive, weights)
+    raise ValueError(f"no shadow signature kernel for device {dev}")
 
 
 def select_shadow_updates(sig: torch.Tensor, sig_prev: torch.Tensor, cursor: torch.Tensor,
@@ -371,7 +514,7 @@ def render_shadow_atlas_cached(scene, light_mats, model, lod, slots: tuple, slot
     if progressive > 1 and (budget != 1 or slot_size % progressive):
         raise ValueError("progressive band updates need budget 1 and slot_size % K == 0")
     with span("shadow.signature"):
-        sig = shadow_signature(scene, light_mats, model, slots, progressive, weights)
+        sig = signatures(scene, light_mats, model, slots, progressive, weights)
         if progressive > 1:
             sel, new_sig, new_cursor = select_shadow_updates(
                 sig.reshape(n_slots * progressive, -1),
