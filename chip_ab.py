@@ -1,6 +1,7 @@
-"""Compare checkouts of this repository on one NVIDIA GPU, in turns.
+"""Compare checkouts of this repository on one NVIDIA GPU, in turns, on
+what no benchmark cell measures.
 
-    python3 chip_ab.py REFERENCE TREE [TREE ...] [--rounds 10]
+    python3 chip_ab.py REFERENCE TREE [TREE ...] [--rounds 10] [--kernels]
 
 Each argument is the root of a checkout (for example the parent commit,
 unpacked with `git archive` into a git-ignored directory). For every
@@ -8,48 +9,33 @@ round the script starts one process per checkout, in the given order on
 even rounds and in reverse on odd ones, so that a drift of the host's
 speed within the call falls on every checkout alike. Each process imports
 the port (renderer_tpu_torch) from its checkout only, builds its kernels
-and prints one JSON line with what chip_smoke.py measures at the bench
-(sponza_like_scene(10000), orbit angle 0.3, 1920x1088, 131072 triangles):
+and prints one JSON line:
 
-- raster_ms: the raster kernel at the bench soup, CUDA events over 20
+- raster_ms: the raster kernel at the bench soup (sponza_like_scene(10000),
+  orbit angle 0.3, 1920x1088, 131072 triangles), CUDA events over 20
   calls; raster_device_us: its device time per call from torch.profiler;
-- base_ms, rt_ms, shadowed_cb_ms: the base, the rt (rt_scale 2) and the
-  shadowed static checkerboard+fix orbit (the shadows switch, cached
-  512x512 atlas, bench.py's headline shading mode), host clock over 30
-  frames after one warm-up; a checkout whose port has no shadows switch
-  has no shadowed_cb metrics;
-- base_busy_ms, rt_busy_ms, shadowed_cb_busy_ms: device busy time per
-  frame over a window of 10 frames traced with device activity only;
-- base_graph_ms, base_graph_busy_ms, shadowed_cb_graph_ms,
-  shadowed_cb_graph_busy_ms: the same for the replayed frame (one CUDA
-  graph per frame, runtime/program.py), where the checkout's Renderer has
-  programs; the metrics above are then of its eager frame
-  (``Renderer(replay=False)``), as in a checkout without programs;
-- plain_graph_ms, plain_graph_busy_ms: the same for the plain
-  configuration's replayed bench frame (``tile_raster=False``: kernel 5
-  rasterizes it);
 - scan_camera_ms, scan_bench_ms: kernel 5 (the count-bounded scan raster)
-  per call inside a captured graph of 100 calls, at the camera soup of
-  the JAX demo's mixed scene at 512x512 (tri_capacity 16384, angle 0.5)
-  and at the plain bench frame's camera soup; scan_reference_ms: so at
-  the mixed frame's reference view (128x128); scan_sun_ms, scan_faces_ms:
-  so at the sun slot of the mixed frame's shadow atlas with its point
-  light in slot 1 (512x512), and the six cube faces' calls (256x128)
-  summed; rt_brute_ms: kernel 6 (the brute-force rt) so at the mixed
-  scene's rt soup (rt_scale 2), each soup recorded from the checkout's
-  own eager plain frame.
+  per call inside a captured graph of 100 calls (chip_smoke's
+  ``graph_ms_per_call``), at the camera soup of the JAX demo's mixed
+  scene at 512x512 (tri_capacity 16384, angle 0.5) and at the plain bench
+  frame's camera soup; scan_reference_ms: so at the mixed frame's
+  reference view (128x128); scan_sun_ms, scan_faces_ms: so at the sun slot
+  of the mixed frame's shadow atlas with its point light in slot 1
+  (512x512), and the six cube faces' calls (256x128) summed; rt_brute_ms:
+  kernel 6 (the brute-force rt) so at the mixed scene's rt soup (rt_scale
+  2), each soup recorded from the checkout's own eager plain frame;
+- plain_graph_ms (not with --kernels): the plain configuration's replayed
+  bench frame (``tile_raster=False``: kernel 5 rasterizes it), host clock
+  over 30 frames after one warm-up.
 
-With --kernels, each process measures the kernel metrics only (raster_*,
-scan_*, rt_brute_ms) and renders no timed frame.
-
-Then, per checkout and metric, the runs and their median, and against the
-first checkout the difference per round, its median and the rounds in
-which the checkout read higher. Needs one card; imports no jax.
+The benchmark (benchmark/run.py) measures the tile paths' frames in its
+cells. Then, per checkout and metric, the runs and their median, and
+against the first checkout the difference per round, its median and the
+rounds in which the checkout read higher. Needs one card; imports no jax.
 """
 
 import argparse
 import dataclasses
-import inspect
 import json
 import os
 import statistics
@@ -57,19 +43,15 @@ import subprocess
 import sys
 import time
 
+HERE = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 1920, 1088
 N_INSTANCES = 10000
 TRI_CAPACITY = 1 << 17
 FRAMES = 30
-PROFILE_FRAMES = 10
-METRICS = ("raster_ms", "raster_device_us", "base_ms", "base_busy_ms", "rt_ms", "rt_busy_ms",
-           "shadowed_cb_ms", "shadowed_cb_busy_ms", "base_graph_ms", "base_graph_busy_ms",
-           "shadowed_cb_graph_ms", "shadowed_cb_graph_busy_ms", "plain_graph_ms",
-           "plain_graph_busy_ms", "scan_camera_ms", "scan_bench_ms", "scan_reference_ms",
-           "scan_sun_ms", "scan_faces_ms", "rt_brute_ms")
+METRICS = ("raster_ms", "raster_device_us", "scan_camera_ms", "scan_bench_ms",
+           "scan_reference_ms", "scan_sun_ms", "scan_faces_ms", "rt_brute_ms", "plain_graph_ms")
 DEMO_SIZE, DEMO_CAPACITY = 512, 16384  # the JAX demo's mixed scene, as chip_smoke phase 36
 POINT_SLOT = 1  # the shadow slot chip_smoke phase 36 gives the mixed scene's point light
-GRAPH_CALLS, GRAPH_REPLAYS = 100, 10
 
 
 def measure(tree: str, frames: bool = True) -> dict:
@@ -78,13 +60,11 @@ def measure(tree: str, frames: bool = True) -> dict:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from renderer_tpu_torch.demo import build_scene, make_camera
     from renderer_tpu_torch.mathx import orbit_camera
     from renderer_tpu_torch.models import sponza_like_scene
-    from renderer_tpu_torch.ops import control, cuda_build, geometry, occlusion_cuda as oc
+    from renderer_tpu_torch.ops import cuda_build, geometry, occlusion_cuda as oc
     from renderer_tpu_torch.ops import raster_cuda as rc, raster_scan as rs, rt as brute
     from renderer_tpu_torch.ops import shadow as tshadow
     from renderer_tpu_torch.passes import pipeline
@@ -93,65 +73,28 @@ def measure(tree: str, frames: bool = True) -> dict:
 
     if not rc.__file__.startswith(tree + os.sep):
         raise RuntimeError(f"renderer_tpu_torch came from {rc.__file__}, not from {tree}")
+    # chip_smoke.py's timers and recorder, from beside this script (the port
+    # stays the checkout's, whose package is imported above)
+    sys.path.insert(0, HERE)
+    from chip_smoke import Recorder, cuda_ms, device_us_by_kernel, graph_ms_per_call
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     cuda_build.build_all([rc.LIBRARY, oc.LIBRARY, rs.LIBRARY, brute.LIBRARY])
 
-    def device_ms(fn, calls: int) -> float:
-        """Device busy ms per call of fn (profiler, device activity only)."""
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and not e.key.startswith("forward.")
-                   ) / 1e3 / calls
-
-    def frame(renderer, k: int):
-        return renderer.render(orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev))
-
-    def graph_ms(fn) -> float:
-        """ms per call of fn: CUDA events around replays of one captured
-        graph of GRAPH_CALLS calls, after a warm-up call."""
-        fn()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=control.own_stream(dev, "timing")):
-            for _ in range(GRAPH_CALLS):
-                fn()
-        graph.replay()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(GRAPH_REPLAYS):
-            graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        graph.reset()
-        return start.elapsed_time(end) / (GRAPH_REPLAYS * GRAPH_CALLS)
-
     def calls_of(module, name: str, render) -> list:
-        """The (args, kwargs) of each call of module.name in render()."""
-        calls, orig = [], getattr(module, name)
-
-        def record(*args, **kwargs):
-            calls.append((args, kwargs))
-            return orig(*args, **kwargs)
-
-        setattr(module, name, record)
-        try:
+        """The (args, kwargs, result) of each call of module.name in render()."""
+        with Recorder(module, name) as rec:
             render()
-        finally:
-            setattr(module, name, orig)
-        return calls
+        return rec.calls
 
     def scan_ms(call) -> float:
-        (clip, valid, w, h), kw = call
+        (clip, valid, w, h), kw, _ = call
         inp = rs.scan_inputs(clip, valid, w, h, kw.get("cull_backface", True))
         tb = min(128, clip.shape[0])
-        return graph_ms(lambda: rs.scan_raster_kernel(inp, kw.get("count"), w, h, tb,
-                                                      kw.get("with_bary", True)))
+        return graph_ms_per_call(lambda: rs.scan_raster_kernel(inp, kw.get("count"), w, h, tb,
+                                                               kw.get("with_bary", True)))
 
     scene = sponza_like_scene(N_INSTANCES, device=dev)
     prepared = geometry.prepare_frame_columns(scene, orbit_camera(0.3, WIDTH / HEIGHT, dev))
@@ -159,15 +102,8 @@ def measure(tree: str, frames: bool = True) -> dict:
                                          WIDTH, HEIGHT)
     args = rc.raster_inputs(soup.clip, soup.valid, WIDTH, HEIGHT)
     kernel = lambda: rc.raster_kernel(*args, False)  # noqa: E731
-    kernel()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(20):
-        kernel()
-    end.record()
-    torch.cuda.synchronize()
-    out = {"tree": tree, "raster_ms": start.elapsed_time(end) / 20,
-           "raster_device_us": 1e3 * device_ms(kernel, 100)}
+    out = {"tree": tree, "raster_ms": cuda_ms(kernel, 20),
+           "raster_device_us": sum(device_us_by_kernel(kernel, 100).values())}
 
     cfg = PipelineConfig(width=WIDTH, height=HEIGHT, tri_capacity=TRI_CAPACITY,
                          enable_normal_maps=True, aa="edge", trilinear=False)
@@ -196,38 +132,21 @@ def measure(tree: str, frames: bool = True) -> dict:
     rt_r = Renderer(mixed, dataclasses.replace(demo_cfg, rt_scale=2), device=dev, replay=False)
     rt_r.set_config(rt=True)
     rt_r.apply_config_now()
-    (world, normal, direction, tri, tri_valid, count), _ = calls_of(
+    (world, normal, direction, tri, tri_valid, count), _, _ = calls_of(
         brute, "ray_shadow_directional", lambda: rt_r.render(mixed_cam))[0]
     b_inp = brute.brute_inputs(world, normal, direction, tri, tri_valid)
-    tiles = ({"width": world.shape[2]}
-             if "width" in inspect.signature(brute.rt_brute_kernel).parameters else {})
-    out["rt_brute_ms"] = graph_ms(lambda: brute.rt_brute_kernel(b_inp, count, **tiles))
+    out["rt_brute_ms"] = graph_ms_per_call(lambda: brute.rt_brute_kernel(b_inp, count,
+                                                                         world.shape[2]))
     if not frames:
         return out
-    tiers = [("base", cfg, {}), ("rt", dataclasses.replace(cfg, rt_scale=2), dict(rt=True))]
-    if "shade_rate" in {f.name for f in dataclasses.fields(PipelineConfig)}:
-        tiers.append(("shadowed_cb", dataclasses.replace(cfg, shade_rate="checkerboard"),
-                      dict(shadows=True)))
-    programs = "replay" in inspect.signature(Renderer).parameters
-    kinds = [(name, c, switches, {"replay": False} if programs else {})
-             for name, c, switches in tiers]
-    if programs:
-        kinds += [(f"{name}_graph", c, switches, {"replay": True})
-                  for name, c, switches in tiers if name != "rt"]
-        kinds.append(("plain_graph", plain_cfg, {}, {"replay": True}))
-    for name, c, switches, kw in kinds:
-        renderer = Renderer(scene, c, device=dev, **kw)
-        renderer.set_config(**switches)
-        renderer.apply_config_now()
-        frame(renderer, 0)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for k in range(FRAMES):
-            frame(renderer, k)
-        torch.cuda.synchronize()
-        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / FRAMES
-        window = iter(range(PROFILE_FRAMES + 1))
-        out[f"{name}_busy_ms"] = device_ms(lambda: frame(renderer, next(window)), PROFILE_FRAMES)
+    renderer = Renderer(scene, plain_cfg, device=dev)
+    renderer.render(orbit_camera(0.3, WIDTH / HEIGHT, dev))  # warm-up and capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(FRAMES):
+        renderer.render(orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev))
+    torch.cuda.synchronize()
+    out["plain_graph_ms"] = (time.perf_counter() - t0) * 1e3 / FRAMES
     return out
 
 

@@ -6,7 +6,12 @@
 Run from the root of the repository, on a machine with a CUDA device, the
 CUDA toolkit (nvcc) and g++. It imports neither jax nor the JAX package
 (renderer_tpu). Phases, one line each; any failure raises and the exit
-code is non-zero:
+code is non-zero. It checks the kernels and the paths; the time and the
+per-pass split of the benchmark's frames are its cells' (benchmark/), and
+where a phase prints a frame's passes or the card's idle share, they come
+from the frame trace over replayed frames (``replayed_trace``). Numbers 9,
+13 and 19 are unused, so that the others keep the numbers the documents
+cite:
 
 1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
    TF32 off for matmuls and cuDNN;
@@ -36,16 +41,11 @@ code is non-zero:
 7. the main path: Renderer over the bench orbit, 1 warm-up frame and 30
    timed frames; the raster kernel's launch count, image checks, the last
    frame written to renderer_tpu_torch/_build/; then per-pass device times
-   from the frame trace over 8 more replayed frames (trace on, a capture
-   left out; trace off, a capture without the stamps);
+   and the card's idle share between frames from the frame trace over 8
+   more replayed frames (trace on, a capture left out; trace off, a
+   capture without the stamps);
 8. one frame of the main path with the raster kernel against the same
    frame with the plain raster version swapped in;
-9. torch.profiler over the main path: the device's busy time in one traced
-   window (device activity only) and its idle share against as many
-   untraced frames, then device and host time per pass in a second window
-   of eager frames that also traces the host (a pass's device time
-   is that of the work launched inside its range, matched through the
-   profiler's correlation ids, kernels launched through ctypes included);
 10. the rt path's occlusion inputs at the bench camera (slot 0, the sun)
     for rt_scale 2, 1 and 4: kernel against plain version, bin lists, caster
     total against capacity, kernel / setup+binning+kernel / plain times,
@@ -54,10 +54,9 @@ code is non-zero:
 11. the rt main path (the rt switch, rt_scale 2, 4 shadow slots): 1
     warm-up and 30 timed frames, occlusion launches = frames x traced
     slots, image checks, darker than the rt-off frame; PNG to _build/;
-    per-pass device times as in phase 7;
+    per-pass device times and idle share as in phase 7;
 12. one rt frame with the occlusion kernel against the same frame with its
     plain version swapped in: identical planes and images;
-13. the profile of phase 9 over the rt main path;
 14. the shadow atlas's raster views at the bench camera (slot 0, the sun, a
     512x512 slot and its 512x32 band of most casters): caster demand
     against capacity, bin-list entries, kernel against plain version (depth
@@ -77,13 +76,12 @@ code is non-zero:
     every pixel the fix changed equal the exact frame bit for bit;
 18. the shadowed checkerboard+fix frame with the plain raster in both the
     camera and the atlas pass: image identical;
-19. the profile of phase 9 over the shadowed checkerboard+fix frame;
 20. the city canyon (city_scene(20), scripts/prof_scale.py's street walk
     of 20 frames after one warm-up, PBR without normal maps, edge AA,
     bilinear): frustum culling at tri_capacity 2^18 and occlusion culling
     at 2^16 (or the smallest power of two whose expansion holds the
     steady demand): per frame the expansion demand and soup.count,
-    ms/frame, and the profile of phase 9 over each;
+    ms/frame;
 21. held pose: one pose of the walk rendered twice with occlusion culling
     against once without, at a capacity that holds its demand: the same
     visible (instance, library triangle) on >= 99.9% of pixels and
@@ -92,7 +90,7 @@ code is non-zero:
 22. freeze culling on the bench frame: frozen after one culled frame, the
     frozen frame at the freeze pose has the unfrozen frame's tri_id and
     PSNR >= 50 dB against it; soup.count constant over the orbit,
-    ms/frame, the profile of phase 9;
+    ms/frame;
 23. the debug-AABB view on the bench frame: 12 box triangles per visible
     instance, the raster kernel with barycentrics at that unsorted soup
     against its plain version on a band of rows, timed, with its bound;
@@ -105,17 +103,17 @@ code is non-zero:
     pose pass's device ms and peak memory, ms/frame, the raster kernel at
     the per-corner soup against its plain version (depth and ids
     identical), the frame with the plain raster swapped in (image
-    identical), the profile of phase 9;
+    identical);
 26. the skinned scene (skinned_scene) at 1920x1088 over 30 frames of its
     1 s clip: the pose moves and the image changes on every frame;
 27. the quarter shade rate with its fix at the bench: ms/frame, the
-    profile, the minimum over the gate poses of PSNR against exact, and
+    minimum over the gate poses of PSNR against exact, and
     with aa none the shaded (even, even) lattice and every fixed pixel
     equal to the exact frame bit for bit;
 28. SSAA 2 with aa none at the bench (3840x2176 inside): ms/frame, the
-    profile, the raster kernel at that frame's soup against its plain
-    version on a band of rows;
-29. Lambert shading at the bench: ms/frame, the profile;
+    raster kernel at that frame's soup against its plain version on a band
+    of rows;
+29. Lambert shading at the bench: ms/frame;
 30. the demo (python -m renderer_tpu_torch.demo) in subprocesses, started
     together: every scene (colonnade included), glb:assets/colonnade.glb,
     and --hud, --reference-image, --ssaa 2, --shade-rate quarter, --shadows
@@ -128,7 +126,7 @@ code is non-zero:
     from each (away from those five instances tri_id identical and the
     image within 1e-6; over the frame the visible triangle equal on
     >= 99.9% of pixels and PSNR >= 50 dB), the orbit's 30 frames after a
-    warm-up with the profile of phase 9, the frame with the plain raster
+    warm-up, the frame with the plain raster
     swapped in (identical), kernel 1 at the colonnade soup;
 32. streaming into the live bench scene (2^18 vertices and triangles, 256
     meshes, texture slots): a SceneStreamer with a page-locked Arena and
@@ -159,10 +157,9 @@ code is non-zero:
     scenes (box, spheres, mixed, textured, skinned) at 512x512 and
     tri_capacity 16384, 3 orbit frames each, and on textured and mixed one
     shadowed, one rt and one checkerboard+fix frame: every frame under
-    sync-debug "error", ms/frame and device busy of one more traced frame
-    beside its soup.count, the shadowed frame against the scene's
-    unshadowed one, the same frames on the CPU path (device "cpu") against
-    the card's (visible triangle equal on >= 99.9% of pixels, PSNR >= 50
+    sync-debug "error", ms/frame beside its soup.count, the shadowed
+    frame against the scene's unshadowed one, the same frames on the CPU
+    path (device "cpu") against the card's (visible triangle equal on >= 99.9% of pixels, PSNR >= 50
     dB, >= 40 for rt, shadowed and skinned), the launches of each run
     counted from 0 (kernel 5 once per frame and per atlas view, kernel 6
     once per rt frame and traced slot, kernels 1-4 never), the textured
@@ -194,10 +191,7 @@ code is non-zero:
     129 and the frame's (identical planes), timed beside its bound (the
     pairs the early exit leaves); kernels 5 and 6 are timed per
     call inside a captured graph of 100 calls (the kernels line's ms), by
-    CUDA events around single calls and by the profiler; at the main
-    path's soup also by a graph of one call, and under the profiler in a
-    replay of the graph of 100 and over 100 eager calls (device events
-    seen, their mean, first start to last end);
+    CUDA events around single calls and by the profiler;
 39. bench_torch.py in a subprocess: exit 0, its last line one JSON object
     with bench.result_line's keys and a _gpu metric, printed;
 40. the split frame (renderer_tpu_torch/parallel) over make_mesh([card] * 2),
@@ -212,9 +206,9 @@ code is non-zero:
     split frame against the eager single one (covered mask equal, max abs
     difference <= 2e-6, the JAX package's gate; and whether tri_id is
     equal too); ms/frame of the four in turns (3 frames a turn eager, 10
-    replayed), each under sync-debug "error"; device busy of each over 2
-    traced frames (per card) and idle against its untraced ms (the busiest
-    card's); the replayed split
+    replayed), each under sync-debug "error"; the replayed single and split
+    paths' per-pass device times and each shard's idle share between
+    frames from the frame trace (phase 7's); the replayed split
     program's capture seconds, pool and graph replays per frame; the
     launches per frame of each path, counted from 0 (each split path's
     twice its single path's: each shard rasterizes its rows and makes the
@@ -227,11 +221,11 @@ code is non-zero:
     captured tier at the bench frame (GRAPH_TIERS) and the plain
     configuration's 512x512 orbit of the JAX demo's scenes, an eager and a
     replayed Renderer in lockstep (image, visibility buffer and state
-    equal bit for bit), ms/frame of both in turns, their device busy and
-    idle (against the untraced ms), the program's capture seconds and
-    pool ([graph_<tier>]); then
-    the shadow pass's device time at no update with and without
-    conditional nodes, and a fresh base path's launches ([graph]);
+    equal bit for bit: the replay's conditional nodes against the eager
+    frame's torch.where on the shadowed tiers), ms/frame of both in turns,
+    the program's capture seconds and pool ([graph_<tier>]); then the
+    shadow pass's device time at no update, and a fresh base path's
+    launches ([graph]);
 42. the reference's shadow envelope (scripts/prof_shadow_amort.py and
     prof_shadow_envelope.py on the port): the bench scene with 16
     directional lights (models.shadow_envelope_lights), 16 slots of
@@ -239,12 +233,12 @@ code is non-zero:
     checkerboard+fix. A replayed Renderer over 256 unit frames and 2 more
     (one unit a frame, then none; the ms of the first 8 and the last 4; no
     NaN signature), 20 steady frames (ms, kernel 1 for the camera only,
-    busy and idle over a traced window, the atlas copies' bytes and device
-    ms, capture, pool, state), light 7 moved (the next 16 frames render
-    exactly its slot's 16 bands) and orbiting for 20 frames (at most one
-    band a frame), the shadow pass at no update and the signatures' ms, the
-    profile of phase 9 with shade's device ms against phase 19's
-    ([envelope], [envelope_profile]); an eager and a replayed Renderer in
+    the atlas copies' bytes and device ms, capture, pool, state), light 7
+    moved (the next 16 frames render exactly its slot's 16 bands) and
+    orbiting for 20 frames (at most one band a frame), the shadow pass at
+    no update and the signatures' ms, then the steady frame's per-pass
+    device times and idle share as in phase 7 ([envelope]); an eager and a
+    replayed Renderer in
     lockstep over 4 frames and a moved-light frame (image, vis, state bit
     for bit); the cold envelope (render_shadow_atlas_per_light over the 16
     whole slots at 2^16 casters a slot: ms over 5 calls, 16 launches a
@@ -269,8 +263,7 @@ Every Renderer on the card replays one captured graph per
 frame after its switch set's first frame (the capture), so the timed
 paths above are replayed; a frame whose kernel calls are recorded, or
 that runs with a plain version swapped in, is rendered eagerly
-(``Renderer(replay=False)``), and the per-pass windows of the profile
-phases render eager frames (a replay runs no pass's range).
+(``Renderer(replay=False)``).
 
 Every main path runs with every kernel's launch count set to 0 just
 before it and read just after (the raster kernel once per frame and per
@@ -288,7 +281,6 @@ phase 40 only, once for each N over ``make_mesh`` of the first N cards
 """
 
 import argparse
-import bisect
 import ctypes
 import dataclasses
 import importlib
@@ -329,7 +321,6 @@ from renderer_tpu_torch.runtime.camera_controller import CameraState, InputFrame
 from renderer_tpu_torch.runtime.camera_controller import step as controller_step  # noqa: E402
 from renderer_tpu_torch.runtime.camera_controller import to_camera  # noqa: E402
 from renderer_tpu_torch.runtime.checkpoint import load_renderer, save_renderer  # noqa: E402
-from renderer_tpu_torch.runtime.frame import light_casts  # noqa: E402
 from renderer_tpu_torch.runtime.gameplay import ProjectileSystem  # noqa: E402
 from renderer_tpu_torch.runtime.hud import format_hud  # noqa: E402
 from renderer_tpu_torch.ops.overlay import hud_overlay  # noqa: E402
@@ -339,7 +330,8 @@ from renderer_tpu_torch.scene.gltf import load_gltf  # noqa: E402
 from renderer_tpu_torch.utils import tree  # noqa: E402
 from renderer_tpu_torch.utils.compile_cache import enable_persistent_cache  # noqa: E402
 from renderer_tpu_torch.utils.image import psnr, read_png, resize_bilinear_u8, write_png  # noqa: E402
-from renderer_tpu_torch.utils.profiling import FrameStats, span_ms  # noqa: E402
+from renderer_tpu_torch.utils import profiling  # noqa: E402
+from renderer_tpu_torch.utils.profiling import FrameStats  # noqa: E402
 from torch_occlusion_cases import CASES as OCCLUSION_CASES  # noqa: E402
 from torch_plain_kernel_cases import BRUTE_CASES, RASTER_CASES  # noqa: E402
 from torch_raster_cases import CASES  # noqa: E402
@@ -348,7 +340,6 @@ WIDTH, HEIGHT = 1920, 1088
 N_INSTANCES = 10000
 TRI_CAPACITY = 1 << 17
 FRAMES = 30
-PROFILE_FRAMES = 3  # per traced window; the profiler's processing, not the frames, takes the time
 PASS_FRAMES = 8  # replayed frames under the frame trace, for the main paths' per-pass ms
 PSNR_GATE_DB = 60.0  # main path, kernel vs plain version (display-clamped)
 DEPTH_TOL = 1e-6  # raster kernel vs plain version (they should agree bit for bit)
@@ -458,26 +449,7 @@ SPLIT_TIERS = {  # name -> (config changes, switches)
 SPLIT_FRAMES = 10  # timed replayed frames per tier, path and turn
 SPLIT_EAGER_FRAMES = 3  # timed eager frames per tier, path and turn
 SPLIT_CHECK_FRAMES = 3  # lockstep frames, the replayed split against the eager split and single
-SPLIT_PROFILE_FRAMES = 2  # frames per traced window
 SPLIT_ATOL = 2e-6  # split against single-shard image (tests/test_parallel.py's gate)
-# phase 39: bench_torch's base exact tier in a fresh process, before and
-# after one traced window of torch.profiler (host and device activity)
-PROFILED_BENCH = """
-import torch
-from torch.profiler import ProfilerActivity, profile
-import bench_torch as b
-from renderer_tpu_torch.models import sponza_like_scene
-from renderer_tpu_torch.passes.pipeline import PipelineConfig
-dev = torch.device("cuda")
-scene = sponza_like_scene(b.N_INSTANCES, device=dev)
-cfg = PipelineConfig(width=b.WIDTH, height=b.HEIGHT, tri_capacity=b.TRI_CAPACITY,
-                     enable_normal_maps=True, aa="edge", trilinear=False)
-before = b._measure_mode(scene, cfg, dev, shadows=False)[0]
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-    b._measure_mode(scene, cfg, dev, shadows=False, frames=5)
-after = b._measure_mode(scene, cfg, dev, shadows=False)[0]
-print(before * 1e3, after * 1e3)
-"""
 # phase 41: replay against eager per captured tier (name -> (config changes,
 # switches)); the shadowed dynamic tier takes cfg_dyn, freeze its switch
 # after a culled frame, hud an overlay per frame
@@ -504,7 +476,6 @@ GRAPH_TIERS = {
 }
 GRAPH_CHECK_FRAMES = 3  # lockstep frames, eager against replayed (the first captures)
 GRAPH_FRAMES = 5  # frames per timed turn
-GRAPH_PROFILE_FRAMES = 2  # frames per traced window
 GRAPH_SHADOW_REPLAYS = 20  # replays per timed turn of the cut plans
 # phase 42: the reference's shadow envelope (shadow_mapping.rs:22-24), as the
 # JAX package runs it (scripts/prof_shadow_amort.py:37-160,
@@ -564,7 +535,6 @@ KERNELS = (rc.RASTER_TILES, oc.OCCLUSION_TILES, probe_cuda.ADD_ONE, probe_cuda.T
 
 
 PHASE_SECONDS = {}  # phase -> host seconds from the previous phase's line to its own
-PASS_PROFILES = {}  # profile phase -> its per-pass device ms per frame (profile_main_path)
 _phase_clock = [time.perf_counter()]
 
 
@@ -611,45 +581,6 @@ def graph_ms_per_call(fn, calls: int = GRAPH_CALLS, replays: int = GRAPH_CALL_RE
     ms = cuda_ms(graph.replay, replays) / calls
     graph.reset()
     return ms
-
-
-def device_events(run, calls: int) -> tuple:
-    """The device events (kernels, memsets, copies) of run() under
-    torch.profiler: their number, mean ms, and the span from the first
-    one's start to the last one's end over ``calls``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = [e for e in prof.profiler.kineto_results.events()
-              if e.device_type() == DeviceType.CUDA]
-    if not events:
-        return 0, math.nan, math.nan
-    span = max(e.end_ns() for e in events) - min(e.start_ns() for e in events)
-    return (len(events), sum(e.duration_ns() for e in events) / len(events) / 1e6,
-            span / 1e6 / calls)
-
-
-def call_readings(fn, calls: int = GRAPH_CALLS) -> str:
-    """What sets fn's time a call (phases 37-38): a graph of one call
-    replayed ``calls`` times (CUDA events, ms a replay), and under
-    torch.profiler one replay of a graph of ``calls`` calls and ``calls``
-    eager calls, each as ``device_events`` reads it."""
-    graph = captured(fn, calls)
-    in_replay = device_events(graph.replay, calls)
-    graph.reset()
-    one = captured(fn, 1)
-    one_ms = cuda_ms(one.replay, calls)
-    one.reset()
-    eager = device_events(lambda: [fn() for _ in range(calls)], calls)
-    return (f"a graph of 1 call {one_ms:.5f} ms a replay; profiled, one replay of a graph of "
-            f"{calls} calls: {in_replay[0]} device events, {in_replay[1]:.5f} ms each, first "
-            f"start to last end {in_replay[2]:.5f} ms a call; {calls} eager calls: "
-            f"{eager[0]} device events, {eager[1]:.5f} ms each, first start to last end "
-            f"{eager[2]:.5f} ms a call")
 
 
 def host_us_per_call(fn, calls: int = LAUNCH_CALLS) -> float:
@@ -864,122 +795,6 @@ def bench_camera(k, dev):
     return orbit_camera(0.3 + 0.01 * k, WIDTH / HEIGHT, dev)
 
 
-def traced_window(renderer, dev, activities, cam_at=bench_camera, frames: int = PROFILE_FRAMES,
-                  eager: bool = False):
-    """Render ``frames`` frames (frame k at ``cam_at(k, dev)``) under
-    torch.profiler; with ``eager``, eager frames of the renderer's plan that
-    do not advance its state (a replay runs no pass's range). Returns the
-    profile and the window's host-clock ms per frame."""
-    from torch.profiler import profile
-
-    with profile(activities=activities) as prof:
-        synchronize_cards()
-        t0 = time.perf_counter()
-        for k in range(frames):
-            if eager:
-                renderer._run(commit=False, camera=cam_at(k, dev), time_s=0.0, overlay=None)
-            else:
-                renderer.render(cam_at(k, dev))
-        synchronize_cards()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-    return prof, wall_ms
-
-
-def traced_busy(prof, frames: int) -> tuple:
-    """A traced window's device ops (the ``forward.`` ranges left out) and
-    their device busy ms per frame."""
-    from torch.autograd import DeviceType
-
-    device_ops = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and not e.key.startswith("forward.")]
-    return device_ops, sum(e.self_device_time_total for e in device_ops) / 1e3 / frames
-
-
-def busy_by_card(prof, frames: int) -> dict:
-    """A traced window's device busy ms per frame on each card (device
-    index -> ms), the ``forward.`` ranges left out."""
-    from torch.autograd import DeviceType
-
-    busy = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("forward."):
-            busy[e.device_index] = busy.get(e.device_index, 0.0) + e.time_range.elapsed_us()
-    return {i: us / 1e3 / frames for i, us in sorted(busy.items())}
-
-
-def pass_device_ms(events, n_frames: int):
-    """Per pass, the device ms per frame of the work its range launched, and
-    the ms per frame of device work that no pass launched. A device event
-    (kernel, memset, copy) belongs to the pass whose ``forward.<pass>``
-    range holds the host call that launched it: the CUDA runtime or driver
-    call with the event's correlation id (kernels launched through ctypes
-    included), or else the PyTorch op the event is linked to."""
-    from torch.autograd import DeviceType
-
-    ranges = sorted((e.time_range.start, e.time_range.end, e.name[len("forward."):])
-                    for e in events if e.device_type == DeviceType.CPU
-                    and e.name.startswith("forward."))
-    starts = [r[0] for r in ranges]
-    runtime_at, op_at = {}, {}
-    for e in events:
-        if e.device_type == DeviceType.CPU and not e.name.startswith("forward."):
-            (runtime_at if e.name.startswith("cu") else op_at)[e.id] = e.time_range.start
-    per_pass = {r[2]: 0.0 for r in ranges}
-    other = 0.0
-    for e in events:
-        if e.device_type != DeviceType.CUDA or e.name.startswith("forward."):
-            continue
-        t = runtime_at.get(e.id, op_at.get(getattr(e, "linked_correlation_id", None)))
-        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
-        ms = e.time_range.elapsed_us() / 1e3 / n_frames
-        if i >= 0 and t <= ranges[i][1]:
-            per_pass[ranges[i][2]] += ms
-        else:
-            other += ms
-    return per_pass, other
-
-
-def profile_main_path(name, renderer, dev, card: str, cam_at=bench_camera) -> dict:
-    """Device busy time of the renderer's frames (replays) in one traced
-    window, against their wall time in an untraced window of as many frames
-    (the traced window's own wall holds the profiler's start); and per-pass
-    device and host time in a second traced window of eager frames of its
-    plan that also traces the host. A pass's device time is that of the
-    work launched inside its range (pass_device_ms); the passes and the
-    unattributed rest add up to the second window's device busy time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-
-    wall_ms = frames_ms(renderer, PROFILE_FRAMES, lambda r, k: r.render(cam_at(k, dev)))
-    prof, _ = traced_window(renderer, dev, [ProfilerActivity.CUDA], cam_at)
-    device_ops, busy_ms = traced_busy(prof, PROFILE_FRAMES)
-    ops = sum(e.count for e in device_ops) / PROFILE_FRAMES
-    top = sorted(device_ops, key=lambda e: -e.self_device_time_total)[:4]
-    if busy_ms > 0:
-        share = (f"device busy {busy_ms:.3f} ms/frame, {wall_ms:.3f} ms/frame untraced "
-                 f"= idle {100.0 * (1.0 - busy_ms / wall_ms):.1f}%, {ops:.0f} device ops/frame; "
-                 "longest: " + ", ".join(
-                     f"{e.key[:48]} {e.self_device_time_total / 1e3 / PROFILE_FRAMES:.3f} ms/frame"
-                     for e in top))
-    else:
-        share = "device time not measured (the profiler saw no device activity)"
-    prof, wall_ms = traced_window(renderer, dev, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                                  cam_at, eager=True)
-    host = {e.key[len("forward."):]: e.cpu_time_total / 1e3 / PROFILE_FRAMES
-            for e in prof.key_averages()
-            if e.key.startswith("forward.") and e.device_type == DeviceType.CPU}
-    per_pass, other = pass_device_ms(prof.events(), PROFILE_FRAMES)
-    busy2 = sum(per_pass.values()) + other
-    phase(name, f"{PROFILE_FRAMES} frames ({card}): {share}; host+device traced window of "
-                f"eager frames {wall_ms:.3f} ms/frame, per pass device/host ms/frame (device: the work "
-                "launched inside the pass's range): "
-                + ", ".join(f"{k} {d:.3f}/{host.get(k, 0.0):.3f}" for k, d in per_pass.items())
-                + f"; passes sum to {sum(per_pass.values()):.3f} + {other:.3f} launched outside "
-                f"any pass = {busy2:.3f} ms/frame of device time")
-    PASS_PROFILES[name] = per_pass
-    return per_pass
-
-
 def run_orbit(renderer, dev, scene_at=lambda k: None, warmup: int = 1, cam_at=bench_camera,
               frames: int = None):
     """``warmup`` frames at the first pose, then ``frames`` (FRAMES) timed
@@ -997,19 +812,33 @@ def run_orbit(renderer, dev, scene_at=lambda k: None, warmup: int = 1, cam_at=be
     return (time.perf_counter() - t0) * 1e3 / frames, out
 
 
-def replayed_pass_ms(renderer, dev, frames: int = PASS_FRAMES) -> dict:
-    """Mean device ms of each pass over ``frames`` replayed frames of the
-    bench orbit, from the renderer's frame trace: turned on (the programs
-    captured again with the stamps, in a warm-up frame left out), read and
-    turned off, then one frame that captures the programs without the
-    stamps, so that what is timed next replays the untraced graphs."""
+def replayed_trace(renderer, dev, frames: int = PASS_FRAMES, cam_at=bench_camera) -> dict:
+    """``profiling.summary`` of ``frames`` replayed frames (frame k at
+    ``cam_at(k, dev)``) from the renderer's frame trace: turned on (the
+    programs captured again with the stamps, in a warm-up frame left out),
+    read and turned off, then one frame that captures the programs without
+    the stamps, so that what is timed next replays the untraced graphs.
+    Adds ``gap_pct_by_shard``: each shard's ``frame_gap_pct`` (its card's
+    idle share between the shard's frames; a split frame over several
+    cards has a shard a card)."""
     renderer.trace_frames(frames + 1)
-    run_orbit(renderer, dev, frames=frames)
+    run_orbit(renderer, dev, cam_at=cam_at, frames=frames)
     record = renderer.frame_trace.read()
     renderer.trace_frames(0)
-    renderer.render(bench_camera(0, dev))
+    renderer.render(cam_at(0, dev))
     synchronize_cards()
-    return span_ms(record, record["frames"][1:])
+    kept = record["frames"][1:]
+    return dict(profiling.summary(record, kept), gap_pct_by_shard=[
+        profiling.summary(dict(record, device=[per]), kept)["frame_gap_pct"]
+        for per in record["device"]])
+
+
+def trace_line(trace: dict) -> str:
+    """``replayed_trace``'s passes (device ms a frame) and each shard's idle
+    share between frames."""
+    return (f"pass ms {json.dumps({k: round(v, 3) for k, v in trace['device_ms'].items()})}, idle "
+            f"between frames {', '.join(f'{g:.2f}%' for g in trace['gap_pct_by_shard'])} (per "
+            f"shard) over {trace['frames']} replayed frames of the frame trace")
 
 
 def check_image(out):
@@ -1129,9 +958,9 @@ def fmt_db(v: float) -> str:
 
 
 def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, card) -> dict:
-    """Phases 14-19: the shadow atlas's raster, bench.py's checkerboard and
-    shadowed tiers, image quality, the checkerboard's exactness, the plain
-    raster in the shadowed frame and its profile. ``renderer`` is the base
+    """Phases 14-18: the shadow atlas's raster, bench.py's checkerboard and
+    shadowed tiers, image quality, the checkerboard's exactness and the
+    plain raster in the shadowed frame. ``renderer`` is the base
     frame's (phase 7), ``frame_ms`` its ms per frame; each tier's raster
     launches go into ``path_launches``. Returns each tier's ms/frame."""
     # 14. the shadow atlas's raster at the bench camera (slot 0, the sun) -------
@@ -1299,9 +1128,6 @@ def shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, 
         raise AssertionError("shadowed checkerboard frame differs between kernel and plain raster")
     phase("shadowed_vs_plain", "shadowed checkerboard+fix frame with the plain raster in the "
                                "camera and atlas passes: image identical")
-
-    # 19. profile of the shadowed checkerboard+fix frame -------------------------
-    profile_main_path("shadow_profile", tier_renderers["shadowed_checkerboard"], dev, card)
     return tier_ms
 
 
@@ -1470,8 +1296,6 @@ def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launch
                               f"warm-up frame {truncation(demand[:1], count[:1], cap)}, steady "
                               f"frames {truncation(demand[1:], count[1:], cap)}; "
                               f"{ms:.2f} ms/frame = {1e3 / ms:.2f} FPS ({card})")
-    for mode, run in runs.items():
-        profile_main_path(f"city_{mode}_profile", run["renderer"], dev, card, cam_at=city_camera)
 
     # 21. held pose: the second occluded frame against the unoccluded one --------
     # both at a capacity that holds the pose's frustum demand, so that the
@@ -1524,7 +1348,6 @@ def culling_phases(scene, prepared, cfg, renderer, camera_kernel_ms, path_launch
                     f"unfrozen frame, display-clamped PSNR {fmt_db(frozen_psnr)} dB (gate 50); "
                     f"soup.count {counts.pop()} on every frame of the orbit; {freeze_ms:.2f} "
                     f"ms/frame = {1e3 / freeze_ms:.2f} FPS over {FRAMES} frames ({card})")
-    profile_main_path("freeze_profile", r, dev, card)
 
     # 23. the debug-AABB view on the bench frame --------------------------------
     r = Renderer(scene, cfg, outputs=("image", "vis", "soup"), device=dev)
@@ -1677,7 +1500,6 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
                      f"{int(sk_frame['soup'].count)} per-corner against {int(flat['soup'].count)} "
                      f"from tri_rec, tri_id equal on {100 * same:.4f}% of pixels; {soup_line}; "
                      "the frame with the plain raster swapped in: image identical")
-    profile_main_path("skinned_profile", r_sk, dev, card)
 
     # 26. the skinned scene animated over its clip --------------------------------
     sk_scene = skinned_scene(device=dev)
@@ -1735,7 +1557,6 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
                      f"{GATE_ANGLES[0]}: the {int(lattice.sum())} shaded lattice pixels and the "
                      f"{int(changed.sum())} pixels the fix changed equal the exact frame bit for "
                      f"bit (fix capacity {quarter_fix_capacity(HEIGHT * WIDTH)}) ({card})")
-    profile_main_path("quarter_profile", r_q, dev, card)
 
     # 28. SSAA 2 with aa none --------------------------------------------------------
     cfg_ss = dataclasses.replace(cfg, ssaa=SSAA, aa="none")
@@ -1752,7 +1573,6 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
                                  False, card, band_rows=SSAA_BAND_ROWS, size=size_ss, exact=True)
     phase("ssaa", f"SSAA {SSAA}, aa none: {ss_ms:.2f} ms/frame = {1e3 / ss_ms:.2f} FPS over "
                   f"{FRAMES} frames; {ss_line}")
-    profile_main_path("ssaa_profile", r_ss, dev, card)
 
     # 29. Lambert --------------------------------------------------------------------
     r_l = Renderer(scene, dataclasses.replace(cfg, shading="lambert", aa="none"), outputs=outputs,
@@ -1763,7 +1583,6 @@ def tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card) -> Non
     check_image(out)
     phase("lambert", f"Lambert: {l_ms:.2f} ms/frame = {1e3 / l_ms:.2f} FPS over {FRAMES} frames "
                      f"(base PBR {frame_ms:.2f}) ({card})")
-    profile_main_path("lambert_profile", r_l, dev, card)
 
     # 30. the demo ---------------------------------------------------------------------
     phase("demo", run_demos(card))
@@ -1909,7 +1728,6 @@ def runtime_phases(scene, cfg, renderer, frame_ms, city, path_launches, dev, car
                        f"{1e3 / col_ms:.2f} FPS over {COLONNADE_FRAMES} frames after 1 warm-up; "
                        f"the frame with the plain raster swapped in: image identical "
                        f"({t_swap:.1f} s); {col_line}")
-    profile_main_path("colonnade_profile", r_col, dev, card, cam_at=colonnade_camera)
 
     # 32. streaming into the live bench scene ------------------------------------------
     t0 = time.perf_counter()
@@ -2184,11 +2002,9 @@ def plain_run(name: str, changes: dict, switches: dict, dev, frames: int, warmup
     """The plain configuration on ``dev`` with the JAX demo's scene ``name``
     at its size and capacity: a warm-up frame (if ``warmup``), then
     ``frames`` frames of the demo's orbit (angle 0.5 + 0.02k, clip time
-    k/60), on the card under sync-debug "error", and on the card one more
-    frame traced for its device busy time. Returns (per frame (image,
-    visible identity) on the host, ms/frame, busy ms of the traced frame or
-    None, the last frame's soup count, frames rendered, the renderer's
-    shadow slots)."""
+    k/60), on the card under sync-debug "error". Returns (per frame (image,
+    visible identity) on the host, ms/frame, the last frame's soup count,
+    frames rendered, the renderer's shadow slots)."""
     scene = build_demo_scene(name, dev)
     cfg = PipelineConfig(width=DEMO_SIZE, height=DEMO_SIZE, tri_capacity=PLAIN_CAPACITY,
                          skinning=name == "skinned", tile_raster=False, **changes)
@@ -2210,10 +2026,8 @@ def plain_run(name: str, changes: dict, switches: dict, dev, frames: int, warmup
     if on_card:
         torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / frames
-    busy = device_busy_ms(lambda: frame(frames)) if on_card else None
-    rendered = int(warmup) + frames + int(on_card)
     return ([(o["image"].cpu().numpy(), visible_identity(o).cpu().numpy()) for o in outs], ms,
-            busy, int(outs[-1]["soup"].count), rendered,
+            int(outs[-1]["soup"].count), int(warmup) + frames,
             trt.slot_lights(r.atlas_casts, r.cfg.shadow_slots))
 
 
@@ -2233,19 +2047,6 @@ def plain_launches_wanted(changes: dict, switches: dict, rendered: int, slots) -
     want[tpbr.SHADE.symbol] = rendered * shades(PipelineConfig(**changes), switches)
     want[tshadow.SIGNATURE.symbol] = rendered * signatures(PipelineConfig(**changes), switches)
     return want
-
-
-def device_busy_ms(fn) -> float:
-    """Device busy ms of one call of ``fn`` (the profiler's CUDA activity)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
 
 
 def held_to_cpu(label: str, card_frames, cpu_frames, db: float) -> str:
@@ -2287,7 +2088,7 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
             k.launches = 0
         card_runs.append(plain_run(name, changes, switches, dev, n, warmup=True))
         got = {k.symbol: k.launches for k in KERNELS}
-        want = plain_launches_wanted(changes, switches, *card_runs[-1][4:])
+        want = plain_launches_wanted(changes, switches, *card_runs[-1][3:])
         if got != want:
             raise AssertionError(f"plain {name} {label}: launches {got}, want {want}")
         launched = {k: launched[k] + v for k, v in got.items()}
@@ -2326,11 +2127,10 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
         img, vis = fwd()
     torch.cuda.synchronize()
     f_ms = (time.perf_counter() - t0) * 1e3
-    f_busy = device_busy_ms(fwd)
     f_launches = {k.symbol: k.launches for k in KERNELS}
-    if f_launches != {k.symbol: 3 if k is rs.SCAN_RASTER else 0 for k in KERNELS}:
-        raise AssertionError(f"render_forward, 3 calls: launches {f_launches}")
-    plain_path_launches[rs.SCAN_RASTER.symbol]["forward"] = 3
+    if f_launches != {k.symbol: 2 if k is rs.SCAN_RASTER else 0 for k in KERNELS}:
+        raise AssertionError(f"render_forward, 2 calls: launches {f_launches}")
+    plain_path_launches[rs.SCAN_RASTER.symbol]["forward"] = 2
 
     env = dict(os.environ, PYTHONPATH=ROOT)
     demo_png = os.path.join(enable_persistent_cache(), "demo_plain_rt.png")
@@ -2341,7 +2141,7 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
          demo_png, "--frames", "3", "--check-sync", *PLAIN_DEMO],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines = []
-    for (name, label, changes, switches, n), (frames, ms, busy, count, *_) in zip(runs, card_runs):
+    for (name, label, changes, switches, n), (frames, ms, count, *_) in zip(runs, card_runs):
         t0 = time.perf_counter()
         # a warm-up only under shadows (the cached atlas): the other frames
         # keep no state between frames
@@ -2352,13 +2152,12 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
                            PLAIN_DB_LOOSE if loose else PLAIN_DB)
         against = (f" (orbit frame {orbit_ms[name]:.1f} ms: {ms - orbit_ms[name]:+.1f} ms)"
                    if label != "orbit" else "")
-        lines.append(f"{name} {label} ({n} frames): {ms:.1f} ms/frame{against}, busy {busy:.1f} "
-                     f"ms/frame (idle {100 * max(0.0, 1 - busy / ms):.1f}%), soup.count {count}, "
-                     f"{held} (CPU {cpu_ms:.0f} ms/frame)")
+        lines.append(f"{name} {label} ({n} frames): {ms:.1f} ms/frame{against}, soup.count "
+                     f"{count}, {held} (CPU {cpu_ms:.0f} ms/frame)")
     phase("plain", f"{len(runs)} plain-configuration runs at {DEMO_SIZE}x{DEMO_SIZE}, "
                    f"tri_capacity {PLAIN_CAPACITY}, trilinear, each after a warm-up frame, under "
-                   f"sync-debug \"error\"; busy from one more traced frame; kernel launches on the "
-                   f"plain paths, each run counted from 0, summed {launched} ({card}): "
+                   f"sync-debug \"error\"; kernel launches on the plain paths, each run counted "
+                   f"from 0, summed {launched} ({card}): "
           + "; ".join(lines)
           + f"; textured plain against tile frame: error < 0.02 on "
             f"{100 * (err < 0.02).mean():.3f}% of pixels, mean {err.mean():.2e}")
@@ -2366,8 +2165,8 @@ def plain_phases(scene, cfg, path_launches, dev, card) -> None:
     held = held_to_cpu("render_forward", [(img.cpu().numpy(), vis.tri_id.cpu().numpy())],
                        [(cimg.numpy(), cvis.tri_id.numpy())], PLAIN_DB)
     phase("plain_forward", f"render_forward on mixed at {DEMO_SIZE}x{DEMO_SIZE}: {f_ms:.1f} ms, "
-                           f"busy {f_busy:.1f} ms, under sync-debug \"error\", kernel 5 "
-                           f"launches 3 for 3 calls (no count, as in JAX), coverage "
+                           f"under sync-debug \"error\", kernel 5 launches 2 for 2 calls (no "
+                           f"count, as in JAX), coverage "
                            f"{float((vis.tri_id >= 0).float().mean()):.3f}; {held} ({card})")
     try:
         log, _ = demo_proc.communicate(timeout=DEMO_TIMEOUT_S)
@@ -2626,8 +2425,6 @@ def scan_raster_phase(scene, cfg, dev, card) -> dict:
                      + (f"{100 * b_ms / k_dev:.1f}% of the device time" if k_dev > 0 else
                         "the device time not measured (the profiler saw no device event)"))
         if entry is None:  # the plain frame's camera soup: the main path's call
-            lines.append("its time a call read otherwise: " + call_readings(
-                lambda: rs.scan_raster_kernel(inp, count, w, h, tb, with_bary)))
             entry = dict(name="scan_raster", route="cuda",
                          source="renderer_tpu_torch/csrc/scan_raster.cu",
                          replaces="renderer_tpu/ops/raster_jax.py:183", launches=None,
@@ -2704,8 +2501,6 @@ def rt_brute_phase(dev, card) -> dict:
                      + (f"{100 * b_ms / k_dev:.1f}% of the device time" if k_dev > 0 else
                         "the device time not measured (the profiler saw no device event)"))
         if entry is None:
-            lines.append("its time a call read otherwise: " + call_readings(
-                lambda: brute.rt_brute_kernel(inp, count, wd)))
             entry = dict(name="rt_brute", route="cuda",
                          source="renderer_tpu_torch/csrc/rt_brute.cu",
                          replaces="renderer_tpu/ops/rt.py:99", launches=None, max_abs_err=0.0,
@@ -2886,13 +2681,9 @@ def shade_phase(cfg, dev, card) -> dict:
     return entry
 
 
-def bench_phase(tier_ms: dict, scene, cfg, dev, card) -> None:
+def bench_phase(tier_ms: dict, card) -> None:
     """Phase 39: bench_torch.py in a subprocess, its JSON line checked and
-    printed beside phase 7's and 15's ms/frame, and its base exact tier
-    measured in this process too, as it is and with the garbage
-    collector's objects frozen (this process holds far more objects than
-    a fresh one), and in a fresh process before and after one window of
-    torch.profiler (which this process has run before its tiers)."""
+    printed beside phase 7's and 15's ms/frame."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
                           env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
@@ -2914,30 +2705,6 @@ def bench_phase(tier_ms: dict, scene, cfg, dev, card) -> None:
     against["shadowed exact / cb+fix fps"] = (
         f"{line['shadowed_exact_fps']} / {line['shadowed_checkerboard_fix_fps']} against "
         f"{1e3 / tier_ms['shadowed_exact']:.2f} / {1e3 / tier_ms['shadowed_checkerboard']:.2f}")
-    import gc
-
-    import bench_torch
-
-    here = {"as is": bench_torch._measure_mode(scene, cfg, dev, shadows=False)[0] * 1e3}
-    n_objects = len(gc.get_objects())
-    gc.collect()
-    gc.freeze()
-    try:
-        here["gc frozen"] = bench_torch._measure_mode(scene, cfg, dev, shadows=False)[0] * 1e3
-    finally:
-        gc.unfreeze()
-    against["base exact in this process"] = (
-        f"{here['as is']:.2f} ms/frame, {here['gc frozen']:.2f} with the collector's "
-        f"{n_objects} objects frozen")
-    traced = subprocess.run([sys.executable, "-c", PROFILED_BENCH], cwd=ROOT,
-                            env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
-                            timeout=BENCH_TIMEOUT_S)
-    if traced.returncode != 0:
-        raise AssertionError(f"profiled bench process exit {traced.returncode}: "
-                             f"{traced.stderr[-3000:]}")
-    before, after = (float(v) for v in traced.stdout.split()[-2:])
-    against["base exact in a fresh process, before / after a profiler window"] = (
-        f"{before:.2f} / {after:.2f} ms/frame")
     phase("bench", f"python3 bench_torch.py: exit 0 in {seconds:.1f} s, keys = bench.result_line's"
                    f"{' with the golden key' if BENCH_GOLDEN_KEY in line else ''}, metric "
                    f"{line['metric']}; against phases 7 and 15: {json.dumps(against)} ({card}); "
@@ -2949,8 +2716,6 @@ def split_phase(scene, cfg, path_launches, kernels, dev, card, devices=None) -> 
     docstring), or one shard per device of ``devices``, eager and replayed,
     beside the single frame on ``dev``. The replayed split path's raster
     and occlusion launches join the kernels line's."""
-    from torch.profiler import ProfilerActivity
-
     from renderer_tpu_torch.parallel import make_mesh
 
     devices = [torch.device(d) for d in devices or [dev] * SPLIT_SHARDS]
@@ -3034,15 +2799,8 @@ def split_phase(scene, cfg, path_launches, kernels, dev, card, devices=None) -> 
                     switches.get("rt") and not want[oc.OCCLUSION_TILES.symbol]):
                 raise AssertionError(f"split {name}: {pair} launches {launched[pair]} per frame, "
                                      f"want {want} (the {single} path's per shard)")
-        # label -> (device busy ms/frame over a traced window, idle % of the turns' ms; per
-        # card, the busiest card's idle)
-        busy = {}
-        for label, r in paths.items():
-            prof, _ = traced_window(r, dev, [ProfilerActivity.CUDA], frames=SPLIT_PROFILE_FRAMES,
-                                    cam_at=lambda k, d: bench_camera(SPLIT_CHECK_FRAMES + k, d))
-            per_card = busy_by_card(prof, SPLIT_PROFILE_FRAMES)
-            busy[label] = (per_card, 100.0 * (1.0 - max(per_card.values())
-                                              / statistics.mean(ms[label])))
+        traces = {label: replayed_trace(paths[label], dev) for label in ("replayed single",
+                                                                           "replayed split")}
         (program,) = rsplit.programs.values()
         (single_program,) = rone.programs.values()
         lines.append(
@@ -3052,10 +2810,7 @@ def split_phase(scene, cfg, path_launches, kernels, dev, card, devices=None) -> 
             f"{err:.3g}; ms/frame in turns, each under sync-debug error ({SPLIT_EAGER_FRAMES} "
             f"eager, {SPLIT_FRAMES} replayed frames a turn): "
             + ", ".join(f"{label} {ms[label][0]:.2f} / {ms[label][1]:.2f}" for label in paths)
-            + "; busy ms/frame (idle): "
-            + ", ".join(f"{label} " + " + ".join(f"{b:.3f}" for b in v[0].values())
-                        + (f" on cards {list(v[0])}" if len(v[0]) > 1 else "")
-                        + f" ({v[1]:.1f}%)" for label, v in busy.items())
+            + "; " + "; ".join(f"{label}: {trace_line(t)}" for label, t in traces.items())
             + f"; replayed split: capture {program.capture_s:.2f} s, pool "
               f"{program.pool_bytes / 2**20:.1f} MiB, {len(program.graphs)} graph replays per "
               f"frame (replayed single: {single_program.capture_s:.2f} s, "
@@ -3157,13 +2912,8 @@ def graph_tier(label, make, switches, cam_at, scene_at=lambda k: None, prep=Fals
     in lockstep over GRAPH_CHECK_FRAMES frames (image, visibility buffer and
     state equal bit for bit on each; with ``prep`` the switches are taken up
     after the first frame, as freeze culling needs a culled frame), then
-    ms/frame of both in turns, their device busy per frame over a traced
-    window and idle share against the turns' ms (the traced window's own
-    wall holds the profiler's start), and the program's capture seconds
-    and pool. Returns (the phase line's entry, ms and busy of both, the
-    replayed renderer)."""
-    from torch.profiler import ProfilerActivity
-
+    ms/frame of both in turns, and the program's capture seconds and pool.
+    Returns the phase line's entry."""
     eager, replay = make(False), make(None)
     if not replay.replay or eager.replay:
         raise AssertionError(f"graph {label}: the default renderer must replay on the card")
@@ -3189,29 +2939,19 @@ def graph_tier(label, make, switches, cam_at, scene_at=lambda k: None, prep=Fals
         r = eager if name == "eager" else replay
         ms[name].append(frames_ms(r, GRAPH_FRAMES,
                                   lambda r, k: frame(r, GRAPH_CHECK_FRAMES + k)))
-    busy = {}  # device busy ms/frame (a traced window), idle against the untraced turns' ms
-    for name, r in (("eager", eager), ("replay", replay)):
-        prof, _ = traced_window(r, r.device, [ProfilerActivity.CUDA],
-                                cam_at=lambda k, d: cam_at(GRAPH_CHECK_FRAMES + k, d),
-                                frames=GRAPH_PROFILE_FRAMES)
-        b = traced_busy(prof, GRAPH_PROFILE_FRAMES)[1]
-        busy[name] = (b, 100.0 * (1.0 - b / statistics.mean(ms[name])))
-    entry = (f"{label}: replay = eager bit for bit on {GRAPH_CHECK_FRAMES} frames; ms/frame in turns "
-             f"eager {ms['eager'][0]:.2f}, replay {ms['replay'][0]:.2f}, replay "
-             f"{ms['replay'][1]:.2f}, eager {ms['eager'][1]:.2f}; busy ms/frame eager "
-             f"{busy['eager'][0]:.3f} (idle {busy['eager'][1]:.1f}%), replay "
-             f"{busy['replay'][0]:.3f} (idle {busy['replay'][1]:.1f}%); capture "
-             f"{program.capture_s:.2f} s, pool {program.pool_bytes / 2**20:.1f} MiB")
-    return entry, ms, busy, replay
+    return (f"{label}: replay = eager bit for bit on {GRAPH_CHECK_FRAMES} frames; ms/frame in "
+            f"turns eager {ms['eager'][0]:.2f}, replay {ms['replay'][0]:.2f}, replay "
+            f"{ms['replay'][1]:.2f}, eager {ms['eager'][1]:.2f}; capture "
+            f"{program.capture_s:.2f} s, pool {program.pool_bytes / 2**20:.1f} MiB")
 
 
-def shadow_pass_ms(r, cam) -> dict:
+def shadow_pass_ms(r, cam) -> float:
     """Device ms per replay of the shadowed plan of ``r`` (a renderer whose
     cache has converged) cut after the shadow pass, less the same plan cut
-    before it, at no update and camera ``cam``, with and without conditional
-    nodes: the shadow pass's device time. Each cut plan is a FrameProgram
-    over a copy of the renderer's state, timed by CUDA events over
-    GRAPH_SHADOW_REPLAYS replays, in turns."""
+    before it, at no update and camera ``cam``: the shadow pass's device
+    time. Each cut plan is a FrameProgram over a copy of the renderer's
+    state, timed by CUDA events over GRAPH_SHADOW_REPLAYS replays, in
+    turns."""
     from renderer_tpu_torch.runtime.frame import execute_plan
     from renderer_tpu_torch.runtime.program import FrameProgram
 
@@ -3219,43 +2959,33 @@ def shadow_pass_ms(r, cam) -> dict:
     passes = r.passes
     cut = [p.name for p in passes].index("shadow_pass")
     programs = {}
-    for name, n, cond in (("before", cut, True), ("with nodes", cut + 1, True),
-                          ("without nodes", cut + 1, False)):
-        control.ENABLED = cond
-        try:
-            state = {k: tree.unflatten(tree.flatten(v)[1], [t.clone() for t in tree.leaves(v)])
-                     for k, v in r.state.items()}
-            prog = FrameProgram(passes[:n], (), state, scene, cam, dev, False, execute_plan)
-            prog.run(scene, cam)  # warm-up and capture
-        finally:
-            control.ENABLED = True
-        if (prog.conditional is None) != (cond and control.conditional_nodes()[0]):
+    for name, n in (("before", cut), ("after", cut + 1)):
+        state = {k: tree.unflatten(tree.flatten(v)[1], [t.clone() for t in tree.leaves(v)])
+                 for k, v in r.state.items()}
+        prog = FrameProgram(passes[:n], (), state, scene, cam, dev, False, execute_plan)
+        prog.run(scene, cam)  # warm-up and capture
+        if (prog.conditional is None) != control.conditional_nodes()[0]:
             raise AssertionError(f"shadow pass {name}: conditional nodes {prog.conditional}")
         programs[name] = prog
     ms = {name: [] for name in programs}
-    for name in ("before", "with nodes", "without nodes", "without nodes", "with nodes", "before"):
+    for name in ("before", "after", "after", "before"):
         ms[name].append(cuda_ms(programs[name].replay, GRAPH_SHADOW_REPLAYS))
-    atlas = programs["with nodes"].state["shadow_cache"][0]
-    if not torch.equal(atlas, programs["without nodes"].state["shadow_cache"][0]):
-        raise AssertionError("shadow pass: the atlas differs with and without conditional nodes")
     for p in programs.values():
         p.close()
-    base = statistics.mean(ms["before"])
-    return {name: statistics.mean(v) - base for name, v in ms.items() if name != "before"}
+    return statistics.mean(ms["after"]) - statistics.mean(ms["before"])
 
 
 def graph_phase(scene, cfg, path_launches, dev, card) -> None:
     """Phase 41: one CUDA graph replay per frame (runtime/program.py). Every
     captured tier at the bench frame and the plain configuration's 512x512
-    orbit (graph_tier), the shadow pass's device time at no update with
-    and without conditional nodes, and the launches of a replayed path."""
+    orbit (graph_tier), the shadow pass's device time at no update, and the
+    launches of a replayed path."""
     ok, why = control.conditional_nodes()
     outputs = ("image", "vis")
     cfg_dyn = dataclasses.replace(cfg, shade_rate="checkerboard", shadow_update_budget=1,
                                   shadow_progressive=SHADOW_PROGRESSIVE,
                                   shadow_tri_capacity=SHADOW_BAND_CAPACITY)
-    tables = mover_tables(scene, range(GRAPH_CHECK_FRAMES + 2 * GRAPH_FRAMES
-                                       + GRAPH_PROFILE_FRAMES), dev)
+    tables = mover_tables(scene, range(GRAPH_CHECK_FRAMES + 2 * GRAPH_FRAMES), dev)
 
     def moved_scene(k):
         return scene._replace(instances=scene.instances._replace(translation=tables[k]))
@@ -3266,7 +2996,7 @@ def graph_phase(scene, cfg, path_launches, dev, card) -> None:
         def make(replay, tcfg=tcfg):
             return Renderer(scene, tcfg, outputs=outputs, device=dev, replay=replay)
 
-        entry, *_ = graph_tier(label, make, switches, bench_camera,
+        entry = graph_tier(label, make, switches, bench_camera,
                                scene_at=moved_scene if label == "shadowed_dynamic" else
                                (lambda k: None), prep=label == "freeze", hud=label == "hud")
         phase(f"graph_{label}", entry + f" ({card})")
@@ -3278,7 +3008,7 @@ def graph_phase(scene, cfg, path_launches, dev, card) -> None:
         def make(replay, pscene=pscene, pcfg=pcfg):
             return Renderer(pscene, pcfg, outputs=outputs, device=dev, replay=replay)
 
-        entry, *_ = graph_tier(f"plain_{name}", make, {},
+        entry = graph_tier(f"plain_{name}", make, {},
                                lambda k, d, name=name: make_demo_camera(name, 0.5 + 0.02 * k, d))
         phase(f"graph_plain_{name}", entry + f" ({card})")
     r = Renderer(scene, dataclasses.replace(cfg, shade_rate="checkerboard"), device=dev)
@@ -3295,9 +3025,8 @@ def graph_phase(scene, cfg, path_launches, dev, card) -> None:
                    f"conditional nodes: "
                    f"{'yes (csrc/graph_cond.cu)' if ok else f'no, torch.where in the graph: {why}'}; "
                    f"the shadowed static checkerboard+fix frame's shadow pass at no update, device "
-                   f"ms per replay: with conditional nodes {shadow['with nodes']:.3f}, without "
-                   f"{shadow['without nodes']:.3f} (the plan cut after it less the plan cut "
-                   f"before it, CUDA events over {GRAPH_SHADOW_REPLAYS} replays, in turns); "
+                   f"ms per replay {shadow:.3f} (the plan cut after it less the plan cut before "
+                   f"it, CUDA events over {GRAPH_SHADOW_REPLAYS} replays, in turns); "
                    f"{GRAPH_FRAMES} frames of a fresh base renderer (1 eager + capture, "
                    f"{GRAPH_FRAMES - 1} replays) launch kernel 1 {GRAPH_FRAMES} times ({card})")
 
@@ -3529,8 +3258,6 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
     (convergence, steady state, a moved light, an orbiting light, replay
     against eager), the cold envelope through render_shadow_atlas_per_light,
     and kernel 1 against its plain version at the envelope's two shapes."""
-    from torch.profiler import ProfilerActivity
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3601,11 +3328,6 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
     if not nan_equal(sig, r.state["shadow_cache"][1]):
         raise AssertionError("envelope steady state: a unit rendered")
     path_launches["envelope_steady"] = ENVELOPE_STEADY
-    prof, _ = traced_window(r, dev, [ProfilerActivity.CUDA],
-                            cam_at=lambda k, d: cam(0.5 + 0.01 * (ENVELOPE_STEADY + k)),
-                            frames=GRAPH_PROFILE_FRAMES)
-    device_ops, busy = traced_busy(prof, GRAPH_PROFILE_FRAMES)
-    longest = sorted(device_ops, key=lambda e: -e.self_device_time_total)[:8]
     # a steady replay copies the atlas three times: each slot's previous
     # depth (ops/control.cond's copy of prev), the 16 results stacked into a
     # new atlas, the new atlas donated into the state's buffer; each byte
@@ -3667,6 +3389,7 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
     if envelope_frame(r, cam(0.6))[1].any():
         raise AssertionError("envelope: the cache did not converge again after the orbit")
     shadow = shadow_pass_ms(r, cam(0.6))
+    capture_s, pool_mib = program.capture_s, program.pool_bytes / 2**20
     prepared = geometry.prepare_frame_columns(scene, cam(0.6))
     mats = tshadow.light_matrices_cube(scene.lights, prepared.scene_min, prepared.scene_max)
     weights = tshadow.signature_weights(prepared.model.shape[0], dev)
@@ -3674,11 +3397,9 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
                  for label, slot_list in (("the envelope", slots),
                                           ("sponza's pattern", slots[:1] + (None,) * 3))]
     part("shadow pass and signatures")
-    profile_main_path("envelope_profile", r, dev, card, cam_at=lambda k, d: cam(0.6 + 0.01 * k))
-    part("profile")
-    shade = PASS_PROFILES["envelope_profile"].get("shade_shadowed", math.nan)
-    shade_4 = PASS_PROFILES.get("shadow_profile", {}).get("shade_shadowed", math.nan)
-    capture_s, pool_mib = program.capture_s, program.pool_bytes / 2**20
+    # the steady frame's spans, with every unit clean again
+    trace = replayed_trace(r, dev, cam_at=lambda k, d: cam(0.6 + 0.01 * k))
+    part("frame trace")
     r.drop_plans()
     del r, program, atlas
     torch.cuda.empty_cache()
@@ -3692,12 +3413,8 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
         f"{ms_list(conv_ms[:8])} last 4 {ms_list(conv_ms[-4:])} ms, mean over the unit frames "
         f"{statistics.mean(conv_ms[:n_units - 1]):.2f} ms; no signature NaN; atlas coverage "
         f"{100 * coverage_conv:.1f}%; steady {steady_ms:.2f} ms/frame over {ENVELOPE_STEADY} "
-        f"frames, kernel 1 {ENVELOPE_STEADY} launches (the camera's: 0 in the atlas), busy "
-        f"{busy:.3f} ms/frame (idle {100 * (1 - busy / steady_ms):.1f}%) over "
-        f"{GRAPH_PROFILE_FRAMES} traced frames, longest (ms/frame, launches/frame) "
-        + ", ".join(f"{e.key[:90]} {e.self_device_time_total / 1e3 / GRAPH_PROFILE_FRAMES:.3f} "
-                    f"{e.count / GRAPH_PROFILE_FRAMES:.0f}" for e in longest)
-        + f"; atlas copies a steady frame: {copy_bytes / 2**30:.2f} GiB moved (16 slot copies, "
+        f"frames, kernel 1 {ENVELOPE_STEADY} launches (the camera's: 0 in the atlas); atlas "
+        f"copies a steady frame: {copy_bytes / 2**30:.2f} GiB moved (16 slot copies, "
         f"the stack, the donation, each read and written once), device ms each alone in a "
         f"graph {json.dumps({k: round(v, 4) for k, v in copies.items()})} = {copy_ms:.3f} ms "
         f"({copy_bytes / copy_ms / 1e6:.0f} GB/s); light {ENVELOPE_LIGHT} moved to "
@@ -3706,11 +3423,9 @@ def envelope_phase(cfg, path_launches, dev, card) -> None:
         f"then none: {ms_list([m for m, _, _ in moved_frames])} ms; light {ENVELOPE_LIGHT} "
         f"orbiting ({ENVELOPE_ORBIT} frames): units per frame {orbit_units[1:]}, "
         f"{ms_list(orbit_ms)} ms, mean {statistics.mean(orbit_ms):.2f}; shadow pass at no update "
-        f"(cut plans) {shadow['with nodes']:.3f} ms a replay with conditional nodes, "
-        f"{shadow['without nodes']:.3f} without; signatures at " + "; at ".join(sig_lines) + "; "
-        f"shade_shadowed device {shade:.3f} ms/frame against {shade_4:.3f} at 4 slots of "
-        f"512x512 (phase 19); capture {capture_s:.2f} s, pool {pool_mib:.0f} MiB, state "
-        f"{state_mib:.0f} MiB ({card})"))
+        f"(cut plans) {shadow:.3f} ms a replay; signatures at " + "; at ".join(sig_lines)
+        + f"; steady frames after the orbit: {trace_line(trace)}; "
+        f"capture {capture_s:.2f} s, pool {pool_mib:.0f} MiB, state {state_mib:.0f} MiB ({card})"))
 
     # replayed against eager, bit for bit: image, vis and the whole state
     eager, replay = shadowed(False), shadowed(None)
@@ -3996,12 +3711,11 @@ def main(argv=None) -> int:
     img_base, coverage, brightness = check_image(out)
     write_png(os.path.join(enable_persistent_cache(), "chip_smoke_frame.png"),
               np.clip(img_base, 0.0, 1.0))
-    passes = replayed_pass_ms(renderer, dev)
+    trace = replayed_trace(renderer, dev)
     phase("main_path", f"{frame_ms:.2f} ms/frame = {1e3 / frame_ms:.2f} FPS over {FRAMES} frames "
                        f"({card}); {int(out['soup'].count)} visible triangles; raster launches "
                        f"{launches} = frames {frames}; coverage {coverage:.3f}, mean "
-                       f"{brightness:.3f}; pass ms "
-                       + json.dumps({k: round(v, 3) for k, v in passes.items()}))
+                       f"{brightness:.3f}; {trace_line(trace)}")
 
     # 8. main path, kernel vs plain raster ------------------------------------
     cam = orbit_camera(0.3, WIDTH / HEIGHT, dev)
@@ -4020,9 +3734,6 @@ def main(argv=None) -> int:
         raise AssertionError(f"main path PSNR kernel vs plain {frame_psnr:.1f} dB")
     phase("main_vs_plain", f"tri_id identical; display-clamped PSNR "
                            f"{'inf' if math.isinf(frame_psnr) else f'{frame_psnr:.1f}'} dB")
-
-    # 9. profile ----------------------------------------------------------------
-    profile_main_path("profile", renderer, dev, card)
 
     # 10. rt: slot 0's occlusion inputs at the bench camera --------------------
     rt_cfgs = {s: dataclasses.replace(cfg, rt_scale=s) for s in RT_SCALES}
@@ -4124,15 +3835,15 @@ def main(argv=None) -> int:
                              "of covered pixels")
     write_png(os.path.join(enable_persistent_cache(), "chip_smoke_rt_frame.png"),
               np.clip(img_rt, 0.0, 1.0))
-    rt_passes = replayed_pass_ms(rt_renderer, dev)
+    rt_trace = replayed_trace(rt_renderer, dev)
     phase("rt_main_path", f"{rt_ms:.2f} ms/frame = {1e3 / rt_ms:.2f} FPS over {FRAMES} frames vs "
                           f"base {frame_ms:.2f} ms/frame ({card}); traced slots "
                           f"{[sl for sl in slots if sl is not None]}; occlusion launches "
                           f"{occ_launches} = frames {frames} x {per_frame}, raster launches "
                           f"{ras_launches}, add_one/transpose launches on both main paths "
                           f"{probe_launches}; coverage {coverage:.3f}, mean {brightness:.3f}, darker "
-                          f"than rt-off by > 0.05 on {100 * dark_share:.2f}% of covered pixels; pass ms "
-                          + json.dumps({k: round(v, 3) for k, v in rt_passes.items()}))
+                          f"than rt-off by > 0.05 on {100 * dark_share:.2f}% of covered pixels; "
+                          f"{trace_line(rt_trace)}")
 
     # 12. rt frame, kernel vs plain occlusion ------------------------------------
     def rt_frame():
@@ -4161,9 +3872,6 @@ def main(argv=None) -> int:
     phase("rt_vs_plain", f"{len(ref_planes)} occlusion planes and the images identical; "
                          f"display-clamped PSNR {'inf' if math.isinf(rt_psnr) else f'{rt_psnr:.1f}'} dB")
 
-    # 13. rt profile ------------------------------------------------------------
-    profile_main_path("rt_profile", rt_renderer, dev, card)
-
     tier_ms = shadow_phases(scene, prepared, cfg, renderer, frame_ms, path_launches, dev, card)
     city = culling_phases(scene, prepared, cfg, renderer, kernel_ms, path_launches, dev, card)
     tier_phases(scene, cfg, renderer, frame_ms, path_launches, dev, card)
@@ -4172,7 +3880,7 @@ def main(argv=None) -> int:
     kernels["scan_raster"] = scan_raster_phase(scene, cfg, dev, card)
     kernels["rt_brute"] = rt_brute_phase(dev, card)
     kernels["shade"] = shade_phase(cfg, dev, card)
-    bench_phase(tier_ms, scene, cfg, dev, card)
+    bench_phase(tier_ms, card)
     split_phase(scene, cfg, path_launches, kernels, dev, card)
     graph_phase(scene, cfg, path_launches, dev, card)
     envelope_phase(cfg, path_launches, dev, card)

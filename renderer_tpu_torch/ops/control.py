@@ -26,14 +26,10 @@ LIBRARY = cuda_build.library("graph_cond.cu")
 _PTR = ctypes.c_void_p
 MIN_CUDA = (12, 4)  # cudaStreamBeginCaptureToGraph and conditional nodes
 MAX_BODIES = 64  # conditional nodes per capture and device (one per shadow slot and shard)
-# False: captures keep torch.where (chip_smoke.py measures what the nodes save)
-ENABLED = True
 
 
 def conditional_nodes() -> tuple:
     """(whether a capture can make conditional nodes here, why not)."""
-    if not ENABLED:
-        return False, "turned off (ops.control.ENABLED)"
     if not torch.cuda.is_available():
         return False, "no CUDA device"
     version = tuple(int(v) for v in (torch.version.cuda or "0.0").split(".")[:2])

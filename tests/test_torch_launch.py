@@ -1,6 +1,7 @@
 """The Python side of the kernels' launch path, on the CPU: the occlusion
 kernel's scratch size and work split, the wrappers' routing and input
-checks, which raise before anything is built or launched, and
+checks, which raise before anything is built or launched, why a capture
+keeps ``torch.where`` where it cannot make conditional nodes, and
 ``cuda_build``'s registry of libraries and kernels under the kernel
 reloader (a reloaded module keeps its objects; on the card, an edited
 source rebuilt into the same CudaKernel).
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from renderer_tpu_torch.models import box_scene
-from renderer_tpu_torch.ops import cuda_build, probe_cuda
+from renderer_tpu_torch.ops import control, cuda_build, probe_cuda
 from renderer_tpu_torch.ops import occlusion_cuda as oc
 from renderer_tpu_torch.ops import raster_cuda as rc
 from renderer_tpu_torch.ops.rt_grid import occlusion_inputs
@@ -78,6 +79,25 @@ def test_launcher_appends_the_stream_pointer():
     assert kernel.argtypes == [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     assert kernel.launches == 0
     assert oc.OCCLUSION_TILES.argtypes[-1] is ctypes.c_void_p
+
+
+@pytest.mark.parametrize("cuda, version, why", [(False, "12.8", "no CUDA device"),
+                                                 (True, "12.3", "CUDA runtime 12.3 < 12.4")])
+def test_captures_keep_where_without_conditional_nodes(monkeypatch, cuda, version, why):
+    """Where the host cannot make conditional nodes, ``conditional_nodes``
+    names what it lacks (nothing else turns them off), and ``cond`` inside
+    a capture without a Conditional for its device is ``torch.where``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
+    monkeypatch.setattr(torch.version, "cuda", version)
+    assert control.conditional_nodes() == (False, why)
+    assert not hasattr(control, "ENABLED")
+    rng = np.random.default_rng(5)
+    prev, fresh = (torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32))
+                   for _ in range(2))
+    for p in (True, False):
+        with control.capturing({}):
+            got = control.cond(torch.tensor(p), lambda: fresh, prev)
+        assert torch.equal(got, torch.where(torch.tensor(p), fresh, prev))
 
 
 def edit(path, text):

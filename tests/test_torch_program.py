@@ -17,7 +17,9 @@ the visible triangle equal on >= 99.9% of pixels and display-clamped PSNR
 
 The card tests (``-m gpu``, skipped without a CUDA device): the replayed
 frame equals the eager one bit for bit in every captured tier at a small
-size, ``launches`` counts replays, and the conditional node skips an
+size (the shadowed tiers' replays through conditional nodes against the
+eager frames' ``torch.where``), ``launches`` counts replays, and the
+conditional node skips an
 unselected atlas slot (no kernel launched, the atlas unchanged) and runs a
 selected one:
 
@@ -322,6 +324,22 @@ def test_replay_equals_eager(name):
     program = _card_frames(name)
     assert program.stats["compiles"] == (2 if CARD_TIERS[name][1] else 1)  # per switch set
     assert all(p.graphs for p in program.programs.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["shadowed_static_checkerboard_fix", "shadowed_dynamic"])
+def test_shadowed_replay_through_conditional_nodes_equals_eager(name):
+    """The shadowed frames replayed through the atlas's conditional nodes
+    equal the eager frames (``torch.where``) bit for bit (``_card_frames``'
+    lockstep), and the shadowed program made the nodes."""
+    _card()
+    ok, why = control.conditional_nodes()
+    if not ok:
+        pytest.skip(f"no conditional nodes: {why}")
+    program = _card_frames(name)
+    shadowed = next(p for key, p in program.programs.items()
+                    if dict(key[0]) == vars(program.config))
+    assert shadowed.conditional is None and any(c.bodies for c in shadowed._bodies)
 
 
 @pytest.mark.gpu
